@@ -1,0 +1,1 @@
+"""cli layer of the port (see the package docstring)."""

@@ -1,0 +1,1 @@
+"""codecs layer of the port (see the package docstring)."""

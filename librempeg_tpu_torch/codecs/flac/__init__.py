@@ -1,0 +1,1 @@
+"""codecs/flac layer of the port (see the package docstring)."""

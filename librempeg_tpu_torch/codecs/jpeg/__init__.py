@@ -1,0 +1,1 @@
+"""codecs/jpeg layer of the port (see the package docstring)."""

@@ -1,0 +1,1 @@
+"""formats layer of the port (see the package docstring)."""

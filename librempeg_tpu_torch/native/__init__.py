@@ -1,0 +1,1 @@
+"""native layer of the port (see the package docstring)."""

@@ -1,0 +1,1 @@
+"""ops layer of the port (see the package docstring)."""

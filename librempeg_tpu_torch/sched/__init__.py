@@ -1,0 +1,1 @@
+"""sched layer of the port (see the package docstring)."""

@@ -3,26 +3,36 @@
 
     python3 chip_smoke.py [--profile DIR]
 
-Phases, in order; any failure raises and the script exits non-zero:
+It drives two paths and seven kernels. Phases, in order; any failure
+raises and the script exits non-zero:
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: the native host library and the four CUDA kernels, from the
-   sources in this checkout;
+2. build: the native host library and the CUDA kernels, from the
+   sources in this checkout (one nvcc per source, all at once);
 3. one phase per kernel: the kernel against its plain PyTorch version on
-   the card, on real inputs (the first P frame of assets/bench_1080p.264
-   for the H.264 kernels; the encoder's first I-VOP recon and the next
-   scaled frame for the half-pel kernel), bit-exact, with the median of
-   25 synchronised runs of each;
+   the card, on real inputs, with the median of 25 synchronised runs of
+   each. The H.264 kernels (mc, intra, deblock, residual) take the first
+   P frame of assets/bench_1080p.264, the residual kernel through the
+   windowless packer; the half-pel kernels (hpel_luma, hpel_chroma) the
+   encoder's first I-VOP recon and the next scaled frame; the full
+   search (fsearch) the kernel leg's first step. All bit-exact, except
+   fsearch on float inputs (see fsearch_phase);
 4. slice: the bench transcode (1080p H.264 -> 1280x720 MPEG-4 at 4 Mb/s)
    through Transcoder on the card. Every decoded frame's md5 must match
    the JAX package's (tests/data/torch_port), the AVI must hold 48
    packets with an I-VOP every 12, the mean in-loop recon PSNR must be
-   within 0.5 dB of the JAX package's, and every kernel must have
-   launched during this run;
+   within 0.5 dB of the JAX package's, and mc, intra, deblock, hpel_luma
+   and hpel_chroma must have launched during this run;
 5. fps: steady-state transcode rate measured like bench.py's e2e leg
    (16 warm frames, then 24 timed, each window ending in chain.sync()),
    with the stage split. --profile DIR adds a torch.profiler window of
-   8 frames; its table goes to DIR/chip_smoke_profile.txt.
+   8 frames; its table goes to DIR/chip_smoke_profile.txt;
+6. kernel leg: parallel.transcode_step as bench.py's kernel leg runs it
+   (8 testgen frames 1920x1088 -> 1280x720, qscale 4, 4 chained steps),
+   held to the JAX package's goldens (tests/data/torch_port/
+   kernel_leg.npz); fsearch must launch once per step; then one warm
+   pass of the 4 steps is timed (--profile: and one more profiled, its
+   table in DIR/chip_smoke_profile_kernel_leg.txt).
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
@@ -32,6 +42,7 @@ from __future__ import annotations
 import argparse
 import hashlib
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -46,15 +57,47 @@ PSNR_TOL_DB = 0.5
 RUNS = 25
 
 KERNELS = {
+    # name: (source, the TPU kernel it replaces, PERF.md table row, the
+    # path whose run counts its launches)
     "mc": ("librempeg_tpu_torch/csrc/mc.cu",
-           "librempeg_tpu/codecs/h264/mc_pallas.py:324"),
-    "intra": ("librempeg_tpu_torch/csrc/intra.cu",
-              "librempeg_tpu/codecs/h264/intra_pallas.py:578"),
+           "librempeg_tpu/codecs/h264/mc_pallas.py:324", "1", "e2e"),
     "deblock": ("librempeg_tpu_torch/csrc/deblock.cu",
-                "librempeg_tpu/codecs/h264/deblock_pallas.py:275"),
-    "hpel": ("librempeg_tpu_torch/csrc/hpel.cu",
-             "librempeg_tpu/codecs/mpeg4/me_pallas.py:479"),
+                "librempeg_tpu/codecs/h264/deblock_pallas.py:275", "2",
+                "e2e"),
+    "intra": ("librempeg_tpu_torch/csrc/intra.cu",
+              "librempeg_tpu/codecs/h264/intra_pallas.py:578", "3", "e2e"),
+    "hpel_luma": ("librempeg_tpu_torch/csrc/hpel.cu",
+                  "librempeg_tpu/codecs/mpeg4/me_pallas.py:259", "4, 4b "
+                  "(per-MB form me_pallas.py:131)", "e2e"),
+    "hpel_chroma": ("librempeg_tpu_torch/csrc/hpel.cu",
+                    "librempeg_tpu/codecs/mpeg4/me_pallas.py:427", "4, 4b "
+                    "(per-MB form me_pallas.py:343)", "e2e"),
+    "fsearch": ("librempeg_tpu_torch/csrc/fsearch.cu",
+                "librempeg_tpu/ops/pallas/mesearch.py:95", "5",
+                "kernel_leg"),
+    "residual": ("librempeg_tpu_torch/csrc/residual.cu",
+                 "librempeg_tpu/codecs/h264/residual_pallas.py:257", "6",
+                 "kernel phase (no path runs it)"),
 }
+E2E_KERNELS = tuple(n for n, k in KERNELS.items() if k[3] == "e2e")
+
+# the kernel leg (bench.py _leg_kernel)
+LEG_BATCH, LEG_H, LEG_W, LEG_DH, LEG_DW, LEG_ITERS = 8, 1088, 1920, 720, 1280, 4
+LEG_QSCALE = 4.0
+# Bounds against the JAX package's goldens, set from a full-size run of
+# the port against the JAX package on a CPU
+# (tools/torch_port_goldens_kernel_leg.py --calibrate): MVs equal on
+# 1.000000, 0.984826, 0.935139, 0.844896 of blocks at steps 0-3, luma
+# recon sample PSNR 67.29, 56.43, 50.43, 47.15 dB. Each step's reference
+# is the previous step's recon, so last-bit float differences in the
+# scale and DCT flip a few levels at step 0 and then break near-ties of
+# later searches (testgen's diagonal ramp matches itself shifted along
+# the anti-diagonal). Step 0 sees the same inputs in both packages and
+# keeps 99.5%; later steps allow three times the measured share of
+# differing MVs. Where MVs differ, the JAX package's MV must cost no
+# less than the port's on the port's own inputs (a tie, not a miss).
+LEG_MV_FLOOR = (0.995, 0.954, 0.805, 0.534)
+LEG_PSNR_DB = 40.0
 
 
 def log(msg: str) -> None:
@@ -160,10 +203,12 @@ def capture_p_frame(dev):
 def kernel_phases(dev) -> dict:
     import torch
 
+    from librempeg_tpu_torch import kernels
     from librempeg_tpu_torch.codecs.h264 import deblock_pallas as DP
     from librempeg_tpu_torch.codecs.h264 import device_recon as DR
     from librempeg_tpu_torch.codecs.h264 import intra_pallas as IP
     from librempeg_tpu_torch.codecs.h264 import mc_pallas as MC
+    from librempeg_tpu_torch.codecs.h264 import residual_pallas as RP
     from librempeg_tpu_torch.codecs.mpeg4 import encoder as ME
     from librempeg_tpu_torch.codecs.mpeg4 import me_pallas as MEP
     from librempeg_tpu_torch.kernels import deblock as KD
@@ -248,15 +293,208 @@ def kernel_phases(dev) -> dict:
     cur = sc.scale_planes(frames[1].planes)[0].to(torch.float32)
     mv_i = motion.full_search_mc_xla(cur[None], ry[None], 8, 16, 2)[0][0]
     hargs = (cur, ry, ru, rv, mv_i)
-    got = MEP.hpel_refine_mc(*hargs)
-    want = MEP.hpel_refine_mc_plain(*hargs)
-    err = max_abs_err(got, want)
-    check(err == 0, f"hpel kernel differs from its plain version: {err}")
-    res["hpel"] = {"max_abs_err": err,
-                   "ms": median_ms(lambda: MEP.hpel_refine_mc(*hargs)),
-                   "plain_ms": median_ms(
-                       lambda: MEP.hpel_refine_mc_plain(*hargs)),
-                   "shape": "1280x720, 3600 MBs"}
+    err = max_abs_err(MEP.hpel_refine_mc(*hargs),
+                      MEP.hpel_refine_mc_plain(*hargs))
+    check(err == 0, f"hpel_refine_mc differs from its plain version: {err}")
+    largs = (cur, ry, mv_i)
+    got = MEP.refine_mc_luma(*largs)
+    err = max_abs_err(got, MEP.refine_mc_luma_plain(*largs))
+    check(err == 0, f"hpel luma kernel differs from its plain version: "
+          f"{err}")
+    res["hpel_luma"] = {
+        "max_abs_err": err,
+        "ms": median_ms(lambda: MEP.refine_mc_luma(*largs)),
+        "plain_ms": median_ms(lambda: MEP.refine_mc_luma_plain(*largs)),
+        "shape": "1280x720, 3600 MBs"}
+    cargs = (ru, rv, got[0])
+    err = max_abs_err(MEP.mc_chroma(*cargs), MEP.mc_chroma_plain(*cargs))
+    check(err == 0, f"hpel chroma kernel differs from its plain version: "
+          f"{err}")
+    res["hpel_chroma"] = {
+        "max_abs_err": err,
+        "ms": median_ms(lambda: MEP.mc_chroma(*cargs)),
+        "plain_ms": median_ms(lambda: MEP.mc_chroma_plain(*cargs)),
+        "shape": "2x 640x360, 3600 MBs"}
+
+    # residual: the P frame's coefficients as compact rows (no window:
+    # the JAX package's packer cannot take this frame)
+    nmb = mb_w * mb_h
+    coeffs = DR.dense_coeffs(idx, vals, nmb)
+    host = (coeffs.cpu().numpy(), qp.cpu().numpy(), kind.cpu().numpy(),
+            cqo, mb_w, mb_h)
+    windowed = RP.pack_residual_host(*host)[2]
+    ids, levels = RP.compact_rows(*host)
+    packed = torch.from_numpy(RP.pack_rows(ids, levels)).to(dev)
+    kernels.reset_counts()
+    got = RP.expand_residual(packed, None, nmb)
+    launches = kernels.counts()["residual"]
+    check(launches == 1, f"residual kernel launches: {launches}")
+    err = max_abs_err([got], [RP.expand_residual_plain(packed, nmb)])
+    check(err == 0, f"residual kernel differs from its plain version: {err}")
+    lres, cres = DR._residuals(coeffs, qp, cqo, nmb, is_i16=kind == 3)
+    want = RP.spatial_from_residuals(lres, cres).to(torch.float32)
+    err_dr = max_abs_err([got[:nmb]], [want])
+    check(err_dr == 0, f"residual kernel differs from device_recon."
+          f"_residuals: {err_dr}")
+    res["residual"] = {
+        "max_abs_err": err, "launches": launches,
+        "ms": median_ms(lambda: RP.expand_residual(packed, None, nmb)),
+        "plain_ms": median_ms(lambda: RP.expand_residual_plain(packed,
+                                                               nmb)),
+        "shape": f"{len(ids)} rows, {nmb} MBs (the JAX packer's 512-row "
+                 f"window {'holds' if windowed else 'overflows'})"}
+    return res
+
+
+def leg_inputs(dev):
+    """bench.py's kernel-leg inputs (the same numpy as
+    tools/torch_port_goldens_kernel_leg.py): 8 testgen frames and the
+    seed-0 random first reference, float32 on `dev`."""
+    import numpy as np
+    import torch
+
+    from librempeg_tpu_torch.utils import testgen
+
+    planes = [testgen.video_yuv420(LEG_W, LEG_H, i)
+              for i in range(LEG_BATCH)]
+    y, u, v = (torch.from_numpy(np.stack(p).astype(np.float32)).to(dev)
+               for p in zip(*planes))
+    ref = np.random.default_rng(0).integers(0, 256, (LEG_BATCH, LEG_DH,
+                                                     LEG_DW))
+    return y, u, v, torch.from_numpy(ref.astype(np.float32)).to(dev)
+
+
+def fsearch_phase(dev, leg) -> dict:
+    """The full search at the kernel leg's first step: the scaled luma
+    against the random reference, r = 4. (a) cur rounded to integers:
+    bit-exact. (b) the real float cur: the kernel sums each block in
+    another order than the plain version, so MVs equal on >= 99.9% of
+    blocks, costs within 1e-5 relative and pred equal where MVs are."""
+    from librempeg_tpu_torch.ops.pallas import mesearch as MS
+    from librempeg_tpu_torch.parallel import pipeline as PP
+
+    y, _, _, ref = leg
+    cur = PP.resize_clip(y, LEG_DH, LEG_DW)
+    cur_i = cur.round()
+    err = max_abs_err(MS.full_search_mc(cur_i, ref, 4),
+                      MS.full_search_mc_plain(cur_i, ref, 4))
+    check(err == 0, f"fsearch kernel differs from its plain version on "
+          f"integer inputs: {err}")
+    (gm, gc, gp), (wm, wc, wp) = (MS.full_search_mc(cur, ref, 4),
+                                  MS.full_search_mc_plain(cur, ref, 4))
+    same = (gm == wm).all(-1)
+    share = float(same.float().mean())
+    rel = float(((gc - wc).abs() / wc.clamp(min=1.0))[same].max())
+    bs = 16
+    pix = same.repeat_interleave(bs, 1).repeat_interleave(bs, 2)
+    pred_ok = bool((gp == wp)[pix].all())
+    check(share >= 0.999 and rel <= 1e-5 and pred_ok,
+          f"fsearch on float inputs: MVs equal on {share}, cost rel err "
+          f"{rel}, pred equal where MVs are: {pred_ok}")
+    return {"max_abs_err": err, "float_mv_equal": share,
+            "float_cost_rel_err": rel,
+            "ms": median_ms(lambda: MS.full_search_mc(cur, ref, 4)),
+            "plain_ms": median_ms(lambda: MS.full_search_mc_plain(cur, ref,
+                                                                  4)),
+            "shape": f"{LEG_BATCH}x{LEG_DH}x{LEG_DW}, r=4, "
+                     f"{LEG_BATCH * (LEG_DH // 16) * (LEG_DW // 16)} MBs"}
+
+
+def block_cost(cur, ref, mv, r: int = 4):
+    """The full search's cost of each block at the given MVs."""
+    import torch
+
+    from librempeg_tpu_torch.ops import motion
+
+    n, h, w = cur.shape
+    ref_pad = motion._edge_pad(ref, r, r).to(torch.bfloat16)
+    by = (torch.arange(h // 16, device=cur.device) * 16)[None, :, None]
+    bx = (torch.arange(w // 16, device=cur.device) * 16)[None, None, :]
+    win = motion._gather_windows(ref_pad, by + mv[..., 0] + r,
+                                 bx + mv[..., 1] + r, 16)
+    curb = cur.to(torch.bfloat16).reshape(n, h // 16, 16, w // 16, 16) \
+        .permute(0, 1, 3, 2, 4)
+    return (curb - win).abs().to(torch.float32).sum(dim=(-2, -1))
+
+
+def psnr_db(a, b) -> float:
+    d = a.double() - b.double()
+    mse = float((d * d).mean())
+    return float("inf") if mse == 0 else 10 * math.log10(255.0 ** 2 / mse)
+
+
+def kernel_leg_phase(dev, leg, profile_dir: str | None) -> dict:
+    """The kernel leg's 4 chained steps, held to the JAX package's
+    goldens, with the launch counters reset before them; then one warm
+    pass timed, and with --profile one more under torch.profiler."""
+    import numpy as np
+    import torch
+
+    from librempeg_tpu_torch import kernels
+    from librempeg_tpu_torch.parallel import pipeline as PP
+    from librempeg_tpu_torch.parallel import transcode_step
+
+    gold = np.load(os.path.join(GOLD, "kernel_leg.npz"))
+    off, rs, cs = (int(x) for x in gold["sample"])
+    y, u, v, ref = leg
+    cur = PP.resize_clip(y, LEG_DH, LEG_DW)
+    nblk = LEG_BATCH * (LEG_DH // 16) * (LEG_DW // 16)
+    kernels.reset_counts()
+    steps = []
+    for step in range(LEG_ITERS):
+        out = transcode_step(y, u, v, ref, LEG_DH, LEG_DW, LEG_QSCALE)
+        steps.append((ref, out))
+        ref = out["y"]
+    torch.cuda.synchronize()
+    counts = kernels.counts()
+    check(counts["fsearch"] == LEG_ITERS,
+          f"fsearch launches on the kernel leg: {counts['fsearch']}")
+    res = {"launches": counts, "mv_equal": [], "psnr_db": [],
+           "tie_excess_max": []}
+    for step, (prev, out) in enumerate(steps):
+        mv = out["mv"]
+        check(tuple(mv.shape) == (LEG_BATCH, LEG_DH // 16, LEG_DW // 16, 2)
+              and tuple(out["y"].shape) == (LEG_BATCH, LEG_DH, LEG_DW),
+              (step, mv.shape, out["y"].shape))
+        for k in ("y", "u", "v", "levels_y", "levels_u", "levels_v"):
+            check(bool(torch.isfinite(out[k]).all()), (step, k, "finite"))
+        jmv = torch.from_numpy(gold["mv"][step].astype(np.int32)).to(dev)
+        same = (mv == jmv).all(-1)
+        share = float(same.float().mean())
+        smp = out["y"][:, off::rs, off::cs]
+        p = psnr_db(smp, torch.from_numpy(
+            gold["y_sample"][step].astype(np.float32)).to(dev))
+        pc, jc = block_cost(cur, prev, mv), block_cost(cur, prev, jmv)
+        excess = float((pc - jc).max())
+        check(share >= LEG_MV_FLOOR[step],
+              f"kernel leg step {step}: MVs equal the JAX package's on "
+              f"{share} of {nblk} blocks (< {LEG_MV_FLOOR[step]})")
+        check(p >= LEG_PSNR_DB, f"kernel leg step {step}: luma recon PSNR "
+              f"{p} dB against the JAX package's")
+        check(bool((jc >= pc * (1 - 1e-5)).all()),
+              f"kernel leg step {step}: the JAX package's MV beats the "
+              f"port's on some block by {excess}")
+        res["mv_equal"].append(share)
+        res["psnr_db"].append(p)
+        res["tie_excess_max"].append(excess)
+    del steps
+
+    def chained():
+        ref = leg[3]
+        for _ in range(LEG_ITERS):
+            ref = transcode_step(y, u, v, ref, LEG_DH, LEG_DW,
+                                 LEG_QSCALE)["y"]
+        torch.cuda.synchronize()
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    chained()
+    dt = time.perf_counter() - t0
+    res["fps"] = LEG_BATCH * LEG_ITERS / dt
+    res["wall_s"] = dt
+    if profile_dir is not None:
+        res["profile"] = profile_window(chained, os.path.join(
+            profile_dir, "chip_smoke_profile_kernel_leg.txt"))
     return res
 
 
@@ -316,13 +554,37 @@ def slice_phase(dev, out_avi: str) -> dict:
     mean = statistics.fmean(psnr)
     gmean = gold["mean_recon_psnr_db"]
     check(abs(mean - gmean) <= PSNR_TOL_DB, (mean, gmean))
-    missing = [k for k, n in counts.items() if n <= 0]
-    check(not missing, f"kernels not launched on the main path: {missing}")
+    missing = [k for k in E2E_KERNELS if counts[k] <= 0]
+    check(not missing, f"kernels not launched on the e2e path: {missing}")
     return {"frames": stats["frames"][0], "packets": len(pkts),
             "vop_types": types, "mean_recon_psnr_db": mean,
             "jax_mean_recon_psnr_db": gmean, "launches": counts,
             "wall_s": dt, "avi_bytes": os.path.getsize(out_avi),
             "peak_device_mib": peak / 2 ** 20}
+
+
+def profile_window(run, table_path: str) -> dict:
+    """Run run() (which ends in a synchronise) under torch.profiler;
+    write the table of device time by name to table_path and return the
+    window's wall time, device busy time and device idle share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as prof
+
+    os.makedirs(os.path.dirname(table_path), exist_ok=True)
+    with prof(activities=[ProfilerActivity.CPU,
+                          ProfilerActivity.CUDA]) as p:
+        t0 = time.perf_counter()
+        run()
+        wall = time.perf_counter() - t0
+    ka = p.key_averages()
+    # device-side events only (kernels, copies): the operator rows
+    # repeat the time of the kernels they launched
+    dev_us = sum(e.self_device_time_total for e in ka
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+    with open(table_path, "w") as f:
+        f.write(ka.table(sort_by="self_device_time_total", row_limit=40))
+    return {"wall_ms": wall * 1e3, "device_busy_ms": dev_us / 1e3,
+            "device_idle_share": 1 - dev_us / 1e3 / (wall * 1e3)}
 
 
 def fps_phase(dev, out_avi: str, profile_dir: str | None) -> dict:
@@ -354,29 +616,13 @@ def fps_phase(dev, out_avi: str, profile_dir: str | None) -> dict:
     out = {"fps": 24 / dt, "split_s": {k: v["s"] for k, v in
                                        stagetimer.report().items()}}
     if profile_dir is not None:
-        from torch.profiler import ProfilerActivity, profile as prof
-
-        os.makedirs(profile_dir, exist_ok=True)
-        with prof(activities=[ProfilerActivity.CPU,
-                              ProfilerActivity.CUDA]) as p:
-            t0 = time.perf_counter()
+        def frames():
             for _ in range(8):
                 chain.send_packet(next(it), tc.mux)
             chain.sync()
-            wall = time.perf_counter() - t0
-        ka = p.key_averages()
-        # device-side events only (kernels, copies): the operator rows
-        # repeat the time of the kernels they launched
-        dev_us = sum(e.self_device_time_total for e in ka
-                     if e.device_type == torch.autograd.DeviceType.CUDA)
-        out["profile_8_frames"] = {"wall_ms": wall * 1e3,
-                                   "device_busy_ms": dev_us / 1e3,
-                                   "device_idle_share": 1 - dev_us / 1e3
-                                   / (wall * 1e3)}
-        with open(os.path.join(profile_dir, "chip_smoke_profile.txt"),
-                  "w") as f:
-            f.write(ka.table(sort_by="self_device_time_total",
-                             row_limit=40))
+
+        out["profile_8_frames"] = profile_window(
+            frames, os.path.join(profile_dir, "chip_smoke_profile.txt"))
     for pkt in it:
         chain.send_packet(pkt, tc.mux)
     chain.finish(tc.mux)
@@ -390,7 +636,8 @@ def main(argv: list[str]) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch "
                                  "port on one NVIDIA card.")
     ap.add_argument("--profile", metavar="DIR", dest="profile_dir",
-                    help="profile 8 frames; write the table into DIR")
+                    help="profile 8 e2e frames and one kernel-leg pass; "
+                    "write their tables into DIR")
     profile_dir = ap.parse_args(argv).profile_dir
     if not os.path.isdir(os.path.join(ROOT, "librempeg_tpu_torch")):
         print("chip_smoke: librempeg_tpu_torch is not beside this script",
@@ -415,20 +662,36 @@ def main(argv: list[str]) -> int:
         f"{torch.version.cuda})")
     dev = "cuda"
 
+    from concurrent.futures import ThreadPoolExecutor
+
+    from librempeg_tpu_torch import kernels
     from librempeg_tpu_torch.kernels import _build
     from librempeg_tpu_torch.native import build as native
 
-    t0 = time.perf_counter()
-    check(native.get() is not None, "native host library did not build")
-    log(f"build native: {time.perf_counter() - t0:.2f} s")
-    for name in KERNELS:
+    def build(name):
         t0 = time.perf_counter()
         _build.load(name)
-        log(f"build {name}: {time.perf_counter() - t0:.2f} s")
+        return name, time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(kernels.sources())) as pool:
+        builds = [pool.submit(build, n) for n in kernels.sources()]
+        check(native.get() is not None, "native host library did not build")
+        log(f"build native: {time.perf_counter() - t0:.2f} s")
+        for fut in builds:
+            name, dt = fut.result()
+            log(f"build {name}: {dt:.2f} s")
+    log(f"build all: {time.perf_counter() - t0:.2f} s")
 
     kres = kernel_phases(dev)
+    leg = leg_inputs(dev)
+    kres["fsearch"] = fsearch_phase(dev, leg)
     for name, r in kres.items():
-        log(f"kernel {name}: bit-exact, {r['ms']:.3f} ms vs plain "
+        exact = "bit-exact" if name != "fsearch" else (
+            f"bit-exact on integer inputs; float inputs: MVs equal on "
+            f"{r['float_mv_equal']:.6f}, cost rel err "
+            f"{r['float_cost_rel_err']:.2e}")
+        log(f"kernel {name}: {exact}, {r['ms']:.3f} ms vs plain "
             f"{r['plain_ms']:.3f} ms ({r['shape']})")
 
     with tempfile.TemporaryDirectory() as td:
@@ -444,9 +707,25 @@ def main(argv: list[str]) -> int:
     if "profile_8_frames" in f:
         log("profile: " + json.dumps(f["profile_8_frames"]))
 
+    k = kernel_leg_phase(dev, leg, profile_dir)
+    log(f"kernel leg: {LEG_BATCH}x{LEG_H}x{LEG_W} -> {LEG_DH}x{LEG_DW}, "
+        f"{LEG_ITERS} chained steps; launches {k['launches']}; MVs equal "
+        f"the JAX package's on {[round(x, 6) for x in k['mv_equal']]}; "
+        f"luma recon PSNR {[round(x, 2) for x in k['psnr_db']]} dB; "
+        f"largest cost by which the JAX MV trails the port's "
+        f"{k['tie_excess_max']}")
+    log(f"kernel leg: {k['fps']:.3f} fps ({LEG_BATCH * LEG_ITERS} frames "
+        f"in {k['wall_s'] * 1e3:.3f} ms, one warm pass)")
+    if "profile" in k:
+        log("kernel leg profile: " + json.dumps(k["profile"]))
+
+    launches = {n: s["launches"][n] for n in E2E_KERNELS}
+    launches["fsearch"] = k["launches"]["fsearch"]
+    launches["residual"] = kres["residual"]["launches"]
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0],
-         "replaces": KERNELS[name][1], "launches": s["launches"][name],
+         "replaces": KERNELS[name][1], "row": KERNELS[name][2],
+         "launches": launches[name], "path": KERNELS[name][3],
          "max_abs_err": kres[name]["max_abs_err"], "ms": kres[name]["ms"],
          "plain_ms": kres[name]["plain_ms"]} for name in KERNELS]}
     log(json.dumps(record))

@@ -1,10 +1,24 @@
 """CUDA kernels of the port: one binding module per kernel (ctypes over
-an nvcc-built library from csrc/), each with a launch counter."""
+an nvcc-built library from csrc/<SOURCE>.cu), each with a launch
+counter."""
 from __future__ import annotations
 
-from librempeg_tpu_torch.kernels import deblock, hpel, intra, mc
+from librempeg_tpu_torch.kernels import (
+    deblock,
+    fsearch,
+    hpel_chroma,
+    hpel_luma,
+    intra,
+    mc,
+    residual,
+)
 
-MODULES = (mc, deblock, intra, hpel)
+MODULES = (mc, deblock, intra, hpel_luma, hpel_chroma, fsearch, residual)
+
+
+def sources() -> list[str]:
+    """The csrc/*.cu sources the kernels are built from."""
+    return sorted({m.SOURCE for m in MODULES})
 
 
 def reset_counts() -> None:

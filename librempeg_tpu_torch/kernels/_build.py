@@ -22,7 +22,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 _OUT = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 
-_lock = threading.Lock()
+_lock = threading.Lock()           # guards _locks
+_locks: dict[str, threading.Lock] = {}
 _libs: dict[str, ctypes.CDLL] = {}
 
 
@@ -40,8 +41,11 @@ def _nvcc() -> str:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The kernel library `name`, built from csrc/<name>.cu if needed."""
+    """The kernel library `name`, built from csrc/<name>.cu if needed.
+    Different names build concurrently (one nvcc each)."""
     with _lock:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
         lib = _libs.get(name)
         if lib is not None:
             return lib

@@ -9,13 +9,14 @@ import torch
 from librempeg_tpu_torch.kernels import _build as B
 
 NAME = "deblock"
+SOURCE = "deblock"
 #: deblock_frame calls since the last reset (each call launches the
 #: kernel once per diagonal)
 LAUNCHES = 0
 
 
 def _lib():
-    lib = B.load(NAME)
+    lib = B.load(SOURCE)
     fn = lib.deblock_frame
     if fn.restype is not ctypes.c_int:
         fn.restype = ctypes.c_int

@@ -9,12 +9,13 @@ import torch
 from librempeg_tpu_torch.kernels import _build as B
 
 NAME = "intra"
+SOURCE = "intra"
 #: kernel launches since the last reset (one per call)
 LAUNCHES = 0
 
 
 def _lib():
-    lib = B.load(NAME)
+    lib = B.load(SOURCE)
     fn = lib.intra_scan
     if fn.restype is not ctypes.c_int:
         fn.restype = ctypes.c_int

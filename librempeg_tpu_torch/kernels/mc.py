@@ -8,12 +8,13 @@ import torch
 from librempeg_tpu_torch.kernels import _build as B
 
 NAME = "mc"
+SOURCE = "mc"
 #: kernel launches since the last reset (one per call)
 LAUNCHES = 0
 
 
 def _lib():
-    lib = B.load(NAME)
+    lib = B.load(SOURCE)
     fn = lib.mc_predict
     if fn.restype is not ctypes.c_int:
         fn.restype = ctypes.c_int

@@ -1,4 +1,4 @@
-"""The port's four CUDA kernels against their plain PyTorch versions.
+"""The port's CUDA kernels against their plain PyTorch versions.
 
 This file imports neither JAX nor the JAX package, so the card's
 machine (which has no JAX) runs it as it stands:
@@ -22,7 +22,9 @@ from librempeg_tpu_torch.codecs.h264 import deblock_pallas as DP
 from librempeg_tpu_torch.codecs.h264 import device_recon as DR
 from librempeg_tpu_torch.codecs.h264 import intra_pallas as IP
 from librempeg_tpu_torch.codecs.h264 import mc_pallas as MC
+from librempeg_tpu_torch.codecs.h264 import residual_pallas as RP
 from librempeg_tpu_torch.codecs.mpeg4 import me_pallas as MEP
+from librempeg_tpu_torch.ops.pallas import mesearch as MS
 
 MB_W, MB_H = 7, 4
 NMB = MB_W * MB_H
@@ -87,6 +89,27 @@ def _hpel_case(seed, dev, h=96, w=160):
             for a in (cur, ref, ru, rv, mv.astype(np.int32))]
 
 
+def _fsearch_case(seed, dev, n=2, h=96, w=160, integer=True):
+    rng = np.random.default_rng(seed)
+    cur = rng.uniform(0, 255, (n, h, w)).astype(np.float32)
+    ref = np.clip(np.roll(cur, (1, -2), (1, 2))
+                  + rng.normal(0, 3, cur.shape), 0, 255).astype(np.float32)
+    if integer:
+        cur, ref = np.round(cur), np.round(ref)
+    return [torch.from_numpy(a).to(dev) for a in (cur, ref)]
+
+
+def _residual_case(seed, dev, mb_w=9, mb_h=15):
+    """Compact rows of random dequantised blocks (more than one 120-MB
+    stripe, some pad rows) -> (packed, nmb)."""
+    rng = np.random.default_rng(seed)
+    nmb = mb_w * mb_h
+    ids = np.sort(rng.choice(nmb * 24, size=nmb * 10, replace=False))
+    levels = rng.integers(-3000, 3001, (ids.size, 16)).astype(np.int16)
+    packed = RP.pack_rows(ids.astype(np.int32), levels, ids.size + 3)
+    return torch.from_numpy(packed).to(dev), nmb
+
+
 def _card():
     if not torch.cuda.is_available():
         pytest.skip("no CUDA card: the kernels build and run only there")
@@ -105,13 +128,18 @@ def test_cpu_tensors_take_the_plain_versions():
     DP.deblock_frame_pallas(y, u, v, e["idx"], e["vals"], e["mv"],
                             e["ref"], e["qp"], e["kind"], MB_W, MB_H)
     MEP.hpel_refine_mc(*_hpel_case(0, "cpu"))
+    MS.full_search_mc(*_fsearch_case(0, "cpu"), 4)
+    packed, nmb = _residual_case(0, "cpu")
+    RP.expand_residual(packed, None, nmb)
     assert kernels.counts() == {"mc": 0, "deblock": 0, "intra": 0,
-                                "hpel": 0}
+                                "hpel_luma": 0, "hpel_chroma": 0,
+                                "fsearch": 0, "residual": 0}
 
 
 @pytest.mark.parametrize("name,replaces", [
     ("mc.cu", "mc_pallas.py"), ("deblock.cu", "deblock_pallas.py"),
-    ("intra.cu", "intra_pallas.py"), ("hpel.cu", "me_pallas.py")])
+    ("intra.cu", "intra_pallas.py"), ("hpel.cu", "me_pallas.py"),
+    ("fsearch.cu", "mesearch.py"), ("residual.cu", "residual_pallas.py")])
 def test_kernel_sources_carry_their_notes(name, replaces):
     """Each source names the Pallas kernel it replaces and what bounds
     it on the card."""
@@ -172,3 +200,48 @@ def test_hpel_kernel(seed):
                        MEP.hpel_refine_mc_plain(*args),
                        ("mv_h", "pred_y", "pred_u", "pred_v")):
         _eq(a, b, "hpel " + n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 1])
+def test_hpel_luma_and_chroma_kernels(seed):
+    dev = _card()
+    cur, ref, ru, rv, mv = _hpel_case(seed, dev)
+    got = MEP.refine_mc_luma(cur, ref, mv)
+    want = MEP.refine_mc_luma_plain(cur, ref, mv)
+    for a, b, n in zip(got, want, ("mv_h", "pred_y")):
+        _eq(a, b, "hpel luma " + n)
+    for a, b, n in zip(MEP.mc_chroma(ru, rv, want[0], 1),
+                       MEP.mc_chroma_plain(ru, rv, want[0], 1),
+                       ("pred_u", "pred_v")):
+        _eq(a, b, "hpel chroma " + n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("integer", [True, False])
+def test_fsearch_kernel(integer):
+    """Bit-exact on integer inputs; on float inputs the float32 block
+    sums run in another order, so MVs may differ on a near-tie and
+    costs in the last bits."""
+    dev = _card()
+    cur, ref = _fsearch_case(3, dev, integer=integer)
+    for r in (4, 8):
+        got = MS.full_search_mc(cur, ref, r)
+        want = MS.full_search_mc_plain(cur, ref, r)
+        if integer:
+            for a, b, n in zip(got, want, ("mv", "cost", "pred")):
+                _eq(a, b, f"fsearch r={r} {n}")
+            continue
+        same = (got[0] == want[0]).all(-1)
+        assert same.float().mean() >= 0.999
+        rel = ((got[1] - want[1]).abs() / want[1].clamp(min=1))[same]
+        assert float(rel.max()) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 1])
+def test_residual_kernel(seed):
+    dev = _card()
+    packed, nmb = _residual_case(seed, dev)
+    _eq(RP.expand_residual(packed, None, nmb),
+        RP.expand_residual_plain(packed, nmb), "residual")

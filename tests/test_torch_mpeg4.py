@@ -106,6 +106,80 @@ def test_hpel_refine_mc_bit_exact(seed):
         _eq(a, b, name)
 
 
+def _hpel_inputs(seed, h=64, w=256):
+    rng = np.random.default_rng(seed)
+    cur_y = rng.integers(0, 256, (h, w)).astype(np.float32)
+    ref_y = np.clip(np.roll(cur_y, (2, -1), (0, 1))
+                    + rng.integers(-2, 3, (h, w)), 0, 255).astype(np.float32)
+    ref_y += rng.choice([0.0, 0.5, 0.9999], ref_y.shape).astype(np.float32)
+    ref_y = np.minimum(ref_y, 255.0)
+    ref_u = rng.integers(0, 256, (h // 2, w // 2)).astype(np.float32)
+    ref_v = rng.integers(0, 256, (h // 2, w // 2)).astype(np.float32)
+    mv_i = rng.integers(-6, 7, (h // 16, w // 16, 2)).astype(np.int32)
+    return cur_y, ref_y, ref_u, ref_v, mv_i
+
+
+@pytest.mark.parametrize("seed,rnd", [(0, 0), (1, 1)])
+def test_refine_mc_luma_matches_per_mb_pallas(seed, rnd):
+    """Kernel 4b, luma: the port's refine_mc_luma (plain version on the
+    CPU) against me_pallas._refine_mc_luma in interpret mode, fed the
+    tiles and selectors the JAX package's hpel_refine_mc builds."""
+    cur_y, ref_y, _, _, mv_i = _hpel_inputs(seed)
+    h, w = cur_y.shape
+    bh, bw = h // 16, w // 16
+    j_mv = jnp.asarray(mv_i)
+    tiles = JMEP._prep_plane(jnp.asarray(ref_y), 48)
+    y0 = (jnp.arange(bh) * 16)[:, None]
+    x0 = (jnp.arange(bw) * 16)[None, :]
+    sy = y0 + j_mv[..., 0] - 1 + JMEP.PAD
+    sx = x0 + j_mv[..., 1] - 1 + JMEP.PAD
+    sel = jnp.stack([((sy >> 4) << 16) | (sx >> 7),
+                     ((sy & 15) << 8) | (sx & 127),
+                     j_mv[..., 0], j_mv[..., 1]],
+                    axis=-1).reshape(-1).astype(jnp.int32)
+    cur_b = jnp.asarray(cur_y).astype(jnp.uint8).reshape(bh, 16, bw, 16) \
+        .transpose(0, 2, 1, 3)
+    jpred, jmv = JMEP._refine_mc_luma(tiles, sel, cur_b, bh, bw, rnd,
+                                      interpret=True)
+    mv_h, pred_y = TMEP.refine_mc_luma(_t(cur_y), _t(ref_y), _t(mv_i), rnd)
+    assert mv_h.dtype == torch.int32 and pred_y.dtype == torch.float32
+    _eq(np.asarray(jmv)[:, 0, :2].reshape(bh, bw, 2), mv_h, "mv_h")
+    _eq(np.asarray(jpred).transpose(0, 2, 1, 3).reshape(h, w), pred_y,
+        "pred_y")
+
+
+@pytest.mark.parametrize("seed,rnd", [(2, 0), (3, 1)])
+def test_mc_chroma_matches_per_mb_pallas(seed, rnd):
+    """Kernel 4b, chroma: the port's mc_chroma (plain version on the
+    CPU) against me_pallas._mc_chroma in interpret mode, with the
+    chroma tiles and selectors of the JAX package's hpel_refine_mc."""
+    _, _, ref_u, ref_v, mv_i = _hpel_inputs(seed)
+    rng = np.random.default_rng(seed)
+    mv_h = (2 * mv_i + rng.integers(-2, 3, mv_i.shape)).astype(np.int32)
+    hc, wc = ref_u.shape
+    bh, bw = hc // 8, wc // 8
+    pad = JMEP.PAD
+    ct = jnp.stack([jnp.pad(jnp.asarray(p).astype(jnp.uint8),
+                            ((pad, pad), (pad, pad)), mode="edge")
+                    for p in (ref_u, ref_v)])
+    hp, wp = ct.shape[1], ct.shape[2]
+    ct = jnp.pad(ct, ((0, 0), (0, JMEP._align_up(hp, 16) + 32 - hp),
+                      (0, JMEP._align_up(wp, 128) + 128 - wp)))
+    ct = jnp.stack([JMEP._tile_plane(p, 32) for p in ct])
+    mv_c = JMEP._chroma_mv(jnp.asarray(mv_h))
+    cy = (jnp.arange(bh) * 8)[:, None] + (mv_c[..., 0] >> 1) + pad
+    cx = (jnp.arange(bw) * 8)[None, :] + (mv_c[..., 1] >> 1) + pad
+    selc = jnp.stack([((cy >> 4) << 16) | (cx >> 7),
+                      (((cy & 15) << 24) | ((cx & 127) << 16)
+                       | ((mv_c[..., 0] & 1) << 8) | (mv_c[..., 1] & 1))],
+                     axis=-1).reshape(-1).astype(jnp.int32)
+    jpu, jpv = JMEP._mc_chroma(ct, selc, bh, bw, rnd, interpret=True)
+    tpu, tpv = TMEP.mc_chroma(_t(ref_u), _t(ref_v), _t(mv_h), rnd)
+    for j, t, name in ((jpu, tpu, "pred_u"), (jpv, tpv, "pred_v")):
+        assert t.dtype == torch.float32
+        _eq(np.asarray(j).transpose(0, 2, 1, 3).reshape(hc, wc), t, name)
+
+
 def test_encode_i_device_matches():
     y, u, v = _frames(3)[0]
     q = 5

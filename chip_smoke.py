@@ -11,7 +11,13 @@ raises and the script exits non-zero:
    sources in this checkout (one nvcc per source, all at once);
 3. one phase per kernel: the kernel against its plain PyTorch version on
    the card, on real inputs, with the median of 25 synchronised runs of
-   each. The H.264 kernels (mc, intra, deblock, residual) take the first
+   each (host wall time, wrapper included: ms, plain_ms), the median
+   device time of 25 calls by CUDA events (device_ms), and the least
+   time the card could take for the same work (bound_ms, from the
+   call's shapes: the bytes moved at 3.35 TB/s or the operations at
+   67 TFLOP/s, whichever is longer). A torch.profiler window over one
+   deblock call must show one deblock kernel and at most one fill. The
+   H.264 kernels (mc, intra, deblock, residual) take the first
    P frame of assets/bench_1080p.264, the residual kernel through the
    windowless packer; the half-pel kernels (hpel_luma, hpel_chroma) the
    encoder's first I-VOP recon and the next scaled frame; the full
@@ -55,6 +61,17 @@ ASSET = os.path.join(ROOT, "assets", "bench_1080p.264")
 GOLD = os.path.join(ROOT, "tests", "data", "torch_port")
 PSNR_TOL_DB = 0.5
 RUNS = 25
+# H100 SXM peaks (NVIDIA's data sheet): HBM rate, float32 outside the
+# tensor cores
+HBM_BYTES_S = 3.35e12
+F32_OPS_S = 67e12
+# the stream sleeps this long (about 1 ms) before each timed call, so
+# the host's enqueue of the call does not show in its device time
+SLEEP_CYCLES = 2_000_000
+NO_LIBRARY = ("no single PyTorch call computes this function (a search "
+              "argmin, an order-dependent filter chain, a serial "
+              "prediction walk, sub-pel MC at per-block MVs, an integer "
+              "butterfly)")
 
 KERNELS = {
     # name: (source, the TPU kernel it replaces, PERF.md table row, the
@@ -127,6 +144,73 @@ def median_ms(fn, restore=None, runs: int = RUNS, warm: int = 3) -> float:
         if i >= warm:
             ts.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(ts)
+
+
+def device_ms(fn, restore=None, runs: int = RUNS, warm: int = 3) -> float:
+    """Median device time of fn() in ms over `runs` calls after `warm`
+    warm-up calls: a CUDA event pair around each call, recorded behind
+    a sleep of the stream, so the interval holds only the call's device
+    work; restore() (untimed) runs before each call."""
+    import torch
+
+    pairs = []
+    for i in range(warm + runs):
+        if restore is not None:
+            restore()
+        torch.cuda._sleep(SLEEP_CYCLES)
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        if i >= warm:
+            pairs.append((e0, e1))
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in pairs)
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(moved: int, ops: float) -> dict:
+    """The least time the card could take: the bytes moved (each input
+    read once, each output written once) at the HBM rate, or the
+    operations at the float32 rate, whichever is longer."""
+    tb = moved / HBM_BYTES_S * 1e3
+    to = ops / F32_OPS_S * 1e3
+    return {"bound_ms": max(tb, to),
+            "bound_by": "bytes" if tb >= to else "operations",
+            "bytes": moved, "ops": ops, "library_ms": None,
+            "library_note": NO_LIBRARY}
+
+
+def timed(fn, restore=None) -> dict:
+    """Wall ms (host clock around a synchronise, wrapper included) and
+    device ms of fn()."""
+    return {"ms": median_ms(fn, restore), "device_ms": device_ms(fn, restore)}
+
+
+def deblock_launch_check(run) -> dict:
+    """Kernel launches on the card during run(), by torch.profiler: the
+    deblock must be one kernel launch, plus at most one fill (the
+    zeroing of its scratch: the row ticket and the row-to-row words)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as prof
+
+    torch.cuda.synchronize()
+    with prof(activities=[ProfilerActivity.CPU,
+                          ProfilerActivity.CUDA]) as p:
+        run()
+        torch.cuda.synchronize()
+    names = [e.name for e in p.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    deb = [n for n in names if "deblock" in n]
+    fills = [n for n in names if "deblock" not in n]
+    check(len(deb) == 1 and len(fills) <= 1
+          and all("ill" in n or "emset" in n for n in fills),
+          f"deblock launches on the card: {names}")
+    return {"kernels": len(deb), "fills": len(fills)}
 
 
 def max_abs_err(got, want) -> float:
@@ -227,10 +311,16 @@ def kernel_phases(dev) -> dict:
     want = MC.mc_predict_plain(*margs)
     err = max_abs_err(got, want)
     check(err == 0, f"mc kernel differs from its plain version: {err}")
+    nmb = mb_w * mb_h
     res["mc"] = {"max_abs_err": err,
-                 "ms": median_ms(lambda: MC.mc_predict(*margs)),
+                 **timed(lambda: MC.mc_predict(*margs)),
                  "plain_ms": median_ms(lambda: MC.mc_predict_plain(*margs)),
-                 "shape": f"{mb_w * mb_h} MBs, {luma4.shape[0]} ref"}
+                 # a 6-tap FIR in each direction plus the quarter-pel
+                 # average, about 30 operations per luma sample; 8 per
+                 # chroma sample (bilinear)
+                 **bound(nbytes(luma4, upad, vpad, mv, ref, *got),
+                         nmb * (256 * 30 + 128 * 8)),
+                 "shape": f"{nmb} MBs, {luma4.shape[0]} ref"}
 
     # intra: the frame's intra MBs over its residual-added planes
     y, u, v, lres_t, cres_t = DR.recon_p_frame_pred_noscan(
@@ -247,14 +337,18 @@ def kernel_phases(dev) -> dict:
         for w_, p in zip(work, (y, u, v)):
             w_.copy_(p)
 
+    n_intra = ilist.numel()
     res["intra"] = {
         "max_abs_err": err,
-        "ms": median_ms(lambda: KI.launch(*work, scal, t4, t16, tc, lres_t,
-                                          cres_t, mb_w, mb_h),
-                        restore_intra),
+        **timed(lambda: KI.launch(*work, scal, t4, t16, tc, lres_t, cres_t,
+                                  mb_w, mb_h), restore_intra),
         "plain_ms": median_ms(lambda: IP.intra_scan_plain(
             y, u, v, scal, lres_t, cres_t, mb_w, mb_h)),
-        "shape": f"{ilist.numel()} intra MBs of {mb_w * mb_h}"}
+        # per intra MB: its 384 samples written, about 75 neighbour
+        # samples read, its int32 residuals (16x16 + 2x8x8) read; about
+        # 10 operations per sample (prediction, residual add, clip)
+        **bound(n_intra * (384 + 75 + 4 * 384), n_intra * 384 * 10),
+        "shape": f"{n_intra} intra MBs of {mb_w * mb_h}"}
 
     # deblock: the intra-complete frame
     y, u, v = want
@@ -272,15 +366,22 @@ def kernel_phases(dev) -> dict:
         for w_, p in zip(work, (y, u, v)):
             w_.copy_(p)
 
+    restore_db()
     res["deblock"] = {
         "max_abs_err": err,
-        "ms": median_ms(lambda: KD.launch(*work, P, mb_w, mb_h),
-                        restore_db),
+        "launch_check": deblock_launch_check(
+            lambda: KD.launch(*work, P, mb_w, mb_h)),
+        **timed(lambda: KD.launch(*work, P, mb_w, mb_h), restore_db),
         "params_ms": median_ms(lambda: DP.deblock_params(
             idx, vals, mv, ref, qp, kind, mb_w, mb_h, cqo, ao, bo)),
         "plain_ms": median_ms(lambda: DR.deblock_frame(
             y, u, v, idx, vals, mv, ref, qp, kind, mb_w, mb_h, cqo, ao, bo)),
-        "shape": f"{mb_w}x{mb_h} MBs, {mb_w + 2 * mb_h - 2} diagonals"}
+        # planes read and written once, the packed parameters read once;
+        # per MB 192 line filters (8 luma edges x 16 lines, 2 x 4 chroma
+        # edges x 8 lines) of about 30 operations
+        **bound(2 * nbytes(y, u, v) + nbytes(P), nmb * 192 * 30),
+        "shape": f"{mb_w}x{mb_h} MBs, one launch, a dependence chain of "
+                 f"{mb_w + 2 * mb_h - 2} MB steps"}
 
     # half-pel: the encoder's recon of its first I-VOP (the bench
     # settings), the next scaled frame as the current picture
@@ -303,8 +404,11 @@ def kernel_phases(dev) -> dict:
           f"{err}")
     res["hpel_luma"] = {
         "max_abs_err": err,
-        "ms": median_ms(lambda: MEP.refine_mc_luma(*largs)),
+        **timed(lambda: MEP.refine_mc_luma(*largs)),
         "plain_ms": median_ms(lambda: MEP.refine_mc_luma_plain(*largs)),
+        # 9 half-pel candidates per MB, each sample an interpolation (3
+        # operations) and a SAD term (3)
+        **bound(nbytes(*largs, *got), cur.numel() * 9 * 6),
         "shape": "1280x720, 3600 MBs"}
     cargs = (ru, rv, got[0])
     err = max_abs_err(MEP.mc_chroma(*cargs), MEP.mc_chroma_plain(*cargs))
@@ -312,13 +416,14 @@ def kernel_phases(dev) -> dict:
           f"{err}")
     res["hpel_chroma"] = {
         "max_abs_err": err,
-        "ms": median_ms(lambda: MEP.mc_chroma(*cargs)),
+        **timed(lambda: MEP.mc_chroma(*cargs)),
         "plain_ms": median_ms(lambda: MEP.mc_chroma_plain(*cargs)),
+        # bilinear interpolation, about 8 operations per output sample
+        **bound(nbytes(*cargs) + 2 * nbytes(ru), 2 * ru.numel() * 8),
         "shape": "2x 640x360, 3600 MBs"}
 
     # residual: the P frame's coefficients as compact rows (no window:
     # the JAX package's packer cannot take this frame)
-    nmb = mb_w * mb_h
     coeffs = DR.dense_coeffs(idx, vals, nmb)
     host = (coeffs.cpu().numpy(), qp.cpu().numpy(), kind.cpu().numpy(),
             cqo, mb_w, mb_h)
@@ -338,9 +443,13 @@ def kernel_phases(dev) -> dict:
           f"_residuals: {err_dr}")
     res["residual"] = {
         "max_abs_err": err, "launches": launches,
-        "ms": median_ms(lambda: RP.expand_residual(packed, None, nmb)),
+        **timed(lambda: RP.expand_residual(packed, None, nmb)),
         "plain_ms": median_ms(lambda: RP.expand_residual_plain(packed,
                                                                nmb)),
+        # the packed rows read, the dense output written (the zero fill
+        # included); per row a dequantised 4x4 butterfly, about 96
+        # operations
+        **bound(nbytes(packed, got), len(ids) * 96),
         "shape": f"{len(ids)} rows, {nmb} MBs (the JAX packer's 512-row "
                  f"window {'holds' if windowed else 'overflows'})"}
     return res
@@ -391,11 +500,15 @@ def fsearch_phase(dev, leg) -> dict:
     check(share >= 0.999 and rel <= 1e-5 and pred_ok,
           f"fsearch on float inputs: MVs equal on {share}, cost rel err "
           f"{rel}, pred equal where MVs are: {pred_ok}")
+    nmb = LEG_BATCH * (LEG_DH // 16) * (LEG_DW // 16)
     return {"max_abs_err": err, "float_mv_equal": share,
             "float_cost_rel_err": rel,
-            "ms": median_ms(lambda: MS.full_search_mc(cur, ref, 4)),
+            **timed(lambda: MS.full_search_mc(cur, ref, 4)),
             "plain_ms": median_ms(lambda: MS.full_search_mc_plain(cur, ref,
                                                                   4)),
+            # 81 candidates x 256 samples, a subtract, an absolute value
+            # and an add each
+            **bound(nbytes(cur, ref, gm, gc, gp), nmb * 81 * 256 * 3),
             "shape": f"{LEG_BATCH}x{LEG_DH}x{LEG_DW}, r=4, "
                      f"{LEG_BATCH * (LEG_DH // 16) * (LEG_DW // 16)} MBs"}
 
@@ -691,8 +804,11 @@ def main(argv: list[str]) -> int:
             f"bit-exact on integer inputs; float inputs: MVs equal on "
             f"{r['float_mv_equal']:.6f}, cost rel err "
             f"{r['float_cost_rel_err']:.2e}")
-        log(f"kernel {name}: {exact}, {r['ms']:.3f} ms vs plain "
-            f"{r['plain_ms']:.3f} ms ({r['shape']})")
+        log(f"kernel {name}: {exact}, device {r['device_ms']:.4f} ms, wall "
+            f"{r['ms']:.3f} ms vs plain {r['plain_ms']:.3f} ms, bound "
+            f"{r['bound_ms']:.4f} ms by {r['bound_by']} ({r['shape']})")
+    log(f"deblock on the card: {kres['deblock']['launch_check']} "
+        f"(torch.profiler, one call)")
 
     with tempfile.TemporaryDirectory() as td:
         s = slice_phase(dev, os.path.join(td, "slice.avi"))
@@ -726,8 +842,10 @@ def main(argv: list[str]) -> int:
         {"name": name, "route": "cuda", "source": KERNELS[name][0],
          "replaces": KERNELS[name][1], "row": KERNELS[name][2],
          "launches": launches[name], "path": KERNELS[name][3],
-         "max_abs_err": kres[name]["max_abs_err"], "ms": kres[name]["ms"],
-         "plain_ms": kres[name]["plain_ms"]} for name in KERNELS]}
+         **{k: kres[name][k] for k in (
+             "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+             "bound_by", "library_ms", "library_note")}}
+        for name in KERNELS]}
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -4,9 +4,9 @@ Port of librempeg_tpu/codecs/h264/deblock_pallas.py. The edge decisions
 (bS, alpha, beta, tc0) depend only on pre-deblock data, so they are
 computed here with plain tensor code and packed one int32 per edge
 segment (bits 0..2 bS, 3..10 alpha, 11..15 beta, 16..20 tc0), laid out
-per MB as an [8, 16] block; csrc/deblock.cu filters the planes in the
-MB wavefront order t = mx + 2*my. The plain version is
-device_recon.deblock_frame.
+per MB as an [8, 16] block; csrc/deblock.cu filters the planes in one
+launch, its blocks walking MB rows behind each other's progress. The
+plain version is device_recon.deblock_frame.
 """
 from __future__ import annotations
 

@@ -14,7 +14,8 @@ Deblocking follows the spec's MB raster order (§8.7: per MB, vertical
 edges then horizontal ones). An MB's filtering reads pixels its left,
 top and top-right neighbours have already filtered, so MBs on one
 diagonal t = mx + 2*my are independent and the frame takes
-mb_w + 2*mb_h - 2 wavefront steps.
+mb_w + 2*mb_h - 2 wavefront steps by default; deblock_frame also takes
+other schedules as data.
 
 Behavioral reference: libavcodec/h264_loopfilter.c, h264qpel_template.c,
 h264_mb.c (reimplemented); the integer math mirrors codecs/h264/recon.py
@@ -663,95 +664,105 @@ def _filt_chroma(patch, bs, ia, ib):
     return out
 
 
+def wavefront_order(mb_w: int, mb_h: int):
+    """deblock_frame's default schedule: the MB diagonals t = mx + 2*my
+    in order, each as its vertical pass then its horizontal pass."""
+    out = []
+    for t in range(mb_w + 2 * mb_h - 2):
+        mbs = [my * mb_w + t - 2 * my for my in range(mb_h)
+               if 0 <= t - 2 * my < mb_w]
+        out += [("v", mbs), ("h", mbs)]
+    return out
+
+
 def deblock_frame(y, u, v, coeff_idx, coeff_val, mv, ref, qp, kind,
                   mb_w: int, mb_h: int, chroma_qp_off: int = 0,
-                  alpha_off: int = 0, beta_off: int = 0):
-    """In-loop deblock of a P frame, MB-wavefront ordered.
+                  alpha_off: int = 0, beta_off: int = 0, order=None):
+    """In-loop deblock of a P frame in a given schedule of MB groups.
 
     Spec order is MB raster with vertical edges before horizontal
-    (§8.7); an MB depends on its left, top and top-right neighbours'
-    filtered output, so diagonals t = mx + 2*my are independent."""
+    (§8.7). `order` is a sequence of (pass, MB raster indices): pass "v"
+    filters the luma and chroma vertical edges of those MBs at once,
+    "h" their horizontal edges. The default, wavefront_order, runs the
+    diagonals t = mx + 2*my: an MB depends on its left, top and
+    top-right neighbours' filtered output, so one diagonal's MBs are
+    independent. Any schedule that runs each MB's passes after the
+    passes of the spec order that touch the same pixels gives the same
+    planes (tests/test_torch_deblock_order.py)."""
     dev = y.device
     nmb = mb_w * mb_h
     H, W = mb_h * 16, mb_w * 16
     coeffs = dense_coeffs(coeff_idx, coeff_val, nmb)
     bs_v, bs_h = _bs_maps(coeffs, mv, ref, kind, mb_w, mb_h)
     ep = _edge_params(qp, mb_w, mb_h, chroma_qp_off, alpha_off, beta_off)
+    y, u, v = y.clone(), u.clone(), v.clone()
 
-    myv = torch.arange(mb_h, device=dev)
     r16 = torch.arange(16, device=dev)
     r8 = torch.arange(8, device=dev)
     r4 = torch.arange(4, device=dev)
-    # scratch MB row below the frame for inactive wavefront lanes: they
-    # round-trip scratch pixels unchanged, so no inactive lane ever
-    # writes pixels of a valid lane
-    y = torch.cat([y, torch.zeros(20, W, dtype=y.dtype, device=dev)])
-    u = torch.cat([u, torch.zeros(12, W // 2, dtype=u.dtype, device=dev)])
-    v = torch.cat([v, torch.zeros(12, W // 2, dtype=v.dtype, device=dev)])
 
     def rep(a, k):
         return a.repeat_interleave(k, dim=1)
 
-    for t in range(mb_w + 2 * mb_h - 2):
-        mxv = t - 2 * myv
-        valid = (mxv >= 0) & (mxv < mb_w)
-        mx = mxv.clamp(0, mb_w - 1)
-        my = torch.where(valid, myv, mb_h)
-        vmask = valid[:, None, None]
-
-        # ---- luma vertical edges e = 0..3 (sequential) ----
-        rows = (my * 16)[:, None] + r16[None, :]            # [nd, 16]
+    if order is None:
+        order = wavefront_order(mb_w, mb_h)
+    for pas, mbs in order:
+        m = torch.as_tensor(mbs, dtype=torch.int64, device=dev)
+        mx, my = m % mb_w, m // mb_w
         gy4 = (my * 4)[:, None] + r4[None, :]
-        for e in range(4):
-            gx4 = mx * 4 + e
-            cols = ((gx4 * 4 - 4)[:, None] + r8[None, :]).clamp(0, W - 1)
-            ri, ci = rows[:, :, None], cols[:, None, :]
-            patch = y[ri, ci].to(torch.int32)               # [nd,16,8]
-            gi = (gy4.clamp(max=mb_h * 4 - 1), gx4[:, None])
-            newp = _filt_luma(patch, rep(bs_v[gi], 4),
-                              rep(ep["lav"][gi], 4), rep(ep["lbv"][gi], 4))
-            newp = torch.where(vmask, newp, patch)
-            y[ri, ci] = newp.to(torch.uint8)
+        gx4r = (mx * 4)[:, None] + r4[None, :]
+        if pas == "v":
+            # ---- luma vertical edges e = 0..3 (sequential) ----
+            rows = (my * 16)[:, None] + r16[None, :]        # [nd, 16]
+            for e in range(4):
+                gx4 = mx * 4 + e
+                cols = ((gx4 * 4 - 4)[:, None] + r8[None, :]) \
+                    .clamp(0, W - 1)
+                ri, ci = rows[:, :, None], cols[:, None, :]
+                patch = y[ri, ci].to(torch.int32)           # [nd,16,8]
+                gi = (gy4, gx4[:, None])
+                newp = _filt_luma(patch, rep(bs_v[gi], 4),
+                                  rep(ep["lav"][gi], 4),
+                                  rep(ep["lbv"][gi], 4))
+                y[ri, ci] = newp.to(torch.uint8)
+            # ---- chroma vertical edges, block cols 0 and 2 ----
+            crows = (my * 8)[:, None] + r8[None, :]
+            for c in (u, v):
+                for e in range(2):
+                    gx4 = mx * 4 + 2 * e
+                    cls = ((gx4 * 2 - 2)[:, None] + r4[None, :]) \
+                        .clamp(0, W // 2 - 1)
+                    ri, ci = crows[:, :, None], cls[:, None, :]
+                    patch = c[ri, ci].to(torch.int32)        # [nd,8,4]
+                    gi = (gy4, gx4[:, None])
+                    newp = _filt_chroma(patch, rep(bs_v[gi], 2),
+                                        rep(ep["cav"][gi], 2),
+                                        rep(ep["cbv"][gi], 2))
+                    c[ri, ci] = newp.to(torch.uint8)
+            continue
         # ---- luma horizontal edges ----
         cols = (mx * 16)[:, None] + r16[None, :]
-        gx4 = (mx * 4)[:, None] + r4[None, :]
         for e in range(4):
             gy4e = my * 4 + e
-            rws = ((gy4e * 4 - 4)[:, None] + r8[None, :]).clamp(0, H + 19)
+            rws = ((gy4e * 4 - 4)[:, None] + r8[None, :]).clamp(0, H - 1)
             ri, ci = rws[:, :, None], cols[:, None, :]
             patch = y[ri, ci].transpose(1, 2).to(torch.int32)  # [nd,16,8]
-            gi = (gy4e.clamp(max=mb_h * 4 - 1)[:, None], gx4)
+            gi = (gy4e[:, None], gx4r)
             newp = _filt_luma(patch, rep(bs_h[gi], 4),
                               rep(ep["lah"][gi], 4), rep(ep["lbh"][gi], 4))
-            newp = torch.where(vmask, newp, patch)
             y[ri, ci] = newp.transpose(1, 2).to(torch.uint8)
-        # ---- chroma edges (u, v) ----
-        crows = (my * 8)[:, None] + r8[None, :]
+        # ---- chroma horizontal edges, block rows 0 and 2 ----
         ccols = (mx * 8)[:, None] + r8[None, :]
         for c in (u, v):
-            for e in range(2):                  # vertical, block col 2e
-                gx4 = mx * 4 + 2 * e
-                cls = ((gx4 * 2 - 2)[:, None] + r4[None, :]) \
-                    .clamp(0, W // 2 - 1)
-                ri, ci = crows[:, :, None], cls[:, None, :]
-                patch = c[ri, ci].to(torch.int32)            # [nd,8,4]
-                gi = (gy4.clamp(max=mb_h * 4 - 1), gx4[:, None])
-                newp = _filt_chroma(patch, rep(bs_v[gi], 2),
-                                    rep(ep["cav"][gi], 2),
-                                    rep(ep["cbv"][gi], 2))
-                newp = torch.where(vmask, newp, patch)
-                c[ri, ci] = newp.to(torch.uint8)
-            for e in range(2):                  # horizontal
+            for e in range(2):
                 gy4e = my * 4 + 2 * e
                 rws = ((gy4e * 2 - 2)[:, None] + r4[None, :]) \
-                    .clamp(0, H // 2 + 11)
+                    .clamp(0, H // 2 - 1)
                 ri, ci = rws[:, :, None], ccols[:, None, :]
                 patch = c[ri, ci].transpose(1, 2).to(torch.int32)
-                gi = (gy4e.clamp(max=mb_h * 4 - 1)[:, None],
-                      (mx * 4)[:, None] + r4[None, :])
+                gi = (gy4e[:, None], gx4r)
                 newp = _filt_chroma(patch, rep(bs_h[gi], 2),
                                     rep(ep["cah"][gi], 2),
                                     rep(ep["cbh"][gi], 2))
-                newp = torch.where(vmask, newp, patch)
                 c[ri, ci] = newp.transpose(1, 2).to(torch.uint8)
-    return y[:H], u[:H // 2], v[:H // 2]
+    return y, u, v

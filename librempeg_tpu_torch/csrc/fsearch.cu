@@ -14,22 +14,37 @@
 // from the globally edge-padded reference, so the search is a
 // whole-frame search with edge clamping; tiles play no part here.
 //
-// Design: one block per (frame, 16x16 MB), 256 threads, one per pixel.
-// The MB's current pixels and its (16+2r)^2 reference window go to
-// shared memory once, rounded to bf16. For each candidate every thread
-// takes its pixel's bf16 difference, the warp sums it with shuffles
-// (a fixed order), and lane 0 stores the warp's partial. After the
-// loop, one thread per candidate adds its 8 partials in warp order, so
-// the float32 cost is the same on every run. Thread 0 scans the costs
-// in candidate order; every thread writes its winning pixel.
+// Design: one block per strip of K = 16 MBs of one MB row (the last
+// strip of a row may be shorter). The strip's (16+2r) x (16K+2r)
+// reference window and its 16 x 16K current pixels go to shared memory
+// once, rounded to bf16 and kept as floats; neighbouring MBs share all
+// but 2r of the window's columns. Thread (j, dy) owns candidate row dy
+// of MB j: its 2r+1 sums sit in registers. Per pixel row it loads the
+// 16 current values and the 16+2r reference values once (float4 loads;
+// the window pitch is 4 mod 8 floats, so the threads of consecutive dy
+// hit distinct banks) and slides them over every dx. No shuffle and no
+// shared-memory partial per candidate: each sum runs row-major over the
+// block, one float32 add at a time, so a candidate's cost is the same
+// on every run (exact, hence equal to the plain version, on integer
+// inputs). Each thread keeps the first minimum of its row; one thread
+// per MB then scans the rows in order (strict <), which keeps the first
+// minimum in raster order. All threads write the winners' pixels.
+// The r in 0..8 is a template parameter, so the sums and the row
+// segments are register arrays.
 //
-// Bound on the H100: arithmetic and shuffles. At the kernel leg's shape
-// (8 x 720 x 1280, r = 4: 28800 MBs, 81 candidates) the kernel reads
-// each plane once (59 MB of float32 in, 30 MB out) but evaluates 597M
-// pixel-candidates, each a subtract, two bf16 roundings and a 5-step
-// warp reduction; the windows overlap, so L2 serves most reads.
-// Measured on an H100 80GB HBM3 (700 W): 1.00 ms at that shape, against
-// 7.1 ms for the plain version (chip_smoke.py).
+// Rounding: the two differences of a pixel pair go through one
+// cvt.rn.bf16x2.f32 (__floats2bfloat162_rn) and are widened back with a
+// shift or a mask. tools/fsearch_rounding.py compares it on the card
+// with an integer round-to-nearest-even (add 0x7FFF + lsb, mask) by
+// SASS instruction count and time; see PERF.md.
+//
+// Bound on the H100: operations. At the kernel leg's shape (8 x 720 x
+// 1280, r = 4: 28800 MBs, 81 candidates) the search evaluates 597M
+// pixel-candidates (a subtract, an absolute value and an add each:
+// 1.8 GFLOP, 27 us at 67 TFLOP/s), against 89 MB of float32 moved (27
+// us at 3.35 TB/s). The kernel issues about 3.5 instructions per
+// pixel-candidate (subtract with |.|, half a bf16x2 convert, a widen,
+// an add), so issue, not memory, sets its time.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -38,74 +53,150 @@ namespace {
 
 constexpr int BS = 16;
 constexpr int MAX_R = 8;         // the encoders search +-4 and +-8
-constexpr int MAX_WIN = BS + 2 * MAX_R;
-constexpr int MAX_CAND = (2 * MAX_R + 1) * (2 * MAX_R + 1);
-constexpr int WARPS = BS * BS / 32;
+constexpr int K = 16;            // MBs per block (strip of one MB row)
 
 __device__ __forceinline__ float bf16r(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// |a - b| and |c - d|, each float32 difference rounded to bf16 (nearest
+// even), as floats.
+__device__ __forceinline__ float2 absdiff_bf16x2(float a, float b, float c,
+                                                 float d) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(fabsf(a - b), fabsf(c - d));
+  return make_float2(__low2float(h), __high2float(h));
 }
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
 }
 
-__global__ void fsearch_kernel(const float* __restrict__ cur,
-                               const float* __restrict__ ref, int H, int W,
-                               int r, int32_t* __restrict__ mv,
-                               float* __restrict__ cost,
-                               float* __restrict__ pred) {
-  __shared__ float win[MAX_WIN * MAX_WIN];
-  __shared__ float part[MAX_CAND * WARPS];
-  __shared__ float csum[MAX_CAND];
-  __shared__ int best;
-  const int bw = W / BS, bh = H / BS;
-  const int m = blockIdx.x;
-  const int n = m / (bh * bw), bi = m % (bh * bw);
-  const int by = bi / bw, bx = bi % bw;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int side = 2 * r + 1, ncand = side * side, ws = BS + 2 * r;
+template <int R>
+struct Geo {
+  static constexpr int SIDE = 2 * R + 1;
+  static constexpr int WS = BS + 2 * R;            // window rows
+  static constexpr int WV = (WS + 3) / 4;          // float4 per row segment
+  // window pitch in floats: room for the last MB's float4 reads, 4 mod 8
+  static constexpr int PITCH = (BS * K + 2 * R + 7) / 8 * 8 + 4;
+  static constexpr int CPITCH = BS * K;            // current-pixel pitch
+  static constexpr int THREADS = (K * SIDE + 31) / 32 * 32;
+  static constexpr int SMEM = (WS * PITCH + BS * CPITCH) * 4;
+};
+
+template <int R>
+__global__ void __launch_bounds__(Geo<R>::THREADS)
+    fsearch_kernel(const float* __restrict__ cur,
+                   const float* __restrict__ ref, int H, int W,
+                   int32_t* __restrict__ mv, float* __restrict__ cost,
+                   float* __restrict__ pred) {
+  using G = Geo<R>;
+  extern __shared__ float4 smem[];
+  float* const win = reinterpret_cast<float*>(smem);    // [WS][PITCH]
+  float* const cs = win + G::WS * G::PITCH;             // [16][CPITCH]
+  __shared__ float row_cost[K * G::SIDE];
+  __shared__ int row_cand[K * G::SIDE];
+  __shared__ int best[K];
+  const int bw = W / BS, bh = H / BS, strips = (bw + K - 1) / K;
+  const int s = blockIdx.x % strips;
+  const int by = (blockIdx.x / strips) % bh;
+  const int n = blockIdx.x / (strips * bh);
+  const int j0 = s * K, kk = min(K, bw - j0);
+  const int tid = threadIdx.x;
   const size_t plane = (size_t)n * H * W;
-  const int oy = by * BS - r, ox = bx * BS - r;
+  const int oy = by * BS - R, ox = j0 * BS - R;
+  const int wcols = BS * kk + 2 * R, ccols = BS * kk;
 
-  for (int k = tid; k < ws * ws; k += blockDim.x) {
-    const int yy = clampi(oy + k / ws, 0, H - 1);
-    const int xx = clampi(ox + k % ws, 0, W - 1);
-    win[k] = bf16r(ref[plane + (size_t)yy * W + xx]);
+  for (int i = tid; i < G::WS * wcols; i += blockDim.x) {
+    const int rr = i / wcols, cc = i - rr * wcols;
+    win[rr * G::PITCH + cc] = bf16r(__ldg(
+        ref + plane + (size_t)clampi(oy + rr, 0, H - 1) * W +
+        clampi(ox + cc, 0, W - 1)));
   }
-  const int py = tid >> 4, px = tid & 15;
-  const float cv =
-      bf16r(cur[plane + (size_t)(by * BS + py) * W + bx * BS + px]);
+  for (int i = tid; i < BS * ccols; i += blockDim.x) {
+    const int rr = i / ccols, cc = i - rr * ccols;
+    cs[rr * G::CPITCH + cc] = bf16r(__ldg(
+        cur + plane + (size_t)(by * BS + rr) * W + j0 * BS + cc));
+  }
   __syncthreads();
 
-  for (int c = 0; c < ncand; ++c) {
-    const int dy = c / side, dx = c % side;
-    float d = bf16r(fabsf(cv - win[(py + dy) * ws + px + dx]));
-    for (int off = 16; off > 0; off >>= 1)
-      d += __shfl_down_sync(0xffffffffu, d, off);
-    if (lane == 0) part[c * WARPS + warp] = d;
+  const int j = tid / G::SIDE, dy = tid - j * G::SIDE;
+  if (j < kk) {
+    float acc[G::SIDE];
+#pragma unroll
+    for (int d = 0; d < G::SIDE; ++d) acc[d] = 0.f;
+    for (int py = 0; py < BS; ++py) {
+      float c[BS], w[4 * G::WV];
+      const float4* cp =
+          reinterpret_cast<const float4*>(cs + py * G::CPITCH + BS * j);
+      const float4* wp = reinterpret_cast<const float4*>(
+          win + (py + dy) * G::PITCH + BS * j);
+#pragma unroll
+      for (int q = 0; q < BS / 4; ++q) {
+        const float4 t = cp[q];
+        c[4 * q] = t.x, c[4 * q + 1] = t.y, c[4 * q + 2] = t.z,
+        c[4 * q + 3] = t.w;
+      }
+#pragma unroll
+      for (int q = 0; q < G::WV; ++q) {
+        const float4 t = wp[q];
+        w[4 * q] = t.x, w[4 * q + 1] = t.y, w[4 * q + 2] = t.z,
+        w[4 * q + 3] = t.w;
+      }
+#pragma unroll
+      for (int px = 0; px < BS; px += 2) {
+#pragma unroll
+        for (int d = 0; d < G::SIDE; ++d) {
+          const float2 a =
+              absdiff_bf16x2(c[px], w[px + d], c[px + 1], w[px + 1 + d]);
+          acc[d] += a.x;
+          acc[d] += a.y;
+        }
+      }
+    }
+    float bc = acc[0];
+    int bd = 0;
+#pragma unroll
+    for (int d = 1; d < G::SIDE; ++d)
+      if (acc[d] < bc) { bc = acc[d]; bd = d; }
+    row_cost[tid] = bc;
+    row_cand[tid] = dy * G::SIDE + bd;
   }
   __syncthreads();
-  for (int c = tid; c < ncand; c += blockDim.x) {
-    float s = 0.f;
-    for (int w = 0; w < WARPS; ++w) s += part[c * WARPS + w];
-    csum[c] = s;
-  }
-  __syncthreads();
-  if (tid == 0) {
-    int bk = 0;
-    float bc = csum[0];
-    for (int c = 1; c < ncand; ++c)
-      if (csum[c] < bc) { bc = csum[c]; bk = c; }
-    best = bk;
-    mv[(size_t)m * 2 + 0] = bk / side - r;
-    mv[(size_t)m * 2 + 1] = bk % side - r;
+  if (tid < kk) {
+    const int b0 = tid * G::SIDE;
+    float bc = row_cost[b0];
+    int bi = row_cand[b0];
+    for (int d = 1; d < G::SIDE; ++d)
+      if (row_cost[b0 + d] < bc) { bc = row_cost[b0 + d]; bi = row_cand[b0 + d]; }
+    const size_t m = ((size_t)n * bh + by) * bw + j0 + tid;
+    mv[m * 2 + 0] = bi / G::SIDE - R;
+    mv[m * 2 + 1] = bi % G::SIDE - R;
     cost[m] = bc;
+    best[tid] = bi;
   }
   __syncthreads();
-  const int dy = best / side, dx = best % side;
-  pred[plane + (size_t)(by * BS + py) * W + bx * BS + px] =
-      win[(py + dy) * ws + px + dx];
+  for (int i = tid; i < BS * ccols; i += blockDim.x) {
+    const int rr = i / ccols, cc = i - rr * ccols, b = best[cc / BS];
+    pred[plane + (size_t)(by * BS + rr) * W + j0 * BS + cc] =
+        win[(rr + b / G::SIDE) * G::PITCH + cc + b % G::SIDE];
+  }
+}
+
+template <int R>
+int launch(const void* cur, const void* ref, int N, int H, int W, void* mv,
+           void* cost, void* pred, cudaStream_t st) {
+  using G = Geo<R>;
+  cudaError_t err = cudaFuncSetAttribute(
+      fsearch_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      G::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const long nblk = (long)N * (H / BS) * ((W / BS + K - 1) / K);
+  if (nblk > 0) {
+    fsearch_kernel<R><<<(unsigned)nblk, G::THREADS, G::SMEM, st>>>(
+        (const float*)cur, (const float*)ref, H, W, (int32_t*)mv,
+        (float*)cost, (float*)pred);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -115,11 +206,16 @@ extern "C" int full_search_mc(const void* cur, const void* ref, int N,
                               void* pred, void* stream) {
   if (r < 0 || r > MAX_R || H % BS || W % BS)
     return (int)cudaErrorInvalidValue;
-  const int nblk = N * (H / BS) * (W / BS);
-  if (nblk > 0) {
-    fsearch_kernel<<<nblk, BS * BS, 0, (cudaStream_t)stream>>>(
-        (const float*)cur, (const float*)ref, H, W, r, (int32_t*)mv,
-        (float*)cost, (float*)pred);
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (r) {
+    case 0: return launch<0>(cur, ref, N, H, W, mv, cost, pred, st);
+    case 1: return launch<1>(cur, ref, N, H, W, mv, cost, pred, st);
+    case 2: return launch<2>(cur, ref, N, H, W, mv, cost, pred, st);
+    case 3: return launch<3>(cur, ref, N, H, W, mv, cost, pred, st);
+    case 4: return launch<4>(cur, ref, N, H, W, mv, cost, pred, st);
+    case 5: return launch<5>(cur, ref, N, H, W, mv, cost, pred, st);
+    case 6: return launch<6>(cur, ref, N, H, W, mv, cost, pred, st);
+    case 7: return launch<7>(cur, ref, N, H, W, mv, cost, pred, st);
+    default: return launch<8>(cur, ref, N, H, W, mv, cost, pred, st);
   }
-  return (int)cudaGetLastError();
 }

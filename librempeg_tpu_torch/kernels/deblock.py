@@ -1,5 +1,6 @@
-"""Binding of csrc/deblock.cu (H.264 loop filter, one launch per MB
-diagonal t = mx + 2*my)."""
+"""Binding of csrc/deblock.cu (H.264 loop filter: one persistent launch
+per frame, MB rows handed out in order, each row's bottom pixels handed
+to the row below through flagged words)."""
 from __future__ import annotations
 
 import ctypes
@@ -10,9 +11,9 @@ from librempeg_tpu_torch.kernels import _build as B
 
 NAME = "deblock"
 SOURCE = "deblock"
-#: deblock_frame calls since the last reset (each call launches the
-#: kernel once per diagonal)
+#: kernel launches since the last reset (one per call)
 LAUNCHES = 0
+_coresident: dict[int, int] = {}
 
 
 def _lib():
@@ -20,21 +21,44 @@ def _lib():
     fn = lib.deblock_frame
     if fn.restype is not ctypes.c_int:
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 \
-            + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 \
+            + [ctypes.c_void_p] * 2
+        lib.deblock_coresident.restype = ctypes.c_int
+        lib.deblock_coresident.argtypes = [ctypes.c_void_p]
     return lib
 
 
-def launch(y, u, v, params, mb_w: int, mb_h: int) -> None:
+def coresident(device) -> int:
+    """Blocks of the kernel that fit on `device` at once."""
+    idx = torch.device(device).index
+    if idx is None:
+        idx = torch.cuda.current_device()
+    if idx not in _coresident:
+        out = ctypes.c_int(0)
+        with torch.cuda.device(idx):
+            B.check(NAME, _lib().deblock_coresident(ctypes.byref(out)))
+        _coresident[idx] = out.value
+    return _coresident[idx]
+
+
+def launch(y, u, v, params, mb_w: int, mb_h: int,
+           grid: int | None = None) -> None:
     """Filter y [16*mb_h, 16*mb_w], u/v [8*mb_h, 8*mb_w] u8 IN PLACE;
-    params [nmb, 8, 16] i32 packed per-edge decisions."""
+    params [nmb, 8, 16] i32 packed per-edge decisions. grid: thread
+    blocks, by default min(mb_h, the blocks that fit on the card)."""
     global LAUNCHES
     H, W = mb_h * 16, mb_w * 16
     B.require(y, "y", torch.uint8, (H, W))
     B.require(u, "u", torch.uint8, (H // 2, W // 2))
     B.require(v, "v", torch.uint8, (H // 2, W // 2))
     B.require(params, "params", torch.int32, (mb_w * mb_h, 8, 16))
+    if grid is None:
+        grid = min(mb_h, coresident(y.device))
+    # the row ticket, then 24 flagged words per MB for the row below
+    scratch = torch.zeros(1 + 24 * mb_w * mb_h, dtype=torch.int64,
+                          device=y.device)
     err = _lib().deblock_frame(B.ptr(y), B.ptr(u), B.ptr(v), B.ptr(params),
-                               mb_w, mb_h, B.stream_ptr(y))
+                               mb_w, mb_h, int(grid), B.ptr(scratch),
+                               B.stream_ptr(y))
     B.check(NAME, err)
     LAUNCHES += 1

@@ -191,6 +191,72 @@ def test_deblock_kernel(seed):
         _eq(a, b, "deblock " + n)
 
 
+def _deblock_frame(seed, dev, mb_w, mb_h):
+    """Smooth planes (the gates open) and P-frame entropy of mb_w x mb_h
+    MBs -> (planes, the deblock's entropy arguments)."""
+    rng = np.random.default_rng(seed)
+    nmb, h, w = mb_w * mb_h, mb_h * 16, mb_w * 16
+    gy, gx = np.mgrid[0:h, 0:w]
+    y = np.clip(128 + 40 * np.sin(gx / 7.0) + 30 * np.cos(gy / 9.0)
+                + rng.integers(-6, 7, (h, w)), 0, 255).astype(np.uint8)
+    u = y[::2, ::2].copy()
+    v = (255 - y[::2, ::2]).astype(np.uint8)
+    total = nmb * 27 * 16
+    idx = np.sort(rng.choice(total, size=total // 12, replace=False))
+    kind = np.where(rng.random(nmb) < 0.3, rng.choice([2, 3], nmb), 0)
+    args = (idx.astype(np.int32),
+            rng.integers(-40, 41, idx.size).astype(np.int16),
+            rng.integers(-300, 301, (nmb, 16, 2)).astype(np.int16),
+            rng.integers(0, 2, (nmb, 4)).astype(np.int8),
+            rng.integers(24, 46, nmb).astype(np.int32),
+            kind.astype(np.int32))
+    return ([torch.from_numpy(p).to(dev) for p in (y, u, v)],
+            [torch.from_numpy(a).to(dev) for a in args])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mb_w,mb_h,grid", [
+    (7, 4, 1), (7, 4, 2), (7, 4, 3), (3, 150, None), (3, 150, 1),
+    (3, 150, 2), (3, 150, 3)])
+def test_deblock_kernel_grids(mb_w, mb_h, grid):
+    """The persistent kernel with few blocks (each walks many MB rows)
+    and at the wrapper's grid on a tall frame, against the plain
+    version."""
+    from librempeg_tpu_torch.kernels import deblock as KD
+
+    dev = _card()
+    planes, args = _deblock_frame(2, dev, mb_w, mb_h)
+    want = DR.deblock_frame(*planes, *args, mb_w, mb_h, 1, 2, -1)
+    P = DP.deblock_params(*args, mb_w, mb_h, 1, 2, -1)
+    got = [p.clone() for p in planes]
+    KD.launch(*got, P, mb_w, mb_h, grid)
+    torch.cuda.synchronize()
+    assert not torch.equal(want[0], planes[0]), "filter did nothing"
+    for a, b, n in zip(got, want, "yuv"):
+        _eq(a, b, f"deblock {mb_w}x{mb_h} grid {grid} {n}")
+
+
+@pytest.mark.cuda
+def test_deblock_kernel_taller_than_the_card():
+    """More MB rows than blocks that fit on the card at once: the
+    wrapper's grid (all blocks resident, each walking several rows)
+    equals one block walking every row in order."""
+    from librempeg_tpu_torch.kernels import deblock as KD
+
+    dev = _card()
+    mb_w, mb_h = 2, KD.coresident(dev) + 64
+    planes, args = _deblock_frame(3, dev, mb_w, mb_h)
+    P = DP.deblock_params(*args, mb_w, mb_h)
+    one = [p.clone() for p in planes]
+    KD.launch(*one, P, mb_w, mb_h, 1)
+    full = [p.clone() for p in planes]
+    KD.launch(*full, P, mb_w, mb_h)
+    torch.cuda.synchronize()
+    assert not torch.equal(one[0], planes[0]), "filter did nothing"
+    for a, b, n in zip(full, one, "yuv"):
+        _eq(a, b, f"deblock {mb_w}x{mb_h} {n}")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("seed", [0, 1])
 def test_hpel_kernel(seed):
@@ -218,24 +284,44 @@ def test_hpel_luma_and_chroma_kernels(seed):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("r", [1, 4, 8])
 @pytest.mark.parametrize("integer", [True, False])
-def test_fsearch_kernel(integer):
+def test_fsearch_kernel(integer, r):
     """Bit-exact on integer inputs; on float inputs the float32 block
     sums run in another order, so MVs may differ on a near-tie and
-    costs in the last bits."""
+    costs in the last bits. 3 frames of 7x5 MBs (each MB row one ragged
+    strip of the kernel's 16-MB strips) and 2 frames of 10x6 MBs."""
     dev = _card()
-    cur, ref = _fsearch_case(3, dev, integer=integer)
-    for r in (4, 8):
+    for n, h, w in ((3, 80, 112), (2, 96, 160)):
+        cur, ref = _fsearch_case(3, dev, n, h, w, integer=integer)
         got = MS.full_search_mc(cur, ref, r)
         want = MS.full_search_mc_plain(cur, ref, r)
         if integer:
-            for a, b, n in zip(got, want, ("mv", "cost", "pred")):
-                _eq(a, b, f"fsearch r={r} {n}")
+            for a, b, name in zip(got, want, ("mv", "cost", "pred")):
+                _eq(a, b, f"fsearch {n}x{h}x{w} r={r} {name}")
             continue
         same = (got[0] == want[0]).all(-1)
         assert same.float().mean() >= 0.999
         rel = ((got[1] - want[1]).abs() / want[1].clamp(min=1))[same]
         assert float(rel.max()) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", [1, 4, 8])
+def test_fsearch_kernel_ties(r):
+    """Long runs of exactly tied candidates pin the first-minimum rule:
+    a flat reference (every candidate of a block ties, so the MV is
+    (-r, -r)) beside a textured one, over 2 strips of MBs (the second
+    ragged)."""
+    dev = _card()
+    cur, ref = _fsearch_case(5, dev, 3, 64, 16 * 21)
+    ref[:, :, :160] = 100.0
+    ref[1] = 37.0
+    got = MS.full_search_mc(cur, ref, r, tile_w=cur.shape[2])
+    want = MS.full_search_mc_plain(cur, ref, r)
+    for a, b, name in zip(got, want, ("mv", "cost", "pred")):
+        _eq(a, b, f"fsearch ties r={r} {name}")
+    assert bool((got[0][1] == -r).all())
 
 
 @pytest.mark.cuda

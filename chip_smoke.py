@@ -16,7 +16,7 @@ raises and the script exits non-zero:
    time the card could take for the same work (bound_ms, from the
    call's shapes: the bytes moved at 3.35 TB/s or the operations at
    67 TFLOP/s, whichever is longer). A torch.profiler window over one
-   deblock call must show one deblock kernel and at most one fill. The
+   deblock call must show one deblock kernel and nothing else. The
    H.264 kernels (mc, intra, deblock, residual) take the first
    P frame of assets/bench_1080p.264, the residual kernel through the
    windowless packer; the half-pel kernels (hpel_luma, hpel_chroma) the
@@ -191,10 +191,48 @@ def timed(fn, restore=None) -> dict:
     return {"ms": median_ms(fn, restore), "device_ms": device_ms(fn, restore)}
 
 
+def mc_read_bytes(luma4, upad, vpad, mv, ref, mb_w: int) -> int:
+    """The reference bytes the MC must read for this motion field, each
+    counted once over the frame (the index math of device_recon._mc):
+    the luma4 samples under each 4x4 block's two quarter-pel taps (one
+    plane at full-pel positions), and the U and V samples under each 2x2
+    chroma block's bilinear taps of non-zero weight (2x2 at integer
+    positions, up to 3x3)."""
+    import torch
+
+    from librempeg_tpu_torch.codecs.h264 import device_recon as DR
+
+    dev, nmb = luma4.device, mv.shape[0]
+    nref, _, hp, wp = luma4.shape
+    hc, wc = upad.shape[1:]
+    mb = torch.arange(nmb, device=dev)[:, None]
+    b = torch.arange(16, device=dev)
+    ys = (mb // mb_w * 16 + b // 4 * 4).reshape(-1)
+    xs = (mb % mb_w * 16 + b % 4 * 4).reshape(-1)
+    mvx, mvy = (mv[:, :, i].reshape(-1).long() for i in (0, 1))
+    r = ref.long()[:, b // 8 * 2 + b % 4 // 2].reshape(-1).clamp(0, nref - 1)
+    qm = torch.as_tensor(DR._QM, device=dev).long()[(mvy & 3) * 4 + (mvx & 3)]
+    iy = (ys + (mvy >> 2) + DR.PAD).clamp(3, hp - 8)
+    ix = (xs + (mvx >> 2) + DR.PAD).clamp(3, wp - 8)
+    k = torch.arange(4, device=dev)
+    luma = torch.cat([
+        (((r * 4 + qm[:, p])[:, None, None] * hp
+          + (iy + qm[:, p + 1])[:, None, None] + k[:, None]) * wp
+         + (ix + qm[:, p + 2])[:, None, None] + k).reshape(-1)
+        for p in (0, 3)]).unique().numel()
+    cy = (ys // 2 + (mvy >> 3) + DR.PADC).clamp(0, hc - 4)[:, None, None]
+    cx = (xs // 2 + (mvx >> 3) + DR.PADC).clamp(0, wc - 4)[:, None, None]
+    k = torch.arange(3, device=dev)
+    need = (((k < 2)[:, None] | ((mvy & 7) != 0)[:, None, None])
+            & ((k < 2) | ((mvx & 7) != 0)[:, None, None]))
+    addr = ((r[:, None, None] * hc + cy + k[:, None]) * wc + cx + k)
+    return luma + 2 * addr[need].unique().numel()
+
+
 def deblock_launch_check(run) -> dict:
     """Kernel launches on the card during run(), by torch.profiler: the
-    deblock must be one kernel launch, plus at most one fill (the
-    zeroing of its scratch: the row ticket and the row-to-row words)."""
+    deblock must be one kernel launch and nothing else (its scratch is
+    made once per stream; an epoch in each call spares a fill)."""
     import torch
     from torch.profiler import ProfilerActivity, profile as prof
 
@@ -206,11 +244,9 @@ def deblock_launch_check(run) -> dict:
     names = [e.name for e in p.events()
              if e.device_type == torch.autograd.DeviceType.CUDA]
     deb = [n for n in names if "deblock" in n]
-    fills = [n for n in names if "deblock" not in n]
-    check(len(deb) == 1 and len(fills) <= 1
-          and all("ill" in n or "emset" in n for n in fills),
+    check(len(deb) == 1 and len(names) == 1,
           f"deblock launches on the card: {names}")
-    return {"kernels": len(deb), "fills": len(fills)}
+    return {"kernels": len(deb), "other": len(names) - len(deb)}
 
 
 def max_abs_err(got, want) -> float:
@@ -315,10 +351,13 @@ def kernel_phases(dev) -> dict:
     res["mc"] = {"max_abs_err": err,
                  **timed(lambda: MC.mc_predict(*margs)),
                  "plain_ms": median_ms(lambda: MC.mc_predict_plain(*margs)),
-                 # a 6-tap FIR in each direction plus the quarter-pel
-                 # average, about 30 operations per luma sample; 8 per
-                 # chroma sample (bilinear)
-                 **bound(nbytes(luma4, upad, vpad, mv, ref, *got),
+                 # the reference samples the motion field reads, the
+                 # MVs, refs and predictions; a 6-tap FIR in each
+                 # direction plus the quarter-pel average, about 30
+                 # operations per luma sample; 8 per chroma sample
+                 # (bilinear)
+                 **bound(mc_read_bytes(*margs[:5], mb_w)
+                         + nbytes(mv, ref, *got),
                          nmb * (256 * 30 + 128 * 8)),
                  "shape": f"{nmb} MBs, {luma4.shape[0]} ref"}
 

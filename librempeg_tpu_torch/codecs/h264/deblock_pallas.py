@@ -10,6 +10,7 @@ plain version is device_recon.deblock_frame.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from librempeg_tpu_torch.codecs.h264 import device_recon as DR
@@ -71,3 +72,34 @@ def deblock_frame_pallas(y, u, v, coeff_idx, coeff_val, mv, ref, qp, kind,
                        chroma_qp_off, alpha_off, beta_off)
     K.launch(y, u, v, P, mb_w, mb_h)
     return y, u, v
+
+
+def random_p_frame(mb_w: int, mb_h: int, seed: int = 0,
+                   sparse: bool = False):
+    """A random P frame before its deblock, for tests and timing, in the
+    arguments of device_recon.deblock_frame as numpy: ((y, u, v) uint8,
+    (idx int32, vals int16, mv [nmb,16,2] int16, ref [nmb,4] int8, qp
+    int32, kind int32)). The planes are smooth with noise, so the
+    filters' gates open. Dense (the default): 30% intra MBs (bS 3 and
+    4), a coefficient in one of 12 positions, qp 24..45, so most edges
+    filter; sparse: 1% intra MBs, one in 200, qp 26..32, closer to a
+    real P frame."""
+    rng = np.random.default_rng(seed)
+    nmb, h, w = mb_w * mb_h, mb_h * 16, mb_w * 16
+    gy, gx = np.mgrid[0:h, 0:w]
+    y = np.clip(128 + 40 * np.sin(gx / 7.0) + 30 * np.cos(gy / 9.0)
+                + rng.integers(-6, 7, (h, w)), 0, 255).astype(np.uint8)
+    u = y[::2, ::2].copy()
+    v = (255 - y[::2, ::2]).astype(np.uint8)
+    total = nmb * 27 * 16
+    idx = np.sort(rng.choice(total, size=total // (200 if sparse else 12),
+                             replace=False))
+    kind = np.where(rng.random(nmb) < (0.01 if sparse else 0.3),
+                    rng.choice([2, 3], nmb), 0)
+    vals = rng.integers(-40, 41, idx.size).astype(np.int16)
+    mv = rng.integers(-300, 301, (nmb, 16, 2)).astype(np.int16)
+    ref = rng.integers(0, 2, (nmb, 4)).astype(np.int8)
+    qp = (rng.integers(26, 33, nmb) if sparse
+          else rng.integers(24, 46, nmb)).astype(np.int32)
+    return (y, u, v), (idx.astype(np.int32), vals, mv, ref, qp,
+                       kind.astype(np.int32))

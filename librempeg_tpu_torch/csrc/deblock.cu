@@ -26,11 +26,15 @@
 //
 // Handoff: row y hands row y+1 the 24 words (4 bytes each) that row
 // y+1 reads above MB x (the last 4 luma rows and last 2 chroma rows of
-// MB x) through a mailbox in device memory, each word stored with a
-// flag in its high half as one 64-bit relaxed store. The receiving lanes
-// spin on their own word with 64-bit relaxed loads, so a word arrives
-// whole, flag and data in one L2 round trip, and no fence or
-// release/acquire pair is needed. The global write-back is split so
+// MB x) through a mailbox in device memory, each word stored with the
+// call's epoch in its high half as one 64-bit relaxed store. The
+// receiving lanes spin on their own word with 64-bit relaxed loads
+// until it carries this call's epoch, so a word arrives whole, flag and
+// data in one L2 round trip, and no fence or release/acquire pair is
+// needed. The epoch also spares the caller a fill per call: words of
+// earlier calls carry earlier epochs, and the row ticket counts on from
+// where the previous call left it (each call takes mb_h + grid tickets).
+// The global write-back is split so
 // that each pixel is written by one block only: row y writes the rows
 // above MB x that its top edge changes and its own rows but the last 3
 // luma rows and the last chroma row, which row y+1's top edge changes
@@ -330,8 +334,9 @@ __device__ __forceinline__ void write_back(const Frame& f, const Tiles& t,
 }
 
 __global__ void __launch_bounds__(64)
-    deblock_rows_kernel(Frame f, int* __restrict__ ticket,
-                        uint64_t* __restrict__ mbox) {
+    deblock_rows_kernel(Frame f, unsigned* __restrict__ ticket,
+                        unsigned ticket_base, uint64_t* __restrict__ mbox,
+                        uint32_t epoch) {
   __shared__ __align__(16) Tiles t;
   __shared__ int ticket_row;
   // warp 0 lanes 0..15: luma lines; warp 1 lanes 0..15: chroma lines;
@@ -341,7 +346,8 @@ __global__ void __launch_bounds__(64)
   const bool active = (tid & 31) < 16;
   const int lane = (tid >> 5) * 16 + (tid & 15);
   for (;;) {
-    if (tid == 0) ticket_row = atomicAdd(ticket, 1);
+    // unsigned difference: the ticket may wrap between calls
+    if (tid == 0) ticket_row = (int)(atomicAdd(ticket, 1u) - ticket_base);
     __syncthreads();
     const int my = ticket_row;
     if (my >= f.mb_h) return;
@@ -376,12 +382,12 @@ __global__ void __launch_bounds__(64)
         }
         if (more) load_params(f, row0 + x + 1, lane, false, ph_next);
         if (my > 0 && lane < MBOX) {
-          // the word carries its own flag (high half), so it arrives
-          // whole or not at all
+          // the word carries its own flag (the epoch, high half), so it
+          // arrives whole or not at all
           uint64_t w;
           do {
             w = ld_relaxed(inbox + (size_t)x * MBOX + lane);
-          } while ((w >> 32) == 0);
+          } while ((uint32_t)(w >> 32) != epoch);
           *above_word(t, x, lane) = (uint32_t)w;
         }
       }
@@ -398,7 +404,7 @@ __global__ void __launch_bounds__(64)
       if (active) {
         if (my + 1 < f.mb_h && lane < MBOX)
           st_relaxed(outbox + (size_t)x * MBOX + lane,
-                     (1ull << 32) | *bottom_word(t, x, lane));
+                     ((uint64_t)epoch << 32) | *bottom_word(t, x, lane));
         write_back(f, t, my, x, lane);
       }
 #pragma unroll
@@ -428,18 +434,23 @@ extern "C" int deblock_coresident(int* blocks) {
 }
 
 // Deblocks y [16*mb_h, 16*mb_w], u/v [8*mb_h, 8*mb_w] in place, with
-// `grid` blocks. scratch: 8 * (1 + 24 * mb_w * mb_h) bytes of zeros (the
-// row ticket, then each MB's words for the row below), owned by the
-// caller until the kernel ends.
+// `grid` blocks. scratch: 8 * (1 + 24 * mb_w * mb_h) bytes (the row
+// ticket, then each MB's words for the row below), zero before its
+// first call and owned by one stream: its calls run in order. Each call
+// on it passes an epoch that no earlier call since the zeroing used
+// (never 0), and as ticket_base the sum of (mb_h + grid) over those
+// calls, modulo 2^32.
 extern "C" int deblock_frame(void* y, void* u, void* v, const void* params,
                              int mb_w, int mb_h, int grid, void* scratch,
+                             unsigned ticket_base, unsigned epoch,
                              void* stream) {
-  if (mb_w < 1 || mb_h < 1 || grid < 1) return (int)cudaErrorInvalidValue;
+  if (mb_w < 1 || mb_h < 1 || grid < 1 || epoch == 0)
+    return (int)cudaErrorInvalidValue;
   if (((uintptr_t)y | (uintptr_t)u | (uintptr_t)v) & 3)
     return (int)cudaErrorMisalignedAddress;
   const Frame f{(uint8_t*)y, (uint8_t*)u, (uint8_t*)v,
                 (const int32_t*)params, mb_w, mb_h, 16 * mb_w, 8 * mb_w};
   deblock_rows_kernel<<<grid, 64, 0, (cudaStream_t)stream>>>(
-      f, (int*)scratch, (uint64_t*)scratch + 1);
+      f, (unsigned*)scratch, ticket_base, (uint64_t*)scratch + 1, epoch);
   return (int)cudaGetLastError();
 }

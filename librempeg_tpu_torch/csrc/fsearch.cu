@@ -34,9 +34,9 @@
 //
 // Rounding: the two differences of a pixel pair go through one
 // cvt.rn.bf16x2.f32 (__floats2bfloat162_rn) and are widened back with a
-// shift or a mask. tools/fsearch_rounding.py compares it on the card
-// with an integer round-to-nearest-even (add 0x7FFF + lsb, mask) by
-// SASS instruction count and time; see PERF.md.
+// shift or a mask. On the card it issued fewer instructions and ran
+// faster than an integer round-to-nearest-even (add 0x7FFF + lsb, mask);
+// the SASS counts and times are in PERF.md.
 //
 // Bound on the H100: operations. At the kernel leg's shape (8 x 720 x
 // 1280, r = 4: 28800 MBs, 81 candidates) the search evaluates 597M
@@ -48,6 +48,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace {
 
@@ -186,10 +188,20 @@ template <int R>
 int launch(const void* cur, const void* ref, int N, int H, int W, void* mv,
            void* cost, void* pred, cudaStream_t st) {
   using G = Geo<R>;
-  cudaError_t err = cudaFuncSetAttribute(
-      fsearch_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      G::SMEM);
+  // the shared-memory attribute holds for the process: set it once per
+  // device (bit d of `ready`; devices past 63 set it on every call)
+  static std::atomic<uint64_t> ready{0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
+  const uint64_t bit = dev < 64 ? 1ull << dev : 0;
+  if (!(ready.load(std::memory_order_acquire) & bit)) {
+    err = cudaFuncSetAttribute(fsearch_kernel<R>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               G::SMEM);
+    if (err != cudaSuccess) return (int)err;
+    ready.fetch_or(bit, std::memory_order_release);
+  }
   const long nblk = (long)N * (H / BS) * ((W / BS + K - 1) / K);
   if (nblk > 0) {
     fsearch_kernel<R><<<(unsigned)nblk, G::THREADS, G::SMEM, st>>>(

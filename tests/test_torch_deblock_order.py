@@ -14,32 +14,18 @@ import numpy as np
 import pytest
 import torch
 
+from librempeg_tpu_torch.codecs.h264 import deblock_pallas as DP
 from librempeg_tpu_torch.codecs.h264 import device_recon as DR
 
 MB_W, MB_H = 6, 5
 NMB = MB_W * MB_H
-H, W = MB_H * 16, MB_W * 16
 
 
 def _frame(seed=0):
-    """A random P frame whose filters' gates open: smooth planes with
-    noise, high qp, a share of intra MBs (bS 3 and 4)."""
-    rng = np.random.default_rng(seed)
-    gy, gx = np.mgrid[0:H, 0:W]
-    y = np.clip(128 + 40 * np.sin(gx / 7.0) + 30 * np.cos(gy / 9.0)
-                + rng.integers(-6, 7, (H, W)), 0, 255).astype(np.uint8)
-    u = y[::2, ::2].copy()
-    v = (255 - y[::2, ::2]).astype(np.uint8)
-    total = NMB * 27 * 16
-    idx = np.sort(rng.choice(total, size=total // 12, replace=False))
-    kind = np.where(rng.random(NMB) < 0.3, rng.choice([2, 3], NMB), 0)
-    args = (idx.astype(np.int32),
-            rng.integers(-40, 41, idx.size).astype(np.int16),
-            rng.integers(-300, 301, (NMB, 16, 2)).astype(np.int16),
-            rng.integers(0, 2, (NMB, 4)).astype(np.int8),
-            rng.integers(28, 46, NMB).astype(np.int32),
-            kind.astype(np.int32))
-    return ([torch.from_numpy(p) for p in (y, u, v)],
+    """A random P frame whose filters' gates open (the dense
+    deblock_pallas.random_p_frame)."""
+    planes, args = DP.random_p_frame(MB_W, MB_H, seed)
+    return ([torch.from_numpy(p) for p in planes],
             [torch.from_numpy(a) for a in args])
 
 

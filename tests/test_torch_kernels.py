@@ -192,25 +192,10 @@ def test_deblock_kernel(seed):
 
 
 def _deblock_frame(seed, dev, mb_w, mb_h):
-    """Smooth planes (the gates open) and P-frame entropy of mb_w x mb_h
-    MBs -> (planes, the deblock's entropy arguments)."""
-    rng = np.random.default_rng(seed)
-    nmb, h, w = mb_w * mb_h, mb_h * 16, mb_w * 16
-    gy, gx = np.mgrid[0:h, 0:w]
-    y = np.clip(128 + 40 * np.sin(gx / 7.0) + 30 * np.cos(gy / 9.0)
-                + rng.integers(-6, 7, (h, w)), 0, 255).astype(np.uint8)
-    u = y[::2, ::2].copy()
-    v = (255 - y[::2, ::2]).astype(np.uint8)
-    total = nmb * 27 * 16
-    idx = np.sort(rng.choice(total, size=total // 12, replace=False))
-    kind = np.where(rng.random(nmb) < 0.3, rng.choice([2, 3], nmb), 0)
-    args = (idx.astype(np.int32),
-            rng.integers(-40, 41, idx.size).astype(np.int16),
-            rng.integers(-300, 301, (nmb, 16, 2)).astype(np.int16),
-            rng.integers(0, 2, (nmb, 4)).astype(np.int8),
-            rng.integers(24, 46, nmb).astype(np.int32),
-            kind.astype(np.int32))
-    return ([torch.from_numpy(p).to(dev) for p in (y, u, v)],
+    """deblock_pallas.random_p_frame (dense) of mb_w x mb_h MBs on `dev`
+    -> (planes, the deblock's entropy arguments)."""
+    planes, args = DP.random_p_frame(mb_w, mb_h, seed)
+    return ([torch.from_numpy(p).to(dev) for p in planes],
             [torch.from_numpy(a).to(dev) for a in args])
 
 

@@ -1,69 +1,44 @@
 #!/usr/bin/env python3
 """Where the deblock kernel's time goes, on the card.
 
-    python3 tools/deblock_steps.py [--source FILE.cu ...]
+    python3 tools/deblock_steps.py
 
-Times csrc/deblock.cu (and each --source, a variant of it with the same
-C entry points) with CUDA events on two kinds of random smooth P frame
-(dense: 30% intra MBs, many coefficients, qp 24..45, so most edges
-filter; sparse: 1% intra MBs, few coefficients, qp 26..32, closer to a
-real P frame) of several MB shapes, and on the bench asset's first P
-frame (120x68 MBs, as chip_smoke.py times it): one MB row (120 and 240 MBs wide), one MB column (68 and 136
-MBs tall) and the bench asset's 120x68. The slope over the row width is
-the time of one MB step within a block (two edge passes, the write-back
-and the publish); the slope over the column height is the time a row
-adds when it must wait for the row above (a step plus the handoff
-between blocks). Every variant's planes must equal the package kernel's.
-Needs a CUDA card; the last line is one JSON object.
+Times the package's deblock kernel (kernels.deblock.launch) with
+chip_smoke.py's CUDA-event timer on random P frames
+(deblock_pallas.random_p_frame), dense (most edges filter) and sparse
+(closer to a real P frame), of several MB shapes: one MB row (120 and
+240 MBs wide), one MB column (68 and 136 MBs tall) and 120x68; and on
+the bench asset's first P frame
+(120x68 MBs, as chip_smoke.py times it). The slope over the row width
+is the time of one MB step within a block (two edge passes, the
+write-back and the publish); the slope over the column height is the
+time a row adds when it must wait for the row above (a step plus the
+handoff between blocks). Needs a CUDA card; the last line is one JSON
+object.
 """
 from __future__ import annotations
 
-import argparse
-import ctypes
-import hashlib
 import json
 import os
-import statistics
 import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 SHAPES = ((120, 1), (240, 1), (1, 68), (1, 136), (120, 68))
-RUNS = 25
-SLEEP_CYCLES = 2_000_000
 
 
-def frame(mb_w: int, mb_h: int, kind: str, seed: int = 0):
-    """Smooth planes with noise and P-frame entropy of the given kind ->
-    (y, u, v) and the packed parameters, on the card."""
-    import numpy as np
+def synthetic(mb_w: int, mb_h: int, sparse: bool):
+    """deblock_pallas.random_p_frame on the card -> (y, u, v), packed
+    params."""
     import torch
 
     from librempeg_tpu_torch.codecs.h264 import deblock_pallas as DP
 
-    rng = np.random.default_rng(seed)
-    nmb, h, w = mb_w * mb_h, mb_h * 16, mb_w * 16
-    gy, gx = np.mgrid[0:h, 0:w]
-    y = np.clip(128 + 40 * np.sin(gx / 7.0) + 30 * np.cos(gy / 9.0)
-                + rng.integers(-6, 7, (h, w)), 0, 255).astype(np.uint8)
-    planes = [torch.from_numpy(p).cuda() for p in
-              (y, y[::2, ::2].copy(), (255 - y[::2, ::2]).astype(np.uint8))]
-    dense = kind == "dense"
-    total = nmb * 27 * 16
-    idx = np.sort(rng.choice(total, size=total // (12 if dense else 200),
-                             replace=False))
-    intra = np.where(rng.random(nmb) < (0.3 if dense else 0.01),
-                     rng.choice([2, 3], nmb), 0)
-    args = [torch.from_numpy(a).cuda() for a in (
-        idx.astype(np.int32),
-        rng.integers(-40, 41, idx.size).astype(np.int16),
-        rng.integers(-300, 301, (nmb, 16, 2)).astype(np.int16),
-        rng.integers(0, 2, (nmb, 4)).astype(np.int8),
-        (rng.integers(24, 46, nmb) if dense
-         else rng.integers(26, 33, nmb)).astype(np.int32),
-        intra.astype(np.int32))]
-    return planes, DP.deblock_params(*args, mb_w, mb_h)
+    planes, args = DP.random_p_frame(mb_w, mb_h, sparse=sparse)
+    args = [torch.from_numpy(a).cuda() for a in args]
+    return ([torch.from_numpy(p).cuda() for p in planes],
+            DP.deblock_params(*args, mb_w, mb_h))
 
 
 def bench_frame():
@@ -88,76 +63,26 @@ def bench_frame():
             mb_w, mb_h)
 
 
-def load(src: str):
-    """A variant's library, built with the package's nvcc flags."""
-    from librempeg_tpu_torch.kernels import _build as B
+def kernel_ms(planes, P, mb_w: int, mb_h: int) -> float:
+    """Median device ms of one deblock call, the planes restored before
+    each."""
+    import chip_smoke as CS
+    from librempeg_tpu_torch.kernels import deblock as KD
 
-    data = open(src, "rb").read()
-    out = os.path.join(ROOT, "build", "deblock_steps")
-    os.makedirs(out, exist_ok=True)
-    so = os.path.join(out, hashlib.sha256(data).hexdigest()[:16] + ".so")
-    if not os.path.exists(so):
-        subprocess.run([B._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-                        "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-                        "-o", so, src], check=True)
-    lib = ctypes.CDLL(so)
-    lib.deblock_frame.restype = ctypes.c_int
-    lib.deblock_frame.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 \
-        + [ctypes.c_void_p] * 2
-    lib.deblock_coresident.restype = ctypes.c_int
-    lib.deblock_coresident.argtypes = [ctypes.c_void_p]
-    return lib
-
-
-def runner(lib, planes, P, mb_w, mb_h):
-    import torch
-
-    n = ctypes.c_int(0)
-    lib.deblock_coresident(ctypes.byref(n))
-    grid = min(mb_h, n.value)
     work = [p.clone() for p in planes]
-
-    def run():
-        scratch = torch.zeros(1 + 24 * mb_w * mb_h, dtype=torch.int64,
-                              device="cuda")
-        err = lib.deblock_frame(
-            *(ctypes.c_void_p(t.data_ptr()) for t in (*work, P)), mb_w,
-            mb_h, grid, ctypes.c_void_p(scratch.data_ptr()),
-            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
-        if err:
-            raise RuntimeError(f"cudaError {err}")
 
     def restore():
         for w, p in zip(work, planes):
             w.copy_(p)
 
-    return run, restore, work
-
-
-def device_ms(run, restore) -> float:
-    import torch
-
-    pairs = []
-    for i in range(3 + RUNS):
-        restore()
-        torch.cuda._sleep(SLEEP_CYCLES)
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        run()
-        e1.record()
-        if i >= 3:
-            pairs.append((e0, e1))
-    torch.cuda.synchronize()
-    return statistics.median(a.elapsed_time(b) for a, b in pairs)
+    return CS.device_ms(lambda: KD.launch(*work, P, mb_w, mb_h), restore)
 
 
 def main(argv) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--source", action="append", default=[],
-                    help="a variant of csrc/deblock.cu to time beside it")
-    srcs = [os.path.join(ROOT, "librempeg_tpu_torch", "csrc", "deblock.cu")]
-    srcs += ap.parse_args(argv).source
+    import argparse
+
+    argparse.ArgumentParser(description=__doc__.split("\n")[0]) \
+        .parse_args(argv)
     import torch
 
     if not torch.cuda.is_available():
@@ -167,44 +92,23 @@ def main(argv) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     print(smi, flush=True)
-    libs = {os.path.relpath(s, ROOT): load(s) for s in srcs}
-    res = {name: {} for name in libs}
-    ok = True
-    cases = [(k, s) for k in ("dense", "sparse") for s in SHAPES]
-    for kind, (mb_w, mb_h) in cases + [("bench", (0, 0))]:
-        if kind == "bench":
-            planes, P, mb_w, mb_h = bench_frame()
-        else:
-            planes, P = frame(mb_w, mb_h, kind)
-        outs = []
-        # turns: each variant, then again in reverse order
-        for name in list(libs) + list(libs)[::-1]:
-            run, restore, work = runner(libs[name], planes, P, mb_w, mb_h)
-            res[name].setdefault(f"{kind} {mb_w}x{mb_h}", []).append(
-                device_ms(run, restore))
-            restore()
-            run()
-            torch.cuda.synchronize()
-            outs.append([w.clone() for w in work])
-        ok &= all(torch.equal(a, b) for o in outs[1:]
-                  for a, b in zip(o, outs[0]))
-    for name, r in res.items():
-        t = {k: statistics.fmean(v) for k, v in r.items()}
-        for kind in ("dense", "sparse"):
-            r[kind] = {
-                "step_us": (t[f"{kind} 240x1"] - t[f"{kind} 120x1"])
-                / 120 * 1e3,
-                "row_us": (t[f"{kind} 1x136"] - t[f"{kind} 1x68"]) / 68 * 1e3,
-                "ms_120x68": t[f"{kind} 120x68"],
-                "per_254_us": t[f"{kind} 120x68"] / 254 * 1e3}
-            print(f"{name} {kind}: MB step {r[kind]['step_us']:.3f} us, "
-                  f"row handoff + step {r[kind]['row_us']:.3f} us, 120x68 "
-                  f"{r[kind]['ms_120x68']:.4f} ms = "
-                  f"{r[kind]['per_254_us']:.3f} us over 254 steps",
-                  flush=True)
-        print(f"{name} bench P frame: {t['bench 120x68']:.4f} ms", flush=True)
-    print(json.dumps({"device": smi, "outputs_equal": ok, "variants": res}))
-    return 0 if ok else 1
+    res = {}
+    for kind in ("dense", "sparse"):
+        t = {s: kernel_ms(*synthetic(*s, kind == "sparse"), *s)
+             for s in SHAPES}
+        res[kind] = {
+            "step_us": (t[240, 1] - t[120, 1]) / 120 * 1e3,
+            "row_us": (t[1, 136] - t[1, 68]) / 68 * 1e3,
+            "ms_120x68": t[120, 68],
+            "per_254_us": t[120, 68] / 254 * 1e3}
+        r = res[kind]
+        print(f"{kind}: MB step {r['step_us']:.3f} us, row handoff + step "
+              f"{r['row_us']:.3f} us, 120x68 {r['ms_120x68']:.4f} ms = "
+              f"{r['per_254_us']:.3f} us over 254 steps", flush=True)
+    res["bench_ms"] = kernel_ms(*bench_frame())
+    print(f"bench P frame: {res['bench_ms']:.4f} ms", flush=True)
+    print(json.dumps({"device": smi, **res}))
+    return 0
 
 
 if __name__ == "__main__":

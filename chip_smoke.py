@@ -16,7 +16,8 @@ raises and the script exits non-zero:
    time the card could take for the same work (bound_ms, from the
    call's shapes: the bytes moved at 3.35 TB/s or the operations at
    67 TFLOP/s, whichever is longer). A torch.profiler window over one
-   deblock call must show one deblock kernel and nothing else. The
+   intra call and one deblock call must show each as one kernel launch
+   and nothing else. The
    H.264 kernels (mc, intra, deblock, residual) take the first
    P frame of assets/bench_1080p.264, the residual kernel through the
    windowless packer; the half-pel kernels (hpel_luma, hpel_chroma) the
@@ -229,24 +230,29 @@ def mc_read_bytes(luma4, upad, vpad, mv, ref, mb_w: int) -> int:
     return luma + 2 * addr[need].unique().numel()
 
 
-def deblock_launch_check(run) -> dict:
-    """Kernel launches on the card during run(), by torch.profiler: the
-    deblock must be one kernel launch and nothing else (its scratch is
-    made once per stream; an epoch in each call spares a fill)."""
+def launch_check(runs: dict) -> dict:
+    """Kernel launches on the card in one torch.profiler window (a second
+    window in one process may record no device events) over runs
+    {name: run}, called in turn: each call must be one launch of the
+    kernel `name` and nothing else (the deblock's scratch is made once
+    per stream, and an epoch in each call spares a fill; the intra
+    kernel keeps its state in shared memory)."""
     import torch
     from torch.profiler import ProfilerActivity, profile as prof
 
     torch.cuda.synchronize()
     with prof(activities=[ProfilerActivity.CPU,
                           ProfilerActivity.CUDA]) as p:
-        run()
-        torch.cuda.synchronize()
+        for run in runs.values():
+            run()
+            torch.cuda.synchronize()
     names = [e.name for e in p.events()
              if e.device_type == torch.autograd.DeviceType.CUDA]
-    deb = [n for n in names if "deblock" in n]
-    check(len(deb) == 1 and len(names) == 1,
-          f"deblock launches on the card: {names}")
-    return {"kernels": len(deb), "other": len(names) - len(deb)}
+    check(len(names) == len(runs), f"launches on the card: {names}")
+    for name in runs:
+        check(sum(name in n for n in names) == 1,
+              f"{name} launches on the card: {names}")
+    return {name: {"kernels": 1, "other": 0} for name in runs}
 
 
 def max_abs_err(got, want) -> float:
@@ -320,6 +326,28 @@ def capture_p_frame(dev):
     return captured[0], frames
 
 
+def hpel_inputs(dev, frames):
+    """The half-pel kernels' inputs on the bench path: the encoder's
+    recon of its first I-VOP (the bench settings) as the reference, the
+    next scaled frame as the current picture, and the encoder's integer
+    MVs -> (cur, ref_y, ref_u, ref_v, mv_i)."""
+    import torch
+
+    from librempeg_tpu_torch.codecs.mpeg4 import encoder as ME
+    from librempeg_tpu_torch.ops import motion
+    from librempeg_tpu_torch.scale import get_scaler
+
+    sc = get_scaler("yuv420p", frames[0].width, frames[0].height, "yuv420p",
+                    1280, 720)
+    enc = ME.Mpeg4Encoder(width=1280, height=720, bit_rate=4_000_000,
+                          device=dev)
+    enc.encode(sc.scale_frame(frames[0]))
+    ry, ru, rv = enc._ref
+    cur = sc.scale_planes(frames[1].planes)[0].to(torch.float32)
+    mv_i = motion.full_search_mc_xla(cur[None], ry[None], 8, 16, 2)[0][0]
+    return cur, ry, ru, rv, mv_i
+
+
 def kernel_phases(dev) -> dict:
     import torch
 
@@ -329,12 +357,9 @@ def kernel_phases(dev) -> dict:
     from librempeg_tpu_torch.codecs.h264 import intra_pallas as IP
     from librempeg_tpu_torch.codecs.h264 import mc_pallas as MC
     from librempeg_tpu_torch.codecs.h264 import residual_pallas as RP
-    from librempeg_tpu_torch.codecs.mpeg4 import encoder as ME
     from librempeg_tpu_torch.codecs.mpeg4 import me_pallas as MEP
     from librempeg_tpu_torch.kernels import deblock as KD
     from librempeg_tpu_torch.kernels import intra as KI
-    from librempeg_tpu_torch.ops import motion
-    from librempeg_tpu_torch.scale import get_scaler
 
     args, frames = capture_p_frame(dev)
     (idx, vals, qp, kind, info, i4m, ilist, mv, ref, luma4, upad, vpad,
@@ -366,28 +391,35 @@ def kernel_phases(dev) -> dict:
         *got, idx, vals, qp, kind, mb_w, mb_h, cqo, fold_i16=True)
     scal = IP.build_intra_scalars(ilist, kind, info, i4m, mb_w, mb_h)
     want = IP.intra_scan_plain(y, u, v, scal, lres_t, cres_t, mb_w, mb_h)
-    work = [p.clone() for p in (y, u, v)]
-    got = IP.intra_scan_pallas(*work, scal, lres_t, cres_t, mb_w, mb_h)
+    iwork = [p.clone() for p in (y, u, v)]
+    got = IP.intra_scan_pallas(*iwork, scal, lres_t, cres_t, mb_w, mb_h)
     err = max_abs_err(got, want)
     check(err == 0, f"intra kernel differs from its plain version: {err}")
-    t4, t16, tc = IP._tables(y.device)
 
     def restore_intra():
-        for w_, p in zip(work, (y, u, v)):
+        for w_, p in zip(iwork, (y, u, v)):
             w_.copy_(p)
 
     n_intra = ilist.numel()
+    n_i4 = int((kind[ilist.long()] == 2).sum())
+    steps = IP.dependent_steps(ilist.tolist(), mb_w)
+
+    def run_intra():
+        KI.launch(*iwork, scal, lres_t, cres_t, mb_w, mb_h)
+
     res["intra"] = {
         "max_abs_err": err,
-        **timed(lambda: KI.launch(*work, scal, t4, t16, tc, lres_t, cres_t,
-                                  mb_w, mb_h), restore_intra),
+        **timed(run_intra, restore_intra),
         "plain_ms": median_ms(lambda: IP.intra_scan_plain(
             y, u, v, scal, lres_t, cres_t, mb_w, mb_h)),
         # per intra MB: its 384 samples written, about 75 neighbour
         # samples read, its int32 residuals (16x16 + 2x8x8) read; about
         # 10 operations per sample (prediction, residual add, clip)
         **bound(n_intra * (384 + 75 + 4 * 384), n_intra * 384 * 10),
-        "shape": f"{n_intra} intra MBs of {mb_w * mb_h}"}
+        "steps": steps,
+        "shape": f"{n_intra} intra MBs of {mb_w * mb_h} ({n_intra - n_i4} "
+                 f"I16x16, {n_i4} I4x4), a dependence chain of {steps} MB "
+                 f"steps"}
 
     # deblock: the intra-complete frame
     y, u, v = want
@@ -406,10 +438,14 @@ def kernel_phases(dev) -> dict:
             w_.copy_(p)
 
     restore_db()
+    restore_intra()
+    checked = launch_check({"intra": run_intra,
+                            "deblock": lambda: KD.launch(*work, P, mb_w,
+                                                         mb_h)})
+    res["intra"]["launch_check"] = checked["intra"]
     res["deblock"] = {
         "max_abs_err": err,
-        "launch_check": deblock_launch_check(
-            lambda: KD.launch(*work, P, mb_w, mb_h)),
+        "launch_check": checked["deblock"],
         **timed(lambda: KD.launch(*work, P, mb_w, mb_h), restore_db),
         "params_ms": median_ms(lambda: DP.deblock_params(
             idx, vals, mv, ref, qp, kind, mb_w, mb_h, cqo, ao, bo)),
@@ -422,17 +458,8 @@ def kernel_phases(dev) -> dict:
         "shape": f"{mb_w}x{mb_h} MBs, one launch, a dependence chain of "
                  f"{mb_w + 2 * mb_h - 2} MB steps"}
 
-    # half-pel: the encoder's recon of its first I-VOP (the bench
-    # settings), the next scaled frame as the current picture
-    sc = get_scaler("yuv420p", frames[0].width, frames[0].height, "yuv420p",
-                    1280, 720)
-    enc = ME.Mpeg4Encoder(width=1280, height=720, bit_rate=4_000_000,
-                          device=dev)
-    enc.encode(sc.scale_frame(frames[0]))
-    ry, ru, rv = enc._ref
-    cur = sc.scale_planes(frames[1].planes)[0].to(torch.float32)
-    mv_i = motion.full_search_mc_xla(cur[None], ry[None], 8, 16, 2)[0][0]
-    hargs = (cur, ry, ru, rv, mv_i)
+    hargs = hpel_inputs(dev, frames)
+    cur, ry, ru, rv, mv_i = hargs
     err = max_abs_err(MEP.hpel_refine_mc(*hargs),
                       MEP.hpel_refine_mc_plain(*hargs))
     check(err == 0, f"hpel_refine_mc differs from its plain version: {err}")
@@ -445,9 +472,9 @@ def kernel_phases(dev) -> dict:
         "max_abs_err": err,
         **timed(lambda: MEP.refine_mc_luma(*largs)),
         "plain_ms": median_ms(lambda: MEP.refine_mc_luma_plain(*largs)),
-        # 9 half-pel candidates per MB, each sample an interpolation (3
+        # 25 half-pel candidates per MB, each sample an interpolation (3
         # operations) and a SAD term (3)
-        **bound(nbytes(*largs, *got), cur.numel() * 9 * 6),
+        **bound(nbytes(*largs, *got), cur.numel() * 25 * 6),
         "shape": "1280x720, 3600 MBs"}
     cargs = (ru, rv, got[0])
     err = max_abs_err(MEP.mc_chroma(*cargs), MEP.mc_chroma_plain(*cargs))
@@ -846,8 +873,9 @@ def main(argv: list[str]) -> int:
         log(f"kernel {name}: {exact}, device {r['device_ms']:.4f} ms, wall "
             f"{r['ms']:.3f} ms vs plain {r['plain_ms']:.3f} ms, bound "
             f"{r['bound_ms']:.4f} ms by {r['bound_by']} ({r['shape']})")
-    log(f"deblock on the card: {kres['deblock']['launch_check']} "
-        f"(torch.profiler, one call)")
+    for name in ("deblock", "intra"):
+        log(f"{name} on the card: {kres[name]['launch_check']} "
+            f"(torch.profiler, one call)")
 
     with tempfile.TemporaryDirectory() as td:
         s = slice_phase(dev, os.path.join(td, "slice.avi"))

@@ -412,12 +412,82 @@ def _pred8c(ctile, cmode, avt, avl):
             >> 5).clamp(0, 255).to(torch.int32)
 
 
+def _intra_mb(yp, up, vp, mi, k, inf, m4, lres, cres, mb_w):
+    """The reconstruction of one intra MB from the planes as they stand
+    (padded as _intra_scan's): its luma 16x16 and two chroma 8x8 tiles,
+    not yet written."""
+    my, mx = divmod(mi, mb_w)
+    y0, x0 = my * 16 + 1, mx * 16 + 1
+    avt, avl = my > 0, mx > 0
+    tile = yp[y0 - 1:y0 + 16, x0 - 1:x0 + 24].to(torch.int32)
+    lr = lres[mi]                          # [16, 4, 4] raster blocks
+    if k == 2:
+        for by, bx in _BLK4_DEC:
+            ly, lx = 1 + by * 4, 1 + bx * 4
+            t = tile[ly - 1, lx:lx + 4]
+            l = tile[ly:ly + 4, lx - 1]
+            lt = tile[ly - 1, lx - 1]
+            # top-right availability (decode order, §8.3.1)
+            if by > 0 and bx < 3:
+                av_tr = bool(_ORD4[(by - 1) * 4 + bx + 1]
+                             < _ORD4[by * 4 + bx])
+            elif by > 0:
+                av_tr = False
+            elif bx < 3:
+                av_tr = avt
+            else:
+                av_tr = avt and mx + 1 < mb_w
+            tr = tile[ly - 1, lx + 4:lx + 8] if av_tr \
+                else t[3].expand(4)
+            tt = torch.cat([t, tr])
+            mode = min(max(int(m4[by * 4 + bx]), 0), 8)
+            avt_b = True if by > 0 else avt
+            avl_b = True if bx > 0 else avl
+            if mode == 2 and not (avt_b and avl_b):
+                if avt_b:
+                    pred = ((t.sum() + 2) >> 2).expand(4, 4)
+                elif avl_b:
+                    pred = ((l.sum() + 2) >> 2).expand(4, 4)
+                else:
+                    pred = torch.full((4, 4), 128, dtype=torch.int32,
+                                      device=tile.device)
+            else:
+                pred = _pred4(mode, t, l, lt, tt)
+            tile[ly:ly + 4, lx:lx + 4] = (
+                pred + lr[by * 4 + bx]).clamp(0, 255)
+    else:
+        top = tile[0, 1:17]
+        left = tile[1:17, 0]
+        pred = _pred16(min(max(inf & 15, 0), 3), top, left, tile[0, 0],
+                       avt, avl)
+        res16 = lr.reshape(4, 4, 4, 4).permute(0, 2, 1, 3) \
+            .reshape(16, 16)
+        tile[1:17, 1:17] = (pred + res16).clamp(0, 255)
+    out = [tile[1:17, 1:17].to(yp.dtype)]
+
+    cy0, cx0 = my * 8 + 1, mx * 8 + 1
+    cmode = min(max((inf >> 4) & 15, 0), 3)
+    cr = cres[mi]                          # [2, 2, 2, 4, 4]
+    for pl, cp in ((0, up), (1, vp)):
+        ctile = cp[cy0 - 1:cy0 + 8, cx0 - 1:cx0 + 8].to(torch.int32)
+        pred = _pred8c(ctile, cmode, avt, avl)
+        res8 = cr[pl].permute(0, 2, 1, 3).reshape(8, 8)
+        out.append((pred + res8).clamp(0, 255).to(cp.dtype))
+    return out
+
+
 def _intra_scan(yp, up, vp, intra_list, kind, info, i4modes, lres, cres,
-                mb_w, mb_h):
-    """Reconstruct the listed intra MBs in raster order over planes
-    padded by 1 (top/left) and 8 (bottom/right) with zeros; updates the
-    planes in place and returns them. intra_list: ascending MB indices
-    (-1 entries are skipped). Mirrors native/h264.cpp h264_intra_recon.
+                mb_w, mb_h, order=None):
+    """Reconstruct the listed intra MBs over planes padded by 1
+    (top/left) and 8 (bottom/right) with zeros; updates the planes in
+    place and returns them. intra_list: ascending MB indices (-1 entries
+    are skipped). Mirrors native/h264.cpp h264_intra_recon.
+
+    order: the schedule, a list of groups of MB indices that together
+    cover the listed MBs once; every MB of a group is rebuilt from the
+    planes as they stood before the group, then the group is written (MBs
+    that run at the same time). Default: one MB per group in list order,
+    the spec's raster order.
 
     The per-MB metadata is read to the host once; the pixel work stays
     on the planes' device."""
@@ -425,68 +495,18 @@ def _intra_scan(yp, up, vp, intra_list, kind, info, i4modes, lres, cres,
     if not mbs:
         return yp, up, vp
     sel = torch.as_tensor(mbs, device=kind.device)
-    kinds = kind[sel].tolist()
-    infos = info[sel].tolist()
-    modes4 = i4modes[sel].tolist()
-    for mi, k, inf, m4 in zip(mbs, kinds, infos, modes4):
-        my, mx = divmod(mi, mb_w)
-        y0, x0 = my * 16 + 1, mx * 16 + 1
-        avt, avl = my > 0, mx > 0
-        tile = yp[y0 - 1:y0 + 16, x0 - 1:x0 + 24].to(torch.int32)
-        lr = lres[mi]                          # [16, 4, 4] raster blocks
-        if k == 2:
-            for by, bx in _BLK4_DEC:
-                ly, lx = 1 + by * 4, 1 + bx * 4
-                t = tile[ly - 1, lx:lx + 4]
-                l = tile[ly:ly + 4, lx - 1]
-                lt = tile[ly - 1, lx - 1]
-                # top-right availability (decode order, §8.3.1)
-                if by > 0 and bx < 3:
-                    av_tr = bool(_ORD4[(by - 1) * 4 + bx + 1]
-                                 < _ORD4[by * 4 + bx])
-                elif by > 0:
-                    av_tr = False
-                elif bx < 3:
-                    av_tr = avt
-                else:
-                    av_tr = avt and mx + 1 < mb_w
-                tr = tile[ly - 1, lx + 4:lx + 8] if av_tr \
-                    else t[3].expand(4)
-                tt = torch.cat([t, tr])
-                mode = min(max(int(m4[by * 4 + bx]), 0), 8)
-                avt_b = True if by > 0 else avt
-                avl_b = True if bx > 0 else avl
-                if mode == 2 and not (avt_b and avl_b):
-                    if avt_b:
-                        pred = ((t.sum() + 2) >> 2).expand(4, 4)
-                    elif avl_b:
-                        pred = ((l.sum() + 2) >> 2).expand(4, 4)
-                    else:
-                        pred = torch.full((4, 4), 128, dtype=torch.int32,
-                                          device=tile.device)
-                else:
-                    pred = _pred4(mode, t, l, lt, tt)
-                tile[ly:ly + 4, lx:lx + 4] = (
-                    pred + lr[by * 4 + bx]).clamp(0, 255)
-        else:
-            top = tile[0, 1:17]
-            left = tile[1:17, 0]
-            pred = _pred16(min(max(inf & 15, 0), 3), top, left, tile[0, 0],
-                           avt, avl)
-            res16 = lr.reshape(4, 4, 4, 4).permute(0, 2, 1, 3) \
-                .reshape(16, 16)
-            tile[1:17, 1:17] = (pred + res16).clamp(0, 255)
-        yp[y0:y0 + 16, x0:x0 + 16] = tile[1:17, 1:17].to(yp.dtype)
-
-        cy0, cx0 = my * 8 + 1, mx * 8 + 1
-        cmode = min(max((inf >> 4) & 15, 0), 3)
-        cr = cres[mi]                          # [2, 2, 2, 4, 4]
-        for pl, cp in ((0, up), (1, vp)):
-            ctile = cp[cy0 - 1:cy0 + 8, cx0 - 1:cx0 + 8].to(torch.int32)
-            pred = _pred8c(ctile, cmode, avt, avl)
-            res8 = cr[pl].permute(0, 2, 1, 3).reshape(8, 8)
-            cp[cy0:cy0 + 8, cx0:cx0 + 8] = \
-                (pred + res8).clamp(0, 255).to(cp.dtype)
+    meta = dict(zip(mbs, zip(kind[sel].tolist(), info[sel].tolist(),
+                             i4modes[sel].tolist())))
+    if order is None:
+        order = [[m] for m in mbs]
+    for group in order:
+        done = [(m, _intra_mb(yp, up, vp, m, *meta[m], lres, cres, mb_w))
+                for m in group]
+        for m, (ty, tu, tv) in done:
+            my, mx = divmod(m, mb_w)
+            yp[my * 16 + 1:my * 16 + 17, mx * 16 + 1:mx * 16 + 17] = ty
+            up[my * 8 + 1:my * 8 + 9, mx * 8 + 1:mx * 8 + 9] = tu
+            vp[my * 8 + 1:my * 8 + 9, mx * 8 + 1:mx * 8 + 9] = tv
     return yp, up, vp
 
 

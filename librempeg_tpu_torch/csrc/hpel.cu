@@ -19,30 +19,45 @@
 // TPU kernels read overlapping reference tiles picked by selector words;
 // these read the planes at the MV.
 //
-// Design, luma: one block per 16x16 MB (3600 at 720p), 256 threads, one
-// per pixel. The 19x19 luma window goes to shared memory once; every
-// thread then evaluates its pixel for all 25 candidates, warp-reduces
-// each |cur - pred|, and adds the warp sums into 25 shared integer SADs
-// (integer atomics: exact and order-free). Thread 0 picks the winner in
-// candidate order and writes the half-pel MV; every thread writes its
-// winning pixel. Chroma: one block per MB, 128 threads, one per pixel of
-// the two 8x8 predictions, reading the MV the luma kernel wrote.
+// Design, luma: one warp per 16x16 MB, 4 MBs (a strip of one MB row)
+// per block of 128 threads. Each MB has its own MV, so its 18x18 window
+// (the half-pel candidates reach one sample before and one past the
+// block in each direction, plus one for the taps) is its own: the warp
+// loads it with 16-byte loads (6 float4 per row, an edge clamp per row),
+// all issued before any is used, and truncates it to bytes on the way
+// into shared memory; where a row would leave the plane it loads sample
+// by sample with a clamp per column. No integer division per element.
+// Lane l owns 8 pixels of row l/2 and keeps all 25 candidate SADs in
+// registers: for each of the 5 half-pel rows of its span it
+// interpolates the 19 half-pel samples once (the 25 candidates share
+// them) and adds the 8 x 5 absolute differences with __sad (one
+// instruction each, where |a - b| + s in plain integers took three). The
+// warp then reduces the 25 sums once, by a transposing butterfly (31
+// shuffles, after which lane c holds candidate c's SAD), and takes the
+// first minimum in candidate order by a shuffle argmin. Lane 0 writes
+// the half-pel MV; each lane interpolates its 8 pixels at the winner and
+// writes them with two 16-byte stores. Chroma: one block per MB, 128
+// threads, one per pixel of the two 8x8 predictions, reading the MV the
+// luma kernel wrote.
 //
-// Bound on the H100: memory, lightly. Per frame the luma kernel reads
-// the current and reference luma once (float32) and writes the luma
-// prediction; the chroma kernel reads the reference chroma once and
-// writes the chroma predictions. The 25 interpolations per luma pixel
-// are a few hundred integer operations per thread; at 3600 MBs the
-// wrapper and the launch cost more than either kernel's bytes. Measured
-// on an H100 80GB HBM3 (700 W) per 1280x720 P-VOP: luma 0.093 ms against
-// 5.41 ms for its plain version, chroma 0.035 ms against 1.40 ms
-// (chip_smoke.py).
+// Bound on the H100: the luma kernel's bytes bound it on paper (the
+// current and reference luma read once as float32 and the prediction
+// written: 11 MB per 1280x720 P-VOP, 3.3 us at 3.35 TB/s); in practice
+// its instructions (about 1200 per warp, 3600 warps per P-VOP) and the
+// latency of each warp's loads set its time. Packing four samples to a
+// word (__vsadu4 on byte strings) issued no fewer instructions on the
+// card than __sad and was no faster; the variants' times are in
+// PERF.md (tools/kernel_variants.py). The chroma kernel reads the
+// reference chroma once and writes the chroma predictions; at 3600 MBs
+// the wrapper and the launch cost more than its bytes.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int WIN = 19;          // 16 + 2*2 - 1 half-pel window
+constexpr int MBS = 4;           // MBs per block (a strip of one MB row)
+constexpr int WR = 18;           // window rows and columns used
+constexpr int WP = 20;           // window pitch in ints (16-byte rows)
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
@@ -53,67 +68,161 @@ __device__ __forceinline__ int trunc8(float f) {
   return (int)(uint8_t)(int)f;
 }
 
-// half-pel interpolation of window pixel (r0, c0) with flags fy, fx
-__device__ __forceinline__ int interp(int (*win)[WIN], int r0, int c0,
-                                      int fy, int fx, int r1, int r2) {
-  const int a = win[r0][c0];
-  if (!fy && !fx) return a;
-  if (!fy) return (a + win[r0][c0 + 1] + r1) >> 1;
-  if (!fx) return (a + win[r0 + 1][c0] + r1) >> 1;
-  return (a + win[r0][c0 + 1] + win[r0 + 1][c0] + win[r0 + 1][c0 + 1] + r2) >>
-         2;
+// window row r, columns c0 .. c0+9 of a 16-byte aligned row
+__device__ __forceinline__ void load_row(const int* w, int r, int c0,
+                                         int (&o)[10]) {
+  const int4* p = reinterpret_cast<const int4*>(w + r * WP + c0);
+  const int4 a = p[0], b = p[1], c = p[2];
+  o[0] = a.x, o[1] = a.y, o[2] = a.z, o[3] = a.w;
+  o[4] = b.x, o[5] = b.y, o[6] = b.z, o[7] = b.w;
+  o[8] = c.x, o[9] = c.y;
 }
 
-__global__ void refine_luma_kernel(const float* __restrict__ cur,
-                                   const float* __restrict__ ref_y,
-                                   const int32_t* __restrict__ mv_i, int H,
-                                   int W, int rnd, int32_t* __restrict__ mv_h,
-                                   float* __restrict__ pred_y) {
-  __shared__ int win[WIN][WIN];
-  __shared__ int sad[25];
-  __shared__ int best;
-  const int bw = W / 16;
-  const int m = blockIdx.x;
-  const int by = m / bw, bx = m % bw;
-  const int tid = threadIdx.x;
+// SAD terms of one half-pel row: pixel q against half-pel samples
+// 2q .. 2q+4 (the five dx candidates)
+__device__ __forceinline__ void add_row(const int (&hp)[19],
+                                        const int (&cv)[8], int* sad) {
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+#pragma unroll
+    for (int d = 0; d < 5; ++d)
+      sad[d] = (int)__sad(cv[q], hp[2 * q + d], (unsigned)sad[d]);
+  }
+}
+
+__global__ void __launch_bounds__(MBS * 32)
+    refine_luma_kernel(const float* __restrict__ cur,
+                       const float* __restrict__ ref_y,
+                       const int32_t* __restrict__ mv_i, int H, int W,
+                       int rnd, int32_t* __restrict__ mv_h,
+                       float* __restrict__ pred_y) {
+  __shared__ __align__(16) int win[MBS][WR * WP];
+  const int bw = W / 16, strips = (bw + MBS - 1) / MBS;
+  const int by = blockIdx.x / strips, warp = threadIdx.x >> 5;
+  const int bx = (blockIdx.x - by * strips) * MBS + warp;
+  const int lane = threadIdx.x & 31;
+  if (bx >= bw) return;                      // the ragged strip's spare warps
+  const int m = by * bw + bx;
   const int mvy = mv_i[m * 2 + 0], mvx = mv_i[m * 2 + 1];
   const int oy = by * 16 + mvy - 1, ox = bx * 16 + mvx - 1;
+  int* const w = win[warp];
 
-  for (int k = tid; k < WIN * WIN; k += blockDim.x) {
-    const int r = k / WIN, c = k % WIN;
-    const int yy = clampi(oy + r, 0, H - 1), xx = clampi(ox + c, 0, W - 1);
-    win[r][c] = trunc8(ref_y[(size_t)yy * W + xx]);
+  // all loads first: the lane's 8 current pixels, then the window (rows
+  // oy .., columns ox .., edge-clamped), truncated to bytes into shared
+  // memory
+  const int py = lane >> 1, c0 = (lane & 1) * 8;
+  const float4* cp = reinterpret_cast<const float4*>(
+      cur + (size_t)(by * 16 + py) * W + bx * 16 + c0);
+  const float4 cur0 = __ldg(cp), cur1 = __ldg(cp + 1);
+  const int a0 = ox & ~3;                    // 16-byte aligned column
+  if (a0 >= 0 && a0 + 24 <= W) {
+    if (lane < 30) {                         // lane: row phase, float4
+      const int q = lane % 6, r0 = lane / 6;
+      const int cb = a0 + 4 * q - ox;        // window column of .x
+      float4 f[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int yy = clampi(oy + min(r0 + 5 * i, WR - 1), 0, H - 1);
+        f[i] = __ldg(reinterpret_cast<const float4*>(
+            ref_y + (size_t)yy * W + a0 + 4 * q));
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = r0 + 5 * i;
+        const float fv[4] = {f[i].x, f[i].y, f[i].z, f[i].w};
+#pragma unroll
+        for (int t = 0; t < 4; ++t)
+          if (r < WR && cb + t >= 0 && cb + t < WP)
+            w[r * WP + cb + t] = trunc8(fv[t]);
+      }
+    }
+  } else if (lane < WP) {                    // near a side edge
+    const int xx = clampi(ox + lane, 0, W - 1);
+    float f[WR];
+#pragma unroll
+    for (int r = 0; r < WR; ++r)
+      f[r] = __ldg(ref_y + (size_t)clampi(oy + r, 0, H - 1) * W + xx);
+#pragma unroll
+    for (int r = 0; r < WR; ++r) w[r * WP + lane] = trunc8(f[r]);
   }
-  if (tid < 25) sad[tid] = 0;
-  __syncthreads();
+  const int cv[8] = {trunc8(cur0.x), trunc8(cur0.y), trunc8(cur0.z),
+                     trunc8(cur0.w), trunc8(cur1.x), trunc8(cur1.y),
+                     trunc8(cur1.z), trunc8(cur1.w)};
+  __syncwarp();
 
-  const int py = tid >> 4, px = tid & 15;
-  const int cv = trunc8(cur[(size_t)(by * 16 + py) * W + bx * 16 + px]);
+  // half-pel row j = dy + 2 of pixel row py interpolates window rows
+  // py + j/2 (and py + j/2 + 1 for odd j); half-pel column 2q + dx + 2 of
+  // pixel q interpolates window columns c0 + q + (dx + 2)/2 (and the next
+  // for odd dx)
   const int r1 = 1 - rnd, r2 = 2 - rnd;
-  int k = 0;
-  for (int dy = -2; dy <= 2; ++dy) {
-    for (int dx = -2; dx <= 2; ++dx, ++k) {
-      const int p = interp(win, 1 + (dy >> 1) + py, 1 + (dx >> 1) + px,
-                           dy & 1, dx & 1, r1, r2);
-      int d = cv > p ? cv - p : p - cv;
-      for (int off = 16; off > 0; off >>= 1)
-        d += __shfl_down_sync(0xffffffffu, d, off);
-      if ((tid & 31) == 0) atomicAdd(&sad[k], d);
+  int sad[25];
+#pragma unroll
+  for (int k = 0; k < 25; ++k) sad[k] = 0;
+  int wa[10], wb[10], hp[19];
+  load_row(w, py, c0, wa);
+#pragma unroll
+  for (int t = 0; t < 3; ++t) {
+#pragma unroll
+    for (int i = 0; i < 19; ++i)
+      hp[i] = (i & 1) ? (wa[i >> 1] + wa[(i >> 1) + 1] + r1) >> 1 : wa[i >> 1];
+    add_row(hp, cv, sad + 10 * t);
+    if (t < 2) {
+      load_row(w, py + t + 1, c0, wb);
+#pragma unroll
+      for (int i = 0; i < 19; ++i) {
+        const int k = i >> 1;
+        hp[i] = (i & 1) ? (wa[k] + wa[k + 1] + wb[k] + wb[k + 1] + r2) >> 2
+                        : (wa[k] + wb[k] + r1) >> 1;
+      }
+      add_row(hp, cv, sad + 10 * t + 5);
+#pragma unroll
+      for (int i = 0; i < 10; ++i) wa[i] = wb[i];
     }
   }
-  __syncthreads();
-  if (tid == 0) {
-    int bk = 0, bc = sad[0];
-    for (int j = 1; j < 25; ++j)
-      if (sad[j] < bc) { bc = sad[j]; bk = j; }
-    best = bk;
-    mv_h[m * 2 + 0] = 2 * mvy + (bk / 5 - 2);
-    mv_h[m * 2 + 1] = 2 * mvx + (bk % 5 - 2);
+
+  // transposing butterfly: after the step over lane bit b, a lane keeps
+  // the half of its sums whose candidate bit b equals its own; lane c
+  // ends with the warp's SAD of candidate c
+  int v[32];
+#pragma unroll
+  for (int k = 0; k < 32; ++k) v[k] = k < 25 ? sad[k] : 0;
+#pragma unroll
+  for (int h = 16; h > 0; h >>= 1) {
+    const bool up = lane & h;
+#pragma unroll
+    for (int i = 0; i < h; ++i) {
+      const int send = up ? v[i] : v[i + h];
+      const int keep = up ? v[i + h] : v[i];
+      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, h);
+    }
   }
-  __syncthreads();
-  const int dy = best / 5 - 2, dx = best % 5 - 2;
-  pred_y[(size_t)(by * 16 + py) * W + bx * 16 + px] = (float)interp(
-      win, 1 + (dy >> 1) + py, 1 + (dx >> 1) + px, dy & 1, dx & 1, r1, r2);
+  // first minimum in candidate order
+  int bs = lane < 25 ? v[0] : 0x7fffffff, bk = lane;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const int os = __shfl_xor_sync(0xffffffffu, bs, off);
+    const int ok = __shfl_xor_sync(0xffffffffu, bk, off);
+    if (os < bs || (os == bs && ok < bk)) bs = os, bk = ok;
+  }
+  const int dy = bk / 5 - 2, dx = bk % 5 - 2;
+  if (lane == 0) {
+    mv_h[m * 2 + 0] = 2 * mvy + dy;
+    mv_h[m * 2 + 1] = 2 * mvx + dx;
+  }
+  const int fy = dy & 1, fx = dx & 1;
+  const int* r0 = w + (1 + py + (dy >> 1)) * WP + 1 + c0 + (dx >> 1);
+  const int* r1p = r0 + fy * WP;
+  float out[8];
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+    const int a = r0[q], b = r0[q + fx], c = r1p[q], d = r1p[q + fx];
+    out[q] = (float)(fy && fx ? (a + b + c + d + r2) >> 2
+                              : (fy || fx ? (a + d + r1) >> 1 : a));
+  }
+  float4* op = reinterpret_cast<float4*>(
+      pred_y + (size_t)(by * 16 + py) * W + bx * 16 + c0);
+  op[0] = make_float4(out[0], out[1], out[2], out[3]);
+  op[1] = make_float4(out[4], out[5], out[6], out[7]);
 }
 
 __global__ void mc_chroma_kernel(const float* __restrict__ ref_u,
@@ -154,9 +263,9 @@ __global__ void mc_chroma_kernel(const float* __restrict__ ref_u,
 extern "C" int refine_mc_luma(const void* cur, const void* ref_y,
                               const void* mv_i, int H, int W, int rnd,
                               void* mv_h, void* pred_y, void* stream) {
-  const int nmb = (H / 16) * (W / 16);
-  if (nmb > 0) {
-    refine_luma_kernel<<<nmb, 256, 0, (cudaStream_t)stream>>>(
+  const int blocks = (H / 16) * ((W / 16 + MBS - 1) / MBS);
+  if (blocks > 0) {
+    refine_luma_kernel<<<blocks, MBS * 32, 0, (cudaStream_t)stream>>>(
         (const float*)cur, (const float*)ref_y, (const int32_t*)mv_i, H, W,
         rnd, (int32_t*)mv_h, (float*)pred_y);
   }

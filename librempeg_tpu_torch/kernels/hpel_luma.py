@@ -1,5 +1,5 @@
 """Binding of csrc/hpel.cu's luma kernel (MPEG-4 half-pel refinement +
-luma MC, one block per 16x16 MB)."""
+luma MC, one warp per 16x16 MB, 8 MBs of one MB row per block)."""
 from __future__ import annotations
 
 import ctypes
@@ -34,6 +34,9 @@ def launch(cur_y, ref_y, mv_i, rnd: int = 0):
     B.require(cur_y, "cur_y", torch.float32, (h, w))
     B.require(ref_y, "ref_y", torch.float32, (h, w))
     B.require(mv_i, "mv_i", torch.int32, (h // 16, w // 16, 2))
+    for name, t in (("cur_y", cur_y), ("ref_y", ref_y)):
+        if t.data_ptr() % 16:       # the kernel's float4 loads
+            raise ValueError(f"{name}: expected a 16-byte aligned tensor")
     dev = cur_y.device
     mv_h = torch.empty((h // 16, w // 16, 2), dtype=torch.int32, device=dev)
     pred_y = torch.empty((h, w), dtype=torch.float32, device=dev)

@@ -174,6 +174,53 @@ def test_intra_kernel(seed):
         _eq(a, b, "intra " + n)
 
 
+def _intra(dev, mb_w, mb_h, seed, **kw):
+    """intra_pallas.random_intra_frame on `dev` -> (planes, scal,
+    lres_t, cres_t)."""
+    planes, (ilist, kind, info, i4m, lres, cres) = IP.random_intra_frame(
+        mb_w, mb_h, seed, **kw)
+    t = [torch.from_numpy(a).to(dev) for a in (ilist, kind, info, i4m, lres,
+                                                cres)]
+    scal = IP.build_intra_scalars(*t[:4], mb_w, mb_h)
+    return [torch.from_numpy(p).to(dev) for p in planes], scal, t[4], t[5]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mb_w,mb_h,seed,kw", [
+    (9, 6, 0, {"every_mode": True}),       # every mode, all intra
+    (11, 7, 1, {"every_mode": True}),
+    (13, 5, 2, {"p_intra": 0.8}),          # more intra MBs than warps
+    (40, 2, 3, {"p_intra": 1.0}),          # the ring (64 slots) wraps
+    (3, 150, 4, {"p_intra": 0.7})])        # 3x150 MBs
+def test_intra_kernel_frames(mb_w, mb_h, seed, kw):
+    """The warp-per-MB kernel against the plain raster scan."""
+    dev = _card()
+    planes, scal, lres_t, cres_t = _intra(dev, mb_w, mb_h, seed, **kw)
+    want = IP.intra_scan_plain(*planes, scal, lres_t, cres_t, mb_w, mb_h)
+    got = IP.intra_scan_pallas(*[p.clone() for p in planes], scal, lres_t,
+                               cres_t, mb_w, mb_h)
+    torch.cuda.synchronize()
+    assert scal.shape[0] > 32 or kw.get("every_mode")
+    for a, b, n in zip(got, want, "yuv"):
+        _eq(a, b, f"intra {mb_w}x{mb_h} {n}")
+
+
+@pytest.mark.cuda
+def test_intra_kernel_repeats():
+    """Calls in a row on one stream (each starts from fresh shared
+    memory) give the same planes."""
+    dev = _card()
+    planes, scal, lres_t, cres_t = _intra(dev, 120, 4, 5, p_intra=0.5)
+    outs = []
+    for _ in range(3):
+        outs.append(IP.intra_scan_pallas(*[p.clone() for p in planes], scal,
+                                         lres_t, cres_t, 120, 4))
+    torch.cuda.synchronize()
+    for o in outs[1:]:
+        for a, b, n in zip(o, outs[0], "yuv"):
+            _eq(a, b, f"intra repeat {n}")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("seed", [0, 1])
 def test_deblock_kernel(seed):
@@ -266,6 +313,57 @@ def test_hpel_luma_and_chroma_kernels(seed):
                        MEP.mc_chroma_plain(ru, rv, want[0], 1),
                        ("pred_u", "pred_v")):
         _eq(a, b, "hpel chroma " + n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rnd", [0, 1])
+@pytest.mark.parametrize("h,w", [(96, 160), (64, 208), (48, 48)])
+def test_hpel_luma_edges(h, w, rnd):
+    """MVs up to 14 pixels, which push windows past every frame edge (the
+    plain version's 16-pixel pad still holds them), on widths of 10, 13
+    and 3 MBs (strips of 4 MBs: the last one 2 or 1 MBs long, or shorter
+    than one strip)."""
+    dev = _card()
+    cur, ref, _, _, mv = _hpel_case(h * w + rnd, dev, h, w)
+    rng = np.random.default_rng(w)
+    mv = torch.from_numpy(rng.integers(-14, 15, mv.shape).astype(np.int32)) \
+        .to(dev)
+    mv[0, 0], mv[-1, -1] = torch.tensor([-14, -14]), torch.tensor([14, 14])
+    got = MEP.refine_mc_luma(cur, ref, mv, rnd)
+    want = MEP.refine_mc_luma_plain(cur, ref, mv, rnd)
+    for a, b, n in zip(got, want, ("mv_h", "pred_y")):
+        _eq(a, b, f"hpel luma {h}x{w} rnd {rnd} {n}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rnd", [0, 1])
+def test_hpel_luma_flat_ties(rnd):
+    """Flat planes: all 25 SADs of every MB tie, the first candidate
+    (-2, -2) must win."""
+    dev = _card()
+    cur = torch.full((64, 96), 90.0, device=dev)
+    ref = torch.full((64, 96), 90.5, device=dev)
+    mv = torch.zeros((4, 6, 2), dtype=torch.int32, device=dev)
+    mv[1, 2] = torch.tensor([3, -5])
+    got = MEP.refine_mc_luma(cur, ref, mv, rnd)
+    want = MEP.refine_mc_luma_plain(cur, ref, mv, rnd)
+    for a, b, n in zip(got, want, ("mv_h", "pred_y")):
+        _eq(a, b, f"hpel luma flat {n}")
+    assert bool((got[0] == 2 * mv - 2).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w", [(720, 1280), (720, 1264)])
+def test_hpel_luma_720p(h, w):
+    """At the encoder's size (80 MBs a row, 20 whole strips) and 79 MBs
+    wide (a ragged last strip)."""
+    dev = _card()
+    cur, ref, _, _, mv = _hpel_case(7, dev, h, w)
+    for rnd in (0, 1):
+        got = MEP.refine_mc_luma(cur, ref, mv, rnd)
+        want = MEP.refine_mc_luma_plain(cur, ref, mv, rnd)
+        for a, b, n in zip(got, want, ("mv_h", "pred_y")):
+            _eq(a, b, f"hpel luma {h}x{w} rnd {rnd} {n}")
 
 
 @pytest.mark.cuda

@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--profile DIR]
 
-It drives two paths and seven kernels. Phases, in order; any failure
+It drives two paths and eight kernels. Phases, in order; any failure
 raises and the script exits non-zero:
 
 1. device: the card's name and power limit (nvidia-smi);
@@ -16,20 +16,22 @@ raises and the script exits non-zero:
    time the card could take for the same work (bound_ms, from the
    call's shapes: the bytes moved at 3.35 TB/s or the operations at
    67 TFLOP/s, whichever is longer). A torch.profiler window over one
-   intra call and one deblock call must show each as one kernel launch
-   and nothing else. The
-   H.264 kernels (mc, intra, deblock, residual) take the first
-   P frame of assets/bench_1080p.264, the residual kernel through the
-   windowless packer; the half-pel kernels (hpel_luma, hpel_chroma) the
-   encoder's first I-VOP recon and the next scaled frame; the full
-   search (fsearch) the kernel leg's first step. All bit-exact, except
-   fsearch on float inputs (see fsearch_phase);
+   intra, one deblock, one mc and one hpel call must show each as one
+   kernel launch and nothing else. The H.264 kernels (mc, intra,
+   deblock, residual) take the first P frame of assets/bench_1080p.264,
+   the residual kernel through the windowless packer; the half-pel
+   kernels (hpel, the fused form of the encoder's path, and its per-MB
+   halves hpel_luma and hpel_chroma) the encoder's first I-VOP recon and
+   the next scaled frame; the full search (fsearch) the kernel leg's
+   first step. All bit-exact, except fsearch on float inputs (see
+   fsearch_phase);
 4. slice: the bench transcode (1080p H.264 -> 1280x720 MPEG-4 at 4 Mb/s)
    through Transcoder on the card. Every decoded frame's md5 must match
    the JAX package's (tests/data/torch_port), the AVI must hold 48
    packets with an I-VOP every 12, the mean in-loop recon PSNR must be
-   within 0.5 dB of the JAX package's, and mc, intra, deblock, hpel_luma
-   and hpel_chroma must have launched during this run;
+   within 0.5 dB of the JAX package's, and mc, intra, deblock and hpel
+   must have launched during this run (hpel once per P-VOP, hpel_luma
+   and hpel_chroma never);
 5. fps: steady-state transcode rate measured like bench.py's e2e leg
    (16 warm frames, then 24 timed, each window ending in chain.sync()),
    with the stage split. --profile DIR adds a torch.profiler window of
@@ -84,12 +86,16 @@ KERNELS = {
                 "e2e"),
     "intra": ("librempeg_tpu_torch/csrc/intra.cu",
               "librempeg_tpu/codecs/h264/intra_pallas.py:578", "3", "e2e"),
+    "hpel": ("librempeg_tpu_torch/csrc/hpel.cu",
+             "librempeg_tpu/codecs/mpeg4/me_pallas.py:479", "4 "
+             "(_refine_mc_luma_group me_pallas.py:259, _mc_chroma_group "
+             ":427)", "e2e"),
     "hpel_luma": ("librempeg_tpu_torch/csrc/hpel.cu",
-                  "librempeg_tpu/codecs/mpeg4/me_pallas.py:259", "4, 4b "
-                  "(per-MB form me_pallas.py:131)", "e2e"),
+                  "librempeg_tpu/codecs/mpeg4/me_pallas.py:131", "4b",
+                  "kernel phase (per-MB forms)"),
     "hpel_chroma": ("librempeg_tpu_torch/csrc/hpel.cu",
-                    "librempeg_tpu/codecs/mpeg4/me_pallas.py:427", "4, 4b "
-                    "(per-MB form me_pallas.py:343)", "e2e"),
+                    "librempeg_tpu/codecs/mpeg4/me_pallas.py:343", "4b",
+                    "kernel phase (per-MB forms)"),
     "fsearch": ("librempeg_tpu_torch/csrc/fsearch.cu",
                 "librempeg_tpu/ops/pallas/mesearch.py:95", "5",
                 "kernel_leg"),
@@ -186,6 +192,14 @@ def bound(moved: int, ops: float) -> dict:
             "library_note": NO_LIBRARY}
 
 
+def floor_ms() -> float:
+    """device_ms of an empty kernel (a stream sleep of 0 cycles): what
+    the timing gives for a launch that does no work."""
+    import torch
+
+    return device_ms(lambda: torch.cuda._sleep(0))
+
+
 def timed(fn, restore=None) -> dict:
     """Wall ms (host clock around a synchronise, wrapper included) and
     device ms of fn()."""
@@ -236,7 +250,8 @@ def launch_check(runs: dict) -> dict:
     {name: run}, called in turn: each call must be one launch of the
     kernel `name` and nothing else (the deblock's scratch is made once
     per stream, and an epoch in each call spares a fill; the intra
-    kernel keeps its state in shared memory)."""
+    kernel keeps its state in shared memory; mc and hpel allocate their
+    outputs and launch one kernel)."""
     import torch
     from torch.profiler import ProfilerActivity, profile as prof
 
@@ -348,10 +363,21 @@ def hpel_inputs(dev, frames):
     return cur, ry, ru, rv, mv_i
 
 
+def launches_of(name: str, run) -> int:
+    """Launches of kernel `name` in one call of run() (the per-MB forms
+    and the residual kernel, which no path runs)."""
+    from librempeg_tpu_torch import kernels
+
+    kernels.reset_counts()
+    run()
+    n = kernels.counts()[name]
+    check(n == 1, f"{name} kernel launches: {n}")
+    return n
+
+
 def kernel_phases(dev) -> dict:
     import torch
 
-    from librempeg_tpu_torch import kernels
     from librempeg_tpu_torch.codecs.h264 import deblock_pallas as DP
     from librempeg_tpu_torch.codecs.h264 import device_recon as DR
     from librempeg_tpu_torch.codecs.h264 import intra_pallas as IP
@@ -359,7 +385,9 @@ def kernel_phases(dev) -> dict:
     from librempeg_tpu_torch.codecs.h264 import residual_pallas as RP
     from librempeg_tpu_torch.codecs.mpeg4 import me_pallas as MEP
     from librempeg_tpu_torch.kernels import deblock as KD
+    from librempeg_tpu_torch.kernels import hpel as KH
     from librempeg_tpu_torch.kernels import intra as KI
+    from librempeg_tpu_torch.kernels import mc as KM
 
     args, frames = capture_p_frame(dev)
     (idx, vals, qp, kind, info, i4m, ilist, mv, ref, luma4, upad, vpad,
@@ -437,15 +465,8 @@ def kernel_phases(dev) -> dict:
         for w_, p in zip(work, (y, u, v)):
             w_.copy_(p)
 
-    restore_db()
-    restore_intra()
-    checked = launch_check({"intra": run_intra,
-                            "deblock": lambda: KD.launch(*work, P, mb_w,
-                                                         mb_h)})
-    res["intra"]["launch_check"] = checked["intra"]
     res["deblock"] = {
         "max_abs_err": err,
-        "launch_check": checked["deblock"],
         **timed(lambda: KD.launch(*work, P, mb_w, mb_h), restore_db),
         "params_ms": median_ms(lambda: DP.deblock_params(
             idx, vals, mv, ref, qp, kind, mb_w, mb_h, cqo, ao, bo)),
@@ -460,9 +481,22 @@ def kernel_phases(dev) -> dict:
 
     hargs = hpel_inputs(dev, frames)
     cur, ry, ru, rv, mv_i = hargs
-    err = max_abs_err(MEP.hpel_refine_mc(*hargs),
-                      MEP.hpel_refine_mc_plain(*hargs))
-    check(err == 0, f"hpel_refine_mc differs from its plain version: {err}")
+    got = MEP.hpel_refine_mc(*hargs)
+    err = max_abs_err(got, MEP.hpel_refine_mc_plain(*hargs))
+    check(err == 0, f"hpel kernel differs from its plain version: {err}")
+    res["hpel"] = {
+        "max_abs_err": err,
+        **timed(lambda: MEP.hpel_refine_mc(*hargs)),
+        "plain_ms": median_ms(lambda: MEP.hpel_refine_mc_plain(*hargs)),
+        # the luma and the chroma together: 25 half-pel candidates per
+        # MB, each sample an interpolation (3 operations) and a SAD term
+        # (3); bilinear chroma, about 8 operations per sample
+        **bound(nbytes(*hargs, *got), cur.numel() * 25 * 6
+                + 2 * ru.numel() * 8),
+        "shape": "1280x720, 3600 MBs, luma and chroma"}
+    mv_h = got[0]
+
+    # the per-MB forms: the two halves on their own
     largs = (cur, ry, mv_i)
     got = MEP.refine_mc_luma(*largs)
     err = max_abs_err(got, MEP.refine_mc_luma_plain(*largs))
@@ -470,23 +504,37 @@ def kernel_phases(dev) -> dict:
           f"{err}")
     res["hpel_luma"] = {
         "max_abs_err": err,
+        "launches": launches_of("hpel_luma",
+                                lambda: MEP.refine_mc_luma(*largs)),
         **timed(lambda: MEP.refine_mc_luma(*largs)),
         "plain_ms": median_ms(lambda: MEP.refine_mc_luma_plain(*largs)),
         # 25 half-pel candidates per MB, each sample an interpolation (3
         # operations) and a SAD term (3)
         **bound(nbytes(*largs, *got), cur.numel() * 25 * 6),
         "shape": "1280x720, 3600 MBs"}
-    cargs = (ru, rv, got[0])
+    cargs = (ru, rv, mv_h)
     err = max_abs_err(MEP.mc_chroma(*cargs), MEP.mc_chroma_plain(*cargs))
     check(err == 0, f"hpel chroma kernel differs from its plain version: "
           f"{err}")
     res["hpel_chroma"] = {
         "max_abs_err": err,
+        "launches": launches_of("hpel_chroma",
+                                lambda: MEP.mc_chroma(*cargs)),
         **timed(lambda: MEP.mc_chroma(*cargs)),
         "plain_ms": median_ms(lambda: MEP.mc_chroma_plain(*cargs)),
         # bilinear interpolation, about 8 operations per output sample
         **bound(nbytes(*cargs) + 2 * nbytes(ru), 2 * ru.numel() * 8),
         "shape": "2x 640x360, 3600 MBs"}
+
+    restore_db()
+    restore_intra()
+    checked = launch_check({
+        "intra": run_intra,
+        "deblock": lambda: KD.launch(*work, P, mb_w, mb_h),
+        "mc": lambda: KM.launch(*margs),
+        "hpel": lambda: KH.launch(*hargs)})
+    for name, c in checked.items():
+        res[name]["launch_check"] = c
 
     # residual: the P frame's coefficients as compact rows (no window:
     # the JAX package's packer cannot take this frame)
@@ -496,10 +544,9 @@ def kernel_phases(dev) -> dict:
     windowed = RP.pack_residual_host(*host)[2]
     ids, levels = RP.compact_rows(*host)
     packed = torch.from_numpy(RP.pack_rows(ids, levels)).to(dev)
-    kernels.reset_counts()
     got = RP.expand_residual(packed, None, nmb)
-    launches = kernels.counts()["residual"]
-    check(launches == 1, f"residual kernel launches: {launches}")
+    launches = launches_of("residual",
+                           lambda: RP.expand_residual(packed, None, nmb))
     err = max_abs_err([got], [RP.expand_residual_plain(packed, nmb)])
     check(err == 0, f"residual kernel differs from its plain version: {err}")
     lres, cres = DR._residuals(coeffs, qp, cqo, nmb, is_i16=kind == 3)
@@ -735,6 +782,9 @@ def slice_phase(dev, out_avi: str) -> dict:
     check(abs(mean - gmean) <= PSNR_TOL_DB, (mean, gmean))
     missing = [k for k in E2E_KERNELS if counts[k] <= 0]
     check(not missing, f"kernels not launched on the e2e path: {missing}")
+    check(counts["hpel"] == types.count("P") and counts["hpel_luma"] == 0
+          and counts["hpel_chroma"] == 0,
+          f"half-pel launches on the e2e path: {counts}")
     return {"frames": stats["frames"][0], "packets": len(pkts),
             "vop_types": types, "mean_recon_psnr_db": mean,
             "jax_mean_recon_psnr_db": gmean, "launches": counts,
@@ -862,6 +912,8 @@ def main(argv: list[str]) -> int:
             log(f"build {name}: {dt:.2f} s")
     log(f"build all: {time.perf_counter() - t0:.2f} s")
 
+    log(f"device floor: an empty kernel takes {floor_ms():.4f} ms by the "
+        f"kernels' device timing")
     kres = kernel_phases(dev)
     leg = leg_inputs(dev)
     kres["fsearch"] = fsearch_phase(dev, leg)
@@ -873,7 +925,7 @@ def main(argv: list[str]) -> int:
         log(f"kernel {name}: {exact}, device {r['device_ms']:.4f} ms, wall "
             f"{r['ms']:.3f} ms vs plain {r['plain_ms']:.3f} ms, bound "
             f"{r['bound_ms']:.4f} ms by {r['bound_by']} ({r['shape']})")
-    for name in ("deblock", "intra"):
+    for name in ("deblock", "intra", "mc", "hpel"):
         log(f"{name} on the card: {kres[name]['launch_check']} "
             f"(torch.profiler, one call)")
 
@@ -904,7 +956,8 @@ def main(argv: list[str]) -> int:
 
     launches = {n: s["launches"][n] for n in E2E_KERNELS}
     launches["fsearch"] = k["launches"]["fsearch"]
-    launches["residual"] = kres["residual"]["launches"]
+    for n in ("hpel_luma", "hpel_chroma", "residual"):
+        launches[n] = kres[n]["launches"]
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0],
          "replaces": KERNELS[name][1], "row": KERNELS[name][2],

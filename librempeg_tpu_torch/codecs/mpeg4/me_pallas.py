@@ -1,23 +1,24 @@
 """MPEG-4 half-pel refinement + motion compensation: the wrappers of the
-two half-pel kernels.
+half-pel kernels.
 
 Port of librempeg_tpu/codecs/mpeg4/me_pallas.py. The TPU version DMA'd
 overlapping reference tiles per MB, picked by selector words, in a
 per-MB form (_refine_mc_luma, _mc_chroma) and a lane-packed group form
 (_refine_mc_luma_group, _mc_chroma_group) with one contract.
-csrc/hpel.cu has one kernel for each half: refine_mc_luma loads each
-MB's 19x19 luma window straight from the plane with an edge clamp, which
-equals the JAX package's 16-pixel edge pad for every window the search
-can ask for, and mc_chroma predicts both chroma planes at the chroma MV
-derived from the luma half-pel MV. hpel_refine_mc runs the two in turn,
-as the JAX package's does. The plain versions are ops.motion.
-_hpel_refine (luma) and mc_hpel (chroma) over planes padded by that
-same 16 pixels.
+csrc/hpel.cu reads each MB's windows straight from the planes with an
+edge clamp, which equals the JAX package's 16-pixel edge pad for every
+window the search can ask for. hpel_refine_mc (the encoder's path) is
+one fused kernel: each warp refines its MB's luma MV, predicts its luma
+and then its chroma at the chroma MV derived from the winner.
+refine_mc_luma and mc_chroma are the two halves on their own (the
+per-MB forms). The plain versions are ops.motion._hpel_refine (luma) and
+mc_hpel (chroma) over planes padded by that same 16 pixels.
 """
 from __future__ import annotations
 
 import torch
 
+from librempeg_tpu_torch.kernels import hpel as KH
 from librempeg_tpu_torch.kernels import hpel_chroma as KC
 from librempeg_tpu_torch.kernels import hpel_luma as KL
 from librempeg_tpu_torch.ops import motion
@@ -87,8 +88,14 @@ def hpel_refine_mc_plain(cur_y, ref_y, ref_u, ref_v, mv_i, rnd: int = 0):
 
 
 def hpel_refine_mc(cur_y, ref_y, ref_u, ref_v, mv_i, rnd: int = 0):
-    """Half-pel refinement around integer MVs + MC of all planes:
-    refine_mc_luma, then mc_chroma at its MVs. Returns (mv_h [bh, bw, 2]
-    int32 half-pel, pred_y [H, W], pred_u, pred_v f32)."""
-    mv_h, pred_y = refine_mc_luma(cur_y, ref_y, mv_i, rnd)
-    return (mv_h, pred_y) + mc_chroma(ref_u, ref_v, mv_h, rnd)
+    """Half-pel refinement around integer MVs + MC of all planes: the
+    contract of refine_mc_luma, then mc_chroma at its MVs. Returns (mv_h
+    [bh, bw, 2] int32 half-pel, pred_y [H, W], pred_u, pred_v f32). CPU
+    tensors take the plain version; CUDA tensors launch the fused
+    kernel."""
+    if cur_y.device.type == "cpu":
+        return hpel_refine_mc_plain(cur_y, ref_y, ref_u, ref_v, mv_i, rnd)
+    f32 = torch.float32
+    return KH.launch(*(p.to(f32).contiguous()
+                       for p in (cur_y, ref_y, ref_u, ref_v)),
+                     mv_i.to(torch.int32).contiguous(), rnd)

@@ -1,16 +1,18 @@
-// MPEG-4 half-pel motion refinement + motion compensation, as two
-// kernels: luma refinement + MC, then chroma MC at the derived MV.
+// MPEG-4 half-pel motion refinement + motion compensation: the luma
+// refinement and luma MC, and the chroma MC at the derived MV, fused in
+// one kernel on the encoder's path, with each half also on its own.
 //
 // Replaces the Pallas kernels of librempeg_tpu/codecs/mpeg4/me_pallas.py:
-// refine_luma_kernel the luma forms (_refine_mc_luma_group ->
-// _refine_group_kernel on the encoder's path, and the per-MB
-// _refine_mc_luma -> _refine_kernel), mc_chroma_kernel the chroma forms
-// (_mc_chroma_group -> _chroma_group_kernel, and the per-MB _mc_chroma
-// -> _chroma_kernel). Both hold the contract of ops.motion._hpel_refine
-// + mc_hpel: the 25 half-pel candidates around each integer MV in
-// row-major (dy, dx) order, strict-< SAD ties (the first best wins),
-// decoder-exact (a+b+1-rnd)>>1 and (a+b+c+d+2-rnd)>>2 interpolation,
-// then the chroma MV by the /2-with-sticky-half rule and 8x8 chroma MC.
+// hpel_kernel<true> the group forms of the encoder's path
+// (hpel_refine_mc: _refine_mc_luma_group -> _refine_group_kernel, then
+// _mc_chroma_group -> _chroma_group_kernel), hpel_kernel<false> the
+// per-MB luma form (_refine_mc_luma -> _refine_kernel), chroma_kernel
+// the per-MB chroma form (_mc_chroma -> _chroma_kernel). They hold the
+// contract of ops.motion._hpel_refine + mc_hpel: the 25 half-pel
+// candidates around each integer MV in row-major (dy, dx) order,
+// strict-< SAD ties (the first best wins), decoder-exact (a+b+1-rnd)>>1
+// and (a+b+c+d+2-rnd)>>2 interpolation, then the chroma MV by the
+// /2-with-sticky-half rule and 8x8 chroma MC.
 //
 // Inputs are the encoder's float32 planes; as in the JAX package they
 // are truncated to bytes first (recon 2.9999998 becomes 2), and samples
@@ -34,22 +36,41 @@
 // instruction each, where |a - b| + s in plain integers took three). The
 // warp then reduces the 25 sums once, by a transposing butterfly (31
 // shuffles, after which lane c holds candidate c's SAD), and takes the
-// first minimum in candidate order by a shuffle argmin. Lane 0 writes
-// the half-pel MV; each lane interpolates its 8 pixels at the winner and
-// writes them with two 16-byte stores. Chroma: one block per MB, 128
-// threads, one per pixel of the two 8x8 predictions, reading the MV the
-// luma kernel wrote.
+// first minimum in candidate order by a shuffle argmin, which leaves the
+// winner in every lane's registers. Lane 0 writes the half-pel MV; each
+// lane interpolates its 8 pixels at the winner and writes them with two
+// 16-byte stores.
 //
-// Bound on the H100: the luma kernel's bytes bound it on paper (the
-// current and reference luma read once as float32 and the prediction
-// written: 11 MB per 1280x720 P-VOP, 3.3 us at 3.35 TB/s); in practice
-// its instructions (about 1200 per warp, 3600 warps per P-VOP) and the
-// latency of each warp's loads set its time. Packing four samples to a
-// word (__vsadu4 on byte strings) issued no fewer instructions on the
-// card than __sad and was no faster; the variants' times are in
-// PERF.md (tools/kernel_variants.py). The chroma kernel reads the
-// reference chroma once and writes the chroma predictions; at 3600 MBs
-// the wrapper and the launch cost more than its bytes.
+// Design, chroma: one warp per MB (chroma_warp). Lane l predicts 4
+// samples of plane l >> 4, row (l >> 1) & 7, columns 4 * (l & 1) .. + 3
+// from two source rows of 5 samples, and writes them as one float4
+// (Wc = W/2 is a multiple of 8 and the columns start at a multiple of 4,
+// so each row of 4 floats is 16-byte aligned). The samples come from a
+// 10x10 window per plane in shared memory, edge-clamped and truncated to
+// bytes as it is loaded: 20 lanes load a column each, so every load
+// instruction reads two runs of 10 neighbouring floats (lanes reading
+// their own 2x5 samples touched 16 rows per instruction, and the L1's
+// requests, not the bytes, set the time). In the fused kernel the warp
+// calls it right after the argmin, with the MV from its registers: the
+// MV never goes through global memory. Its window was loaded at the
+// start, beside the luma window: for each of the 25 candidates the
+// chroma MV's integer part lies within (mv_i - 1) >> 1 .. (mv_i + 1) >>
+// 1, so a 10x10 window per plane at ((mv_i - 1) >> 1) holds every sample
+// the winner can need, and its loads overlap the luma loads. The
+// standalone chroma kernel (4 MBs per block) reads the MV written by the
+// luma kernel and loads its window at the chroma MV (chroma_mb).
+//
+// Bound on the H100: the bytes bound it on paper (the current and
+// reference luma and the reference chroma read once as float32, the
+// predictions written: 16 MB per 1280x720 P-VOP, 4.4 us at 3.35 TB/s);
+// in practice the luma's instructions (about 1200 per warp, 3600 warps
+// per P-VOP) and the latency of each warp's loads set its time. Packing
+// four samples to a word (__vsadu4 on byte strings) issued no fewer
+// instructions on the card than __sad and was no faster; the variants'
+// times are in PERF.md (tools/kernel_variants.py). The chroma alone reads
+// and writes 1/3 of the luma's bytes and does no search: its launch and
+// one round of dependent loads are most of its cost, which the fused
+// kernel does not pay.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -58,6 +79,7 @@ namespace {
 constexpr int MBS = 4;           // MBs per block (a strip of one MB row)
 constexpr int WR = 18;           // window rows and columns used
 constexpr int WP = 20;           // window pitch in ints (16-byte rows)
+constexpr int CW = 10;           // chroma window rows and columns
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
@@ -66,6 +88,84 @@ __device__ __forceinline__ int clampi(int v, int lo, int hi) {
 // float sample -> integer byte value, truncating like astype(uint8)
 __device__ __forceinline__ int trunc8(float f) {
   return (int)(uint8_t)(int)f;
+}
+
+// luma half-pel MV component -> chroma half-pel: sign(v) * ((|v| >> 1) |
+// (|v| & 1))
+__device__ __forceinline__ int chroma_mv(int v) {
+  const int a = v < 0 ? -v : v;
+  const int c = (a >> 1) | (a & 1);
+  return v < 0 ? -c : c;
+}
+
+// the chroma window of one warp: CW x CW samples of each plane from
+// (oy, ox), edge-clamped. Lane < 2 * CW loads column lane % CW of plane
+// lane / CW, so each load instruction reads two runs of CW neighbouring
+// samples (one per plane).
+__device__ __forceinline__ void window_load(float (&f)[CW], int lane,
+                                            const float* ref_u,
+                                            const float* ref_v, int oy,
+                                            int ox, int hc, int wc) {
+  const int pl = lane >= CW;
+  const float* src = (pl ? ref_v : ref_u) +
+                     clampi(ox + lane - pl * CW, 0, wc - 1);
+#pragma unroll
+  for (int r = 0; r < CW; ++r)
+    f[r] = __ldg(src + clampi(oy + r, 0, hc - 1) * wc);
+}
+
+// ... into the warp's window in shared memory, truncated to bytes
+__device__ __forceinline__ void window_store(int* cw, int lane,
+                                             const float (&f)[CW]) {
+#pragma unroll
+  for (int r = 0; r < CW; ++r)
+    cw[(lane / CW * CW + r) * CW + lane % CW] = trunc8(f[r]);
+}
+
+// One MB's two 8x8 chroma predictions at chroma MV (cmy, cmx), by one
+// warp, from its window cw at (oy, ox): lane -> plane lane >> 4, row
+// (lane >> 1) & 7, 4 columns from 4 * (lane & 1); two source rows of 5
+// samples each, one float4 store.
+__device__ __forceinline__ void chroma_warp(const int* cw, int oy, int ox,
+                                            int lane, int cmy, int cmx,
+                                            int by, int bx, int wc, int rnd,
+                                            float* pred_u, float* pred_v) {
+  const int pl = lane >> 4, row = (lane >> 1) & 7, c0 = (lane & 1) * 4;
+  const int fy = cmy & 1, fx = cmx & 1;
+  const int* s = cw + (pl * CW + by * 8 + (cmy >> 1) + row - oy) * CW +
+                 bx * 8 + (cmx >> 1) + c0 - ox;
+  int a[5], c[5];
+#pragma unroll
+  for (int k = 0; k < 5; ++k) a[k] = s[k], c[k] = s[CW + k];
+  const int r1 = 1 - rnd, r2 = 2 - rnd;
+  float o[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    int p;
+    if (!fy) p = fx ? (a[k] + a[k + 1] + r1) >> 1 : a[k];
+    else p = fx ? (a[k] + a[k + 1] + c[k] + c[k + 1] + r2) >> 2
+                : (a[k] + c[k] + r1) >> 1;
+    o[k] = (float)p;
+  }
+  *reinterpret_cast<float4*>((pl ? pred_v : pred_u) + (by * 8 + row) * wc +
+                             bx * 8 + c0) = make_float4(o[0], o[1], o[2], o[3]);
+}
+
+// One MB's chroma from the planes: its window at the chroma MV, then the
+// predictions (the standalone kernel)
+__device__ __forceinline__ void chroma_mb(int* cw, const float* ref_u,
+                                          const float* ref_v, int hc,
+                                          int lane, int cmy, int cmx, int by,
+                                          int bx, int wc, int rnd,
+                                          float* pred_u, float* pred_v) {
+  const int oy = by * 8 + (cmy >> 1), ox = bx * 8 + (cmx >> 1);
+  if (lane < 2 * CW) {
+    float f[CW];
+    window_load(f, lane, ref_u, ref_v, oy, ox, hc, wc);
+    window_store(cw, lane, f);
+  }
+  __syncwarp();
+  chroma_warp(cw, oy, ox, lane, cmy, cmx, by, bx, wc, rnd, pred_u, pred_v);
 }
 
 // window row r, columns c0 .. c0+9 of a 16-byte aligned row
@@ -90,13 +190,19 @@ __device__ __forceinline__ void add_row(const int (&hp)[19],
   }
 }
 
+// CHROMA: also predict both chroma planes at the winner (the fused
+// kernel); otherwise the luma half alone.
+template <bool CHROMA>
 __global__ void __launch_bounds__(MBS * 32)
-    refine_luma_kernel(const float* __restrict__ cur,
-                       const float* __restrict__ ref_y,
-                       const int32_t* __restrict__ mv_i, int H, int W,
-                       int rnd, int32_t* __restrict__ mv_h,
-                       float* __restrict__ pred_y) {
+    hpel_kernel(const float* __restrict__ cur,
+                const float* __restrict__ ref_y,
+                const float* __restrict__ ref_u,
+                const float* __restrict__ ref_v,
+                const int32_t* __restrict__ mv_i, int H, int W, int rnd,
+                int32_t* __restrict__ mv_h, float* __restrict__ pred_y,
+                float* __restrict__ pred_u, float* __restrict__ pred_v) {
   __shared__ __align__(16) int win[MBS][WR * WP];
+  __shared__ int cwin[CHROMA ? MBS : 1][2 * CW * CW];
   const int bw = W / 16, strips = (bw + MBS - 1) / MBS;
   const int by = blockIdx.x / strips, warp = threadIdx.x >> 5;
   const int bx = (blockIdx.x - by * strips) * MBS + warp;
@@ -106,6 +212,13 @@ __global__ void __launch_bounds__(MBS * 32)
   const int mvy = mv_i[m * 2 + 0], mvx = mv_i[m * 2 + 1];
   const int oy = by * 16 + mvy - 1, ox = bx * 16 + mvx - 1;
   int* const w = win[warp];
+
+  // chroma window (CHROMA) at the origin every candidate's MV covers
+  const int hc = H / 2, wc = W / 2;
+  const int oyc = by * 8 + ((mvy - 1) >> 1), oxc = bx * 8 + ((mvx - 1) >> 1);
+  float cf[CW];
+  if (CHROMA && lane < 2 * CW)
+    window_load(cf, lane, ref_u, ref_v, oyc, oxc, hc, wc);
 
   // all loads first: the lane's 8 current pixels, then the window (rows
   // oy .., columns ox .., edge-clamped), truncated to bytes into shared
@@ -145,6 +258,7 @@ __global__ void __launch_bounds__(MBS * 32)
 #pragma unroll
     for (int r = 0; r < WR; ++r) w[r * WP + lane] = trunc8(f[r]);
   }
+  if (CHROMA && lane < 2 * CW) window_store(cwin[warp], lane, cf);
   const int cv[8] = {trunc8(cur0.x), trunc8(cur0.y), trunc8(cur0.z),
                      trunc8(cur0.w), trunc8(cur1.x), trunc8(cur1.y),
                      trunc8(cur1.z), trunc8(cur1.w)};
@@ -223,51 +337,55 @@ __global__ void __launch_bounds__(MBS * 32)
       pred_y + (size_t)(by * 16 + py) * W + bx * 16 + c0);
   op[0] = make_float4(out[0], out[1], out[2], out[3]);
   op[1] = make_float4(out[4], out[5], out[6], out[7]);
+
+  if constexpr (CHROMA)
+    chroma_warp(cwin[warp], oyc, oxc, lane, chroma_mv(2 * mvy + dy),
+                chroma_mv(2 * mvx + dx), by, bx, wc, rnd, pred_u, pred_v);
 }
 
-__global__ void mc_chroma_kernel(const float* __restrict__ ref_u,
-                                 const float* __restrict__ ref_v,
-                                 const int32_t* __restrict__ mv_h, int H,
-                                 int W, int rnd, float* __restrict__ pred_u,
-                                 float* __restrict__ pred_v) {
-  const int bw = W / 16;
-  const int m = blockIdx.x;
-  const int by = m / bw, bx = m % bw;
-  const int tid = threadIdx.x;
-  const int Hc = H / 2, Wc = W / 2;
-  const int pl = tid >> 6, q = tid & 63;
-  const int cy = q >> 3, cx = q & 7;
-  const int r1 = 1 - rnd, r2 = 2 - rnd;
-  const int hy = mv_h[m * 2 + 0], hx = mv_h[m * 2 + 1];
-  // chroma MV: sign(v) * ((|v| >> 1) | (|v| & 1))
-  const int ay = hy < 0 ? -hy : hy, ax = hx < 0 ? -hx : hx;
-  const int cmy = (hy < 0 ? -1 : (hy > 0 ? 1 : 0)) * ((ay >> 1) | (ay & 1));
-  const int cmx = (hx < 0 ? -1 : (hx > 0 ? 1 : 0)) * ((ax >> 1) | (ax & 1));
-  const int fy = cmy & 1, fx = cmx & 1;
-  const int y0 = by * 8 + (cmy >> 1) + cy, x0 = bx * 8 + (cmx >> 1) + cx;
-  const float* src = pl ? ref_v : ref_u;
-  const int ya = clampi(y0, 0, Hc - 1), yb = clampi(y0 + 1, 0, Hc - 1);
-  const int xa = clampi(x0, 0, Wc - 1), xb = clampi(x0 + 1, 0, Wc - 1);
-  const int a = trunc8(src[(size_t)ya * Wc + xa]);
-  const int b = trunc8(src[(size_t)ya * Wc + xb]);
-  const int c = trunc8(src[(size_t)yb * Wc + xa]);
-  const int d = trunc8(src[(size_t)yb * Wc + xb]);
-  int p;
-  if (!fy) p = fx ? (a + b + r1) >> 1 : a;
-  else p = fx ? (a + b + c + d + r2) >> 2 : (a + c + r1) >> 1;
-  (pl ? pred_v : pred_u)[(size_t)(by * 8 + cy) * Wc + bx * 8 + cx] = (float)p;
+// the chroma MC alone, at the luma half-pel MVs mv_h: one warp per MB
+__global__ void __launch_bounds__(MBS * 32)
+    chroma_kernel(const float* __restrict__ ref_u,
+                  const float* __restrict__ ref_v,
+                  const int32_t* __restrict__ mv_h, int H, int W, int rnd,
+                  float* __restrict__ pred_u, float* __restrict__ pred_v) {
+  __shared__ int cwin[MBS][2 * CW * CW];
+  const int bw = W / 16, strips = (bw + MBS - 1) / MBS;
+  const int by = blockIdx.x / strips, warp = threadIdx.x >> 5;
+  const int bx = (blockIdx.x - by * strips) * MBS + warp;
+  if (bx >= bw) return;
+  const int2 mv = __ldg(reinterpret_cast<const int2*>(mv_h) + by * bw + bx);
+  chroma_mb(cwin[warp], ref_u, ref_v, H / 2, threadIdx.x & 31,
+            chroma_mv(mv.x), chroma_mv(mv.y), by, bx, W / 2, rnd, pred_u,
+            pred_v);
 }
+
+int blocks(int H, int W) { return (H / 16) * ((W / 16 + MBS - 1) / MBS); }
 
 }  // namespace
+
+extern "C" int hpel_refine_mc(const void* cur, const void* ref_y,
+                              const void* ref_u, const void* ref_v,
+                              const void* mv_i, int H, int W, int rnd,
+                              void* mv_h, void* pred_y, void* pred_u,
+                              void* pred_v, void* stream) {
+  if (blocks(H, W) > 0) {
+    hpel_kernel<true><<<blocks(H, W), MBS * 32, 0, (cudaStream_t)stream>>>(
+        (const float*)cur, (const float*)ref_y, (const float*)ref_u,
+        (const float*)ref_v, (const int32_t*)mv_i, H, W, rnd,
+        (int32_t*)mv_h, (float*)pred_y, (float*)pred_u, (float*)pred_v);
+  }
+  return (int)cudaGetLastError();
+}
 
 extern "C" int refine_mc_luma(const void* cur, const void* ref_y,
                               const void* mv_i, int H, int W, int rnd,
                               void* mv_h, void* pred_y, void* stream) {
-  const int blocks = (H / 16) * ((W / 16 + MBS - 1) / MBS);
-  if (blocks > 0) {
-    refine_luma_kernel<<<blocks, MBS * 32, 0, (cudaStream_t)stream>>>(
-        (const float*)cur, (const float*)ref_y, (const int32_t*)mv_i, H, W,
-        rnd, (int32_t*)mv_h, (float*)pred_y);
+  if (blocks(H, W) > 0) {
+    hpel_kernel<false><<<blocks(H, W), MBS * 32, 0, (cudaStream_t)stream>>>(
+        (const float*)cur, (const float*)ref_y, nullptr, nullptr,
+        (const int32_t*)mv_i, H, W, rnd, (int32_t*)mv_h, (float*)pred_y,
+        nullptr, nullptr);
   }
   return (int)cudaGetLastError();
 }
@@ -275,9 +393,8 @@ extern "C" int refine_mc_luma(const void* cur, const void* ref_y,
 extern "C" int mc_chroma(const void* ref_u, const void* ref_v,
                          const void* mv_h, int H, int W, int rnd,
                          void* pred_u, void* pred_v, void* stream) {
-  const int nmb = (H / 16) * (W / 16);
-  if (nmb > 0) {
-    mc_chroma_kernel<<<nmb, 128, 0, (cudaStream_t)stream>>>(
+  if (blocks(H, W) > 0) {
+    chroma_kernel<<<blocks(H, W), MBS * 32, 0, (cudaStream_t)stream>>>(
         (const float*)ref_u, (const float*)ref_v, (const int32_t*)mv_h, H, W,
         rnd, (float*)pred_u, (float*)pred_v);
   }

@@ -6,6 +6,7 @@ from __future__ import annotations
 from librempeg_tpu_torch.kernels import (
     deblock,
     fsearch,
+    hpel,
     hpel_chroma,
     hpel_luma,
     intra,
@@ -13,7 +14,8 @@ from librempeg_tpu_torch.kernels import (
     residual,
 )
 
-MODULES = (mc, deblock, intra, hpel_luma, hpel_chroma, fsearch, residual)
+MODULES = (mc, deblock, intra, hpel, hpel_luma, hpel_chroma, fsearch,
+           residual)
 
 
 def sources() -> list[str]:

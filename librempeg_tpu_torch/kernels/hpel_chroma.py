@@ -1,5 +1,6 @@
 """Binding of csrc/hpel.cu's chroma kernel (MPEG-4 half-pel chroma MC at
-the chroma MV derived from the luma half-pel MV, one block per MB)."""
+the chroma MV derived from the luma half-pel MV, one warp per MB, 4 MBs
+of one MB row per block): the per-MB chroma form."""
 from __future__ import annotations
 
 import ctypes
@@ -35,6 +36,8 @@ def launch(ref_u, ref_v, mv_h, rnd: int = 0):
     B.require(ref_u, "ref_u", torch.float32, (hc, wc))
     B.require(ref_v, "ref_v", torch.float32, (hc, wc))
     B.require(mv_h, "mv_h", torch.int32, (h // 16, w // 16, 2))
+    if mv_h.data_ptr() % 8:         # the kernel's (dy, dx) pair loads
+        raise ValueError("mv_h: expected an 8-byte aligned tensor")
     dev = ref_u.device
     pred_u = torch.empty((hc, wc), dtype=torch.float32, device=dev)
     pred_v = torch.empty((hc, wc), dtype=torch.float32, device=dev)

@@ -1,5 +1,6 @@
 """Binding of csrc/hpel.cu's luma kernel (MPEG-4 half-pel refinement +
-luma MC, one warp per 16x16 MB, 8 MBs of one MB row per block)."""
+luma MC, one warp per 16x16 MB, 4 MBs of one MB row per block): the
+per-MB luma form."""
 from __future__ import annotations
 
 import ctypes

@@ -1,4 +1,5 @@
-"""Binding of csrc/mc.cu (H.264 quarter-pel MC, one block per MB)."""
+"""Binding of csrc/mc.cu (H.264 quarter-pel MC, one thread per luma 4x4
+block)."""
 from __future__ import annotations
 
 import ctypes
@@ -26,7 +27,8 @@ def _lib():
 def launch(luma4, upad, vpad, mv, ref, mb_w: int, mb_h: int):
     """luma4 [R,4,hp,wp] u8, upad/vpad [R,hc,wc] u8, mv [nmb,16,2] i16
     (x, y quarter-pel), ref [nmb,4] i8 -> (pred_y [nmb,16,16],
-    pred_u/v [nmb,8,8]) u8, on the tensors' CUDA device."""
+    pred_u/v [nmb,8,8]) u8, on the tensors' CUDA device: contiguous
+    slices of one buffer of nmb * 384 bytes."""
     global LAUNCHES
     nmb = mb_w * mb_h
     nref, _, hp, wp = luma4.shape
@@ -36,10 +38,16 @@ def launch(luma4, upad, vpad, mv, ref, mb_w: int, mb_h: int):
     B.require(vpad, "vpad", torch.uint8, (nref, hc, wc))
     B.require(mv, "mv", torch.int16, (nmb, 16, 2))
     B.require(ref, "ref", torch.int8, (nmb, 4))
-    dev = luma4.device
-    py = torch.empty((nmb, 16, 16), dtype=torch.uint8, device=dev)
-    pu = torch.empty((nmb, 8, 8), dtype=torch.uint8, device=dev)
-    pv = torch.empty((nmb, 8, 8), dtype=torch.uint8, device=dev)
+    if wp % 4 or wc % 4:
+        raise ValueError("mc: padded plane widths must be multiples of 4")
+    for name, t in (("luma4", luma4), ("upad", upad), ("vpad", vpad),
+                    ("mv", mv), ("ref", ref)):
+        if t.data_ptr() % 4:        # the kernel's 32-bit loads
+            raise ValueError(f"{name}: expected a 4-byte aligned tensor")
+    buf = torch.empty(nmb * 384, dtype=torch.uint8, device=luma4.device)
+    py = buf[:nmb * 256].view(nmb, 16, 16)
+    pu = buf[nmb * 256:nmb * 320].view(nmb, 8, 8)
+    pv = buf[nmb * 320:].view(nmb, 8, 8)
     err = _lib().mc_predict(
         B.ptr(luma4), B.ptr(upad), B.ptr(vpad), B.ptr(mv), B.ptr(ref),
         nref, mb_w, mb_h, hp, wp, hc, wc, B.ptr(py), B.ptr(pu), B.ptr(pv),

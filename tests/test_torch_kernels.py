@@ -12,6 +12,7 @@ skip; the CPU cases check the wrappers' dispatch and the kernel
 sources' notes.
 """
 import os
+import re
 
 import numpy as np
 import pytest
@@ -89,6 +90,48 @@ def _hpel_case(seed, dev, h=96, w=160):
             for a in (cur, ref, ru, rv, mv.astype(np.int32))]
 
 
+def _hpel_edge_case(h, w, rnd, dev):
+    """_hpel_case with integer MVs up to 14 pixels (the corners' at both
+    extremes), which push windows past every frame edge (the plain
+    version's 16-pixel pad still holds them)."""
+    cur, ref, ru, rv, mv = _hpel_case(h * w + rnd, dev, h, w)
+    rng = np.random.default_rng(w)
+    mv = torch.from_numpy(rng.integers(-14, 15, mv.shape).astype(np.int32)) \
+        .to(dev)
+    mv[0, 0], mv[-1, -1] = torch.tensor([-14, -14]), torch.tensor([14, 14])
+    return cur, ref, ru, rv, mv
+
+
+def _mc_frame(mb_w, mb_h, nref, seed, dev):
+    """Refpacks of `nref` random frames of mb_w x mb_h MBs and a motion
+    field for them: MVs reach 80 samples past every edge (both the luma
+    and the chroma clamp bind, the corners' at both extremes), the 16
+    quarter-pel phases cycle over the blocks (all 16 in every MB), refs
+    run from -1 to nref (both clamped) -> (luma4, upad, vpad, mv, ref)."""
+    rng = np.random.default_rng(seed)
+    h, w = mb_h * 16, mb_w * 16
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    packs = [DR.make_refpack(
+        t(rng.integers(0, 256, (h, w)).astype(np.uint8)),
+        t(rng.integers(0, 256, (h // 2, w // 2)).astype(np.uint8)),
+        t(rng.integers(0, 256, (h // 2, w // 2)).astype(np.uint8)))
+        for _ in range(nref)]
+    refs = [torch.stack([p[i] for p in packs]) for i in range(3)]
+    nmb = mb_w * mb_h
+    big = np.array([w + 80, h + 80]) * 4
+    mv = rng.integers(-big, big, (nmb, 16, 2))
+    mv[0, 0], mv[-1, -1] = -big, big - 1
+    mv[0, 3], mv[-1, 12] = (big[0] - 1, -big[1]), (-big[0], big[1] - 1)
+    phase = np.arange(nmb * 16).reshape(nmb, 16) % 16
+    mv[..., 0] = (mv[..., 0] & ~3) | (phase & 3)
+    mv[..., 1] = (mv[..., 1] & ~3) | (phase >> 2)
+    ref = rng.integers(-1, nref + 1, (nmb, 4))
+    return (*refs, t(mv.astype(np.int16)), t(ref.astype(np.int8)))
+
+
 def _fsearch_case(seed, dev, n=2, h=96, w=160, integer=True):
     rng = np.random.default_rng(seed)
     cur = rng.uniform(0, 255, (n, h, w)).astype(np.float32)
@@ -132,8 +175,9 @@ def test_cpu_tensors_take_the_plain_versions():
     packed, nmb = _residual_case(0, "cpu")
     RP.expand_residual(packed, None, nmb)
     assert kernels.counts() == {"mc": 0, "deblock": 0, "intra": 0,
-                                "hpel_luma": 0, "hpel_chroma": 0,
-                                "fsearch": 0, "residual": 0}
+                                "hpel": 0, "hpel_luma": 0,
+                                "hpel_chroma": 0, "fsearch": 0,
+                                "residual": 0}
 
 
 @pytest.mark.parametrize("name,replaces", [
@@ -148,6 +192,17 @@ def test_kernel_sources_carry_their_notes(name, replaces):
     assert 'extern "C" int' in src and "cudaGetLastError" in src
 
 
+def test_mc_source_table_is_device_recon_qm():
+    """csrc/mc.cu packs its quarter-pel plane pairs from a table that
+    must equal device_recon._QM."""
+    src = open(os.path.join(CSRC, "mc.cu")).read()
+    body = src[src.index("kQM[16][6] = {") + 14:]
+    body = body[:body.index("};")]
+    rows = [[int(x) for x in r.split(",")]
+            for r in re.findall(r"\{([^{}]*)\}", body)]
+    assert np.array_equal(np.array(rows), DR._QM)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("seed", [0, 1])
 def test_mc_kernel(seed):
@@ -157,6 +212,22 @@ def test_mc_kernel(seed):
     for a, b, n in zip(MC.mc_predict(*args), MC.mc_predict_plain(*args),
                        "yuv"):
         _eq(a, b, "mc " + n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nref", [1, 3])
+@pytest.mark.parametrize("mb_w,mb_h", [(1, 1), (3, 2), (7, 4)])
+def test_mc_kernel_frames(mb_w, mb_h, nref):
+    """One thread per 4x4 block against the plain version on frames of
+    1, 6 and 28 MBs, with every clamp bound and every quarter-pel phase
+    present."""
+    dev = _card()
+    args = (*_mc_frame(mb_w, mb_h, nref, mb_w * 10 + nref, dev), mb_w, mb_h)
+    got = MC.mc_predict(*args)
+    want = MC.mc_predict_plain(*args)
+    torch.cuda.synchronize()
+    for a, b, n in zip(got, want, "yuv"):
+        _eq(a, b, f"mc {mb_w}x{mb_h} nref {nref} {n}")
 
 
 @pytest.mark.cuda
@@ -324,15 +395,50 @@ def test_hpel_luma_edges(h, w, rnd):
     and 3 MBs (strips of 4 MBs: the last one 2 or 1 MBs long, or shorter
     than one strip)."""
     dev = _card()
-    cur, ref, _, _, mv = _hpel_case(h * w + rnd, dev, h, w)
-    rng = np.random.default_rng(w)
-    mv = torch.from_numpy(rng.integers(-14, 15, mv.shape).astype(np.int32)) \
-        .to(dev)
-    mv[0, 0], mv[-1, -1] = torch.tensor([-14, -14]), torch.tensor([14, 14])
+    cur, ref, _, _, mv = _hpel_edge_case(h, w, rnd, dev)
     got = MEP.refine_mc_luma(cur, ref, mv, rnd)
     want = MEP.refine_mc_luma_plain(cur, ref, mv, rnd)
     for a, b, n in zip(got, want, ("mv_h", "pred_y")):
         _eq(a, b, f"hpel luma {h}x{w} rnd {rnd} {n}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rnd", [0, 1])
+@pytest.mark.parametrize("h,w", [(96, 160), (64, 208), (48, 48), (720, 1280),
+                                 (720, 1264)])
+def test_hpel_fused_edges(h, w, rnd):
+    """The fused kernel (all four outputs) with the luma edge cases' MVs:
+    each chroma window (prefetched at the integer MV) then crosses the
+    chroma planes' edges too; and at the encoder's size and 79 MBs
+    wide."""
+    dev = _card()
+    args = _hpel_edge_case(h, w, rnd, dev)
+    kernels.reset_counts()
+    got = MEP.hpel_refine_mc(*args, rnd)
+    assert kernels.counts()["hpel"] == 1
+    want = MEP.hpel_refine_mc_plain(*args, rnd)
+    for a, b, n in zip(got, want, ("mv_h", "pred_y", "pred_u", "pred_v")):
+        _eq(a, b, f"hpel fused {h}x{w} rnd {rnd} {n}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rnd", [0, 1])
+@pytest.mark.parametrize("h,w", [(96, 160), (64, 208), (48, 48), (720, 1280),
+                                 (720, 1264)])
+def test_hpel_chroma_edges(h, w, rnd):
+    """The standalone chroma kernel at half-pel MVs up to 15 chroma
+    half-pels (both chroma MV parities, past every chroma edge)."""
+    dev = _card()
+    _, _, ru, rv, mv = _hpel_edge_case(h, w, rnd, dev)
+    rng = np.random.default_rng(h + w)
+    mv_h = torch.from_numpy(rng.integers(-30, 31, mv.shape)
+                            .astype(np.int32)).to(dev)
+    mv_h[0, 0], mv_h[-1, -1] = torch.tensor([-30, -29]), \
+        torch.tensor([30, 29])
+    for a, b, n in zip(MEP.mc_chroma(ru, rv, mv_h, rnd),
+                       MEP.mc_chroma_plain(ru, rv, mv_h, rnd),
+                       ("pred_u", "pred_v")):
+        _eq(a, b, f"hpel chroma {h}x{w} rnd {rnd} {n}")
 
 
 @pytest.mark.cuda

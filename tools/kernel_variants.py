@@ -1,20 +1,26 @@
 #!/usr/bin/env python3
-"""Time text variants of the intra and half-pel luma kernels on the card.
+"""Time text variants of the intra, half-pel and MC kernels on the card.
 
-    python3 tools/kernel_variants.py [--rounds N]
+    python3 tools/kernel_variants.py [--rounds N] [--parent DIR] [SOURCE ...]
 
 Each variant is csrc/<source>.cu with a few text replacements (VARIANTS
-below), built with the flags of kernels/_build.py into a temporary
-directory and put in place of the package's library, so the package's
-wrapper launches it. On the bench inputs chip_smoke.py uses (the intra
-kernel on the first P frame of assets/bench_1080p.264, the half-pel luma
-kernel on the encoder's first P-VOP at 1280x720), every variant must
-equal the plain version bit for bit (the run fails otherwise); then the
-device time of each (the
-median of 25 calls, chip_smoke.device_ms) is taken in turns, base first
-and last, N rounds (default 2), with each variant's SASS instruction
-count (tools/kernel_resources.py). Needs a CUDA card; the last line is
-one JSON object.
+below; SOURCE picks some of intra, hpel, mc, default all), built with
+the flags of kernels/_build.py into a temporary directory and put in
+place of the package's library, so the package's wrappers launch it. On
+the bench inputs chip_smoke.py uses (the intra and MC kernels on the
+first P frame of assets/bench_1080p.264, the half-pel kernels on the
+encoder's first P-VOP at 1280x720), every entry of a variant must equal
+its plain version bit for bit (the run fails otherwise); then the device
+time of each entry (the median of 25 calls, chip_smoke.device_ms) is
+taken in turns, base first and last, N rounds (default 2), with each
+kernel's SASS instruction count (tools/kernel_resources.py). The entries
+timed: intra (and intra1, the first list entry alone); hpel (the fused
+kernel), hpel_luma and hpel_chroma; mc. --parent DIR adds the variant
+"parent": the source of the checkout at DIR (an earlier commit, unpacked
+with git archive), timed in the same turns; entries whose C function it
+lacks are left out. The first line after the card's name is the device
+time of an empty kernel (chip_smoke.floor_ms). Needs a CUDA card; the
+last line is one JSON object.
 """
 from __future__ import annotations
 
@@ -34,6 +40,37 @@ _SPIN = "  while (!(*p & 1)) __nanosleep(16);"
 _WARPS = "constexpr int WARPS = 16;"
 _MBS = "constexpr int MBS = 4;"
 _SAD = "sad[d] = (int)__sad(cv[q], hp[2 * q + d], (unsigned)sad[d]);"
+_PREFETCH = "if (CHROMA && lane < 2 * CW)"
+_WIN = "chroma_warp(cwin[warp], oyc, oxc, lane,"
+_MCMBS = "constexpr int MBS = 16; "
+_BYTES4 = """__device__ __forceinline__ uint32_t bytes4(const uint8_t* row, int c) {
+  const uint32_t* w = reinterpret_cast<const uint32_t*>(row + (c & ~3));
+  return __funnelshift_r(__ldg(w), __ldg(w + 1), 8 * (c & 3));
+}"""
+# the bytes c .. c+n-1 of a row, the second word loaded only where they
+# reach it
+_ROW_BYTES = """__device__ __forceinline__ uint32_t bytes4(const uint8_t* row, int c,
+                                           int n = 4) {
+  const uint32_t* w = reinterpret_cast<const uint32_t*>(row + (c & ~3));
+  const uint32_t lo = __ldg(w);
+  return (c & 3) + n > 4 ? __funnelshift_r(lo, __ldg(w + 1), 8 * (c & 3))
+                         : lo >> (8 * (c & 3));
+}"""
+_CHROMA_ROWS = """  for (int j = 0; j < 3; ++j) {
+    su[j] = bytes4(cu + j * wc, cix);
+    sv[j] = bytes4(cv + j * wc, cix);
+  }"""
+# chroma: the third column only where dx != 0, the third row only where
+# dy != 0 (the taps of weight 0 not read)
+_CHROMA_NEEDED = """  for (int j = 0; j < 3; ++j) {
+    const int n = (mvx & 7) ? 3 : 2;
+    const bool row = j < 2 || (mvy & 7);
+    su[j] = row ? bytes4(cu + j * wc, cix, n) : 0u;
+    sv[j] = row ? bytes4(cv + j * wc, cix, n) : 0u;
+  }"""
+_QMPACK = "constexpr uint64_t kQMLo = qm_pack(0), kQMHi = qm_pack(1);"
+_QMREAD = ("const int q = (int)(((key & 8) ? kQMHi : kQMLo) >> "
+           "(8 * (key & 7))) & 0xff;")
 
 _PACK = r'''
 // the low bytes of four ints, as one word
@@ -81,8 +118,42 @@ VARIANTS = {
         "mbs1": [(_MBS, "constexpr int MBS = 1;")],
         "mbs2": [(_MBS, "constexpr int MBS = 2;")],
         "mbs8": [(_MBS, "constexpr int MBS = 8;")],
+        # the fused kernel's chroma window loaded after the argmin, at
+        # the winner's chroma MV, not beside the luma window
+        "late_chroma": [(_PREFETCH, "if (false)"),
+                        (_WIN, "chroma_mb(cwin[warp], ref_u, ref_v, hc, "
+                               "lane,")],
+    },
+    "mc": {
+        "mbs4": [(_MCMBS, "constexpr int MBS = 4; ")],
+        "mbs8": [(_MCMBS, "constexpr int MBS = 8; ")],
+        "constant_qm": ["constant_qm"],
+        # only the words that hold bytes of non-zero weight loaded
+        "needed_words": [(_BYTES4, _ROW_BYTES),
+                         (_CHROMA_ROWS, _CHROMA_NEEDED)],
     },
 }
+# the kernels of each source whose SASS is counted (a part of the
+# mangled name)
+# the C function each entry calls
+ENTRY_FNS = {"intra": "intra_scan", "intra1": "intra_scan",
+             "hpel": "hpel_refine_mc", "hpel_luma": "refine_mc_luma",
+             "hpel_chroma": "mc_chroma", "mc": "mc_predict"}
+KERNEL_FNS = {"intra": {"intra": "intra_kernel"},
+              "hpel": {"hpel": "hpel_kernelILb1E",
+                       "hpel_luma": "hpel_kernelILb0E",
+                       "hpel_chroma": "chroma_kernel"},
+              "mc": {"mc": "mc_kernel"}}
+
+
+def _constant_qm() -> str:
+    """The packed quarter-pel table as a __constant__ array (the MC
+    kernel's first form read device_recon._QM from constant memory)."""
+    from librempeg_tpu_torch.codecs.h264 import device_recon as DR
+
+    vals = [int(e[0] | e[1] << 2 | e[2] << 3 | e[3] << 4 | e[4] << 6
+                | e[5] << 7) for e in DR._QM]
+    return "__constant__ int kQMc[16] = {%s};" % ", ".join(map(str, vals))
 
 
 def apply(src: str, reps) -> str:
@@ -90,8 +161,11 @@ def apply(src: str, reps) -> str:
         if rep == "packed_sad":
             # add_row with __vsadu4 on byte strings in place of __sad
             i = src.index("// SAD terms of one half-pel row")
-            j = src.index("__global__ void __launch_bounds__(MBS * 32)")
+            j = src.index("// CHROMA: also predict both chroma planes")
             src = src[:i] + _PACK.lstrip() + "\n" + src[j:]
+        elif rep == "constant_qm":
+            src = src.replace(_QMPACK, _constant_qm()).replace(
+                _QMREAD, "const int q = kQMc[key];")
         else:
             old, new = rep
             assert old in src, old
@@ -112,15 +186,17 @@ def build(name: str, label: str, src: str, tmp: str):
     return ctypes.CDLL(so), path
 
 
-def sass_count(name: str, path: str, tmp: str) -> int:
+def sass_count(name: str, path: str, tmp: str) -> dict:
     import kernel_resources as KR
 
-    want = "intra_kernel" if name == "intra" else "refine_luma_kernel"
     res = KR.resources(os.path.basename(path)[:-3], tmp, path)
-    return next(r["sass"] for fn, r in res.items() if want in fn)
+    return {label: next((r["sass"] for fn, r in res.items() if part in fn),
+                        None)
+            for label, part in KERNEL_FNS[name].items()}
 
 
 def inputs():
+    """{source: the bench inputs of its kernels}."""
     import chip_smoke as CS
     from librempeg_tpu_torch.codecs.h264 import device_recon as DR
     from librempeg_tpu_torch.codecs.h264 import intra_pallas as IP
@@ -129,58 +205,85 @@ def inputs():
     args, frames = CS.capture_p_frame("cuda")
     (idx, vals, qp, kind, info, i4m, ilist, mv, ref, luma4, upad, vpad,
      mb_w, mb_h, cqo, _, _, _, _) = args
-    pred = MC.mc_predict(luma4, upad, vpad, mv, ref, mb_w, mb_h)
+    margs = (luma4, upad, vpad, mv, ref, mb_w, mb_h)
+    pred = MC.mc_predict_plain(*margs)
     y, u, v, lres_t, cres_t = DR.recon_p_frame_pred_noscan(
         *pred, idx, vals, qp, kind, mb_w, mb_h, cqo, fold_i16=True)
     scal = IP.build_intra_scalars(ilist, kind, info, i4m, mb_w, mb_h)
-    return ((y, u, v), scal, lres_t, cres_t, mb_w, mb_h), \
-        CS.hpel_inputs("cuda", frames)
+    return {"intra": ((y, u, v), scal, lres_t, cres_t, mb_w, mb_h),
+            "hpel": CS.hpel_inputs("cuda", frames), "mc": margs}
 
 
-def runner(name, intra_in, hpel_in):
-    """(run, restore, check) of one kernel on its bench inputs; "intra1":
-    the intra kernel on the first entry of the list only (the launch,
-    the set-up and one step)."""
+def _pure(fn, plain, args):
+    """(run, restore, ok) of a kernel wrapper that only writes new
+    tensors."""
     import torch
 
-    from librempeg_tpu_torch.codecs.h264 import intra_pallas as IP
-    from librempeg_tpu_torch.codecs.mpeg4 import me_pallas as MEP
-    from librempeg_tpu_torch.kernels import intra as KI
-
-    if name in ("intra", "intra1"):
-        planes, scal, lres_t, cres_t, mb_w, mb_h = intra_in
-        if name == "intra1":
-            scal = scal[:1].contiguous()
-        want = IP.intra_scan_plain(*planes, scal, lres_t, cres_t, mb_w, mb_h)
-        work = [p.clone() for p in planes]
-
-        def restore():
-            for w, p in zip(work, planes):
-                w.copy_(p)
-
-        def run():
-            KI.launch(*work, scal, lres_t, cres_t, mb_w, mb_h)
-
-        def ok():
-            restore()
-            run()
-            return all(torch.equal(a, b) for a, b in zip(work, want))
-        return run, restore, ok
-    cur, ry, _, _, mv_i = hpel_in
-    want = MEP.refine_mc_luma_plain(cur, ry, mv_i)
+    want = plain(*args)
 
     def run():
-        return MEP.refine_mc_luma(cur, ry, mv_i)
+        return fn(*args)
 
     def ok():
         return all(torch.equal(a, b) for a, b in zip(run(), want))
     return run, None, ok
 
 
+def runners(name, ins) -> dict:
+    """{entry: (run, restore, ok)} of source `name`'s kernels on their
+    bench inputs; "intra1": the intra kernel on the first entry of the
+    list only (the launch, the set-up and one step)."""
+    import torch
+
+    from librempeg_tpu_torch.codecs.h264 import intra_pallas as IP
+    from librempeg_tpu_torch.codecs.h264 import mc_pallas as MC
+    from librempeg_tpu_torch.codecs.mpeg4 import me_pallas as MEP
+    from librempeg_tpu_torch.kernels import intra as KI
+
+    if name == "mc":
+        return {"mc": _pure(MC.mc_predict, MC.mc_predict_plain, ins["mc"])}
+    if name == "hpel":
+        cur, ry, ru, rv, mv_i = ins["hpel"]
+        mv_h = MEP.refine_mc_luma_plain(cur, ry, mv_i)[0]
+        return {"hpel": _pure(MEP.hpel_refine_mc, MEP.hpel_refine_mc_plain,
+                              ins["hpel"]),
+                "hpel_luma": _pure(MEP.refine_mc_luma,
+                                   MEP.refine_mc_luma_plain, (cur, ry, mv_i)),
+                "hpel_chroma": _pure(MEP.mc_chroma, MEP.mc_chroma_plain,
+                                     (ru, rv, mv_h))}
+    out = {}
+    for entry in ("intra", "intra1"):
+        planes, scal, lres_t, cres_t, mb_w, mb_h = ins["intra"]
+        if entry == "intra1":
+            scal = scal[:1].contiguous()
+        want = IP.intra_scan_plain(*planes, scal, lres_t, cres_t, mb_w, mb_h)
+        work = [p.clone() for p in planes]
+
+        def restore(work=work, planes=planes):
+            for w, p in zip(work, planes):
+                w.copy_(p)
+
+        def run(work=work, scal=scal):
+            KI.launch(*work, scal, lres_t, cres_t, mb_w, mb_h)
+
+        def ok(work=work, want=want, restore=restore, run=run):
+            restore()
+            run()
+            return all(torch.equal(a, b) for a, b in zip(work, want))
+        out[entry] = (run, restore, ok)
+    return out
+
+
 def main(argv) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rounds", type=int, default=2)
-    rounds = ap.parse_args(argv).rounds
+    ap.add_argument("--parent", metavar="DIR",
+                    help="an earlier checkout whose sources are timed too")
+    ap.add_argument("sources", nargs="*", help=f"some of {list(VARIANTS)}")
+    a = ap.parse_args(argv)
+    names = a.sources or list(VARIANTS)
+    if set(names) - set(VARIANTS):
+        ap.error(f"sources must be among {list(VARIANTS)}")
     import torch
 
     if not torch.cuda.is_available():
@@ -193,41 +296,42 @@ def main(argv) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     print(smi, flush=True)
-    for name in VARIANTS:
+    print(f"device floor: {CS.floor_ms()} ms (an empty kernel)", flush=True)
+    for name in names:
         _build.load(name)
-    intra_in, hpel_in = inputs()
+    ins = inputs()
     out = {"device": smi}
     with tempfile.TemporaryDirectory() as tmp:
-        for name, variants in VARIANTS.items():
+        for name in names:
             src = open(os.path.join(ROOT, "librempeg_tpu_torch", "csrc",
                                     f"{name}.cu")).read()
             libs = {"base": build(name, "base", src, tmp)}
-            for label, reps in variants.items():
+            for label, reps in VARIANTS[name].items():
                 libs[label] = build(name, label, apply(src, reps), tmp)
+            if a.parent:
+                libs["parent"] = build(name, "parent", open(os.path.join(
+                    a.parent, "librempeg_tpu_torch", "csrc",
+                    f"{name}.cu")).read(), tmp)
+
+            def entries(label):
+                return {e: r for e, r in runners(name, ins).items()
+                        if hasattr(libs[label][0], ENTRY_FNS[e])}
             res = {}
             for label, (lib, path) in libs.items():
                 _build._libs[name] = lib
-                res[label] = {"exact": bool(runner(name, intra_in,
-                                                   hpel_in)[2]()),
+                res[label] = {"exact": {e: bool(r[2]()) for e, r in
+                                        entries(label).items()},
                               "sass": sass_count(name, path, tmp),
-                              "device_ms": []}
-                if name == "intra":
-                    res[label]["one_entry_exact"] = bool(
-                        runner("intra1", intra_in, hpel_in)[2]())
-                    res[label]["one_entry_ms"] = []
-            bad = [k for k, r in res.items()
-                   if not (r["exact"] and r.get("one_entry_exact", True))]
+                              "device_ms": {e: [] for e in entries(label)}}
+            bad = [k for k, r in res.items() if not all(r["exact"].values())]
             if bad:
                 raise RuntimeError(f"{name} variants differ from the plain "
                                    f"version: {bad}")
-            for _ in range(rounds):
+            for _ in range(a.rounds):
                 for label in list(libs) + ["base"]:
                     _build._libs[name] = libs[label][0]
-                    run, restore, _ = runner(name, intra_in, hpel_in)
-                    res[label]["device_ms"].append(CS.device_ms(run, restore))
-                    if name == "intra":
-                        run, restore, _ = runner("intra1", intra_in, hpel_in)
-                        res[label]["one_entry_ms"].append(
+                    for e, (run, restore, _) in entries(label).items():
+                        res[label]["device_ms"][e].append(
                             CS.device_ms(run, restore))
             for label, r in res.items():
                 print(f"{name} {label}: " + ", ".join(

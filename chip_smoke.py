@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--profile DIR]
 
-It drives two paths and eight kernels. Phases, in order; any failure
+It drives three paths and eight kernels. Phases, in order; any failure
 raises and the script exits non-zero:
 
 1. device: the card's name and power limit (nvidia-smi);
@@ -31,12 +31,26 @@ raises and the script exits non-zero:
    packets with an I-VOP every 12, the mean in-loop recon PSNR must be
    within 0.5 dB of the JAX package's, and mc, intra, deblock and hpel
    must have launched during this run (hpel once per P-VOP, hpel_luma
-   and hpel_chroma never);
+   and hpel_chroma never). Each frame's recon PSNR and quantiser print
+   beside the JAX package's, with the first frame where they part;
 5. fps: steady-state transcode rate measured like bench.py's e2e leg
    (16 warm frames, then 24 timed, each window ending in chain.sync()),
    with the stage split. --profile DIR adds a torch.profiler window of
    8 frames; its table goes to DIR/chip_smoke_profile.txt;
-6. kernel leg: parallel.transcode_step as bench.py's kernel leg runs it
+6. options: the same transcode with the options of an everyday one
+   (-pix_fmt yuvj420p -g 12 -bf 2 -trellis 1 -b:v 4M), through the
+   scaler's RGB path, trellis I/P-VOPs and plain-torch B-VOPs, held to
+   tests/data/torch_port/bench_1080p_options.npz: decoded md5s, 48
+   packets with the JAX package's VOP types in decode order, rising dts
+   and pts a permutation of 0..47, the first yuvj420p frame against the
+   JAX package's sampled rows, every VOP's quantiser equal to the JAX
+   package's, the decoded I/P and B PSNR means (the port's vendored
+   MPEG-4 decoder, against the port's own encoder input) within
+   0.02 dB of the JAX package's, and mc, intra and deblock 44 launches
+   each, hpel once per P-VOP and the per-MB forms never. A second,
+   unhooked run gives the rate and stage split; the checked run times
+   each B-VOP device pass and each trellis frame (one lattice call);
+7. kernel leg: parallel.transcode_step as bench.py's kernel leg runs it
    (8 testgen frames 1920x1088 -> 1280x720, qscale 4, 4 chained steps),
    held to the JAX package's goldens (tests/data/torch_port/
    kernel_leg.npz); fsearch must launch once per step; then one warm
@@ -122,6 +136,29 @@ LEG_QSCALE = 4.0
 # less than the port's on the port's own inputs (a tie, not a miss).
 LEG_MV_FLOOR = (0.995, 0.954, 0.805, 0.534)
 LEG_PSNR_DB = 40.0
+
+# the options path (cli: -s 1280x720 -pix_fmt yuvj420p -b:v 4M -g 12
+# -bf 2 -trellis 1)
+OPTIONS = {"bit_rate": 4_000_000, "gop_size": 12, "max_b_frames": 2,
+           "trellis": 1}
+OPTIONS_PIX_FMT = "yuvj420p"
+# the first yuvj420p frame against the JAX package's stored rows. On a
+# CPU the port's frame equals the JAX package's in every sample
+# (tools/torch_port_goldens.py --calibrate, CHANGES.md); the card's
+# float32 GEMMs sum in another order, so a sample on a rounding
+# boundary may move by 1: a floor of 50 dB allows about 0.6% of samples
+# off by one
+RANGE_PSNR_FLOOR_DB = 50.0
+# The options path encodes synchronously, so its rate control sees the
+# same bits in every run: every quantiser must equal the JAX package's,
+# and the decoded I/P and B PSNR means lie within this of its means.
+# The port reads gaps of +0.0038 and +0.0053 dB on a CPU
+# (tools/torch_port_goldens.py --check-port) and +0.0047 and +0.0061 on
+# an H100. A trellis lambda of 0.95 q^2 in place of 0.85 q^2, planted in
+# a copy, reads -0.0207 and +0.0444 dB and changes VOP 26's quantiser;
+# a bidirectional prediction rounded down reads +0.0038 and -0.0075 with
+# every quantiser equal, and only the CPU tests catch it (PERF.md)
+OPTIONS_PSNR_TOL_DB = 0.02
 
 
 def log(msg: str) -> None:
@@ -258,11 +295,16 @@ def launch_check(runs: dict) -> dict:
     torch.cuda.synchronize()
     with prof(activities=[ProfilerActivity.CPU,
                           ProfilerActivity.CUDA]) as p:
+        # a window's first device event can go unrecorded: open it with
+        # a short sleep kernel, and drop that kernel from the record
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
         for run in runs.values():
             run()
             torch.cuda.synchronize()
     names = [e.name for e in p.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and "spin_kernel" not in e.name]
     check(len(names) == len(runs), f"launches on the card: {names}")
     for name in runs:
         check(sum(name in n for n in names) == 1,
@@ -755,6 +797,15 @@ def slice_phase(dev, out_avi: str) -> dict:
         return fs
 
     chain.decoder.decode, chain.decoder.flush = decode, flush
+    qs = []
+    enc_async = chain.encoder.encode_async
+
+    def encode_async(frame, **kw):
+        h = enc_async(frame, **kw)
+        qs.append(h["q"])
+        return h
+
+    chain.encoder.encode_async = encode_async
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_counts()
     t0 = time.perf_counter()
@@ -780,6 +831,17 @@ def slice_phase(dev, out_avi: str) -> dict:
     mean = statistics.fmean(psnr)
     gmean = gold["mean_recon_psnr_db"]
     check(abs(mean - gmean) <= PSNR_TOL_DB, (mean, gmean))
+    gq, gp = gold["qscale"], gold["recon_psnr_db"]
+    log("slice per frame: recon PSNR port / JAX (dB), quantiser port / JAX")
+    for i, (p, q) in enumerate(zip(psnr, qs)):
+        log(f"  {i:2d} {types[i]} {p:.4f} / {gp[i]:.4f}  q {q} / {gq[i]}")
+    first_q = next((i for i, (a, b) in enumerate(zip(qs, gq)) if a != b),
+                   None)
+    first_p = next((i for i, (a, b) in enumerate(zip(psnr, gp))
+                    if abs(a - b) > 0.01), None)
+    log(f"slice: first frame whose quantiser differs from the JAX "
+        f"package's: {first_q}; first frame whose recon PSNR differs by "
+        f"more than 0.01 dB: {first_p}")
     missing = [k for k in E2E_KERNELS if counts[k] <= 0]
     check(not missing, f"kernels not launched on the e2e path: {missing}")
     check(counts["hpel"] == types.count("P") and counts["hpel_luma"] == 0
@@ -788,6 +850,7 @@ def slice_phase(dev, out_avi: str) -> dict:
     return {"frames": stats["frames"][0], "packets": len(pkts),
             "vop_types": types, "mean_recon_psnr_db": mean,
             "jax_mean_recon_psnr_db": gmean, "launches": counts,
+            "first_q_diff": first_q, "first_psnr_diff": first_p,
             "wall_s": dt, "avi_bytes": os.path.getsize(out_avi),
             "peak_device_mib": peak / 2 ** 20}
 
@@ -859,6 +922,200 @@ def fps_phase(dev, out_avi: str, profile_dir: str | None) -> dict:
     tc.demux.close()
     torch.cuda.synchronize()
     return out
+
+
+def planes_psnr_db(a, b) -> float:
+    """psnr_db over all samples of the numpy planes in a and b."""
+    import numpy as np
+    import torch
+
+    def flat(planes):
+        return torch.from_numpy(np.concatenate(
+            [np.asarray(p, np.float64).ravel() for p in planes]))
+
+    return psnr_db(flat(a), flat(b))
+
+
+def options_spec(dev, out_avi: str):
+    from librempeg_tpu_torch.sched.pipeline import (
+        StreamMap,
+        TranscodeSpec,
+    )
+
+    return TranscodeSpec(
+        input_url=ASSET, output_url=out_avi, device=dev,
+        video=StreamMap(codec="mpeg4", codec_opts=dict(OPTIONS), width=1280,
+                        height=720, pix_fmt=OPTIONS_PIX_FMT))
+
+
+def options_phase(dev, out_avi: str) -> dict:
+    """The options path once, checked, with the launch counters reset
+    before it and the B-VOP pass and the trellis quantiser timed (a
+    synchronise around each); then once more unhooked for the rate and
+    stage split."""
+    import numpy as np
+    import torch
+
+    from librempeg_tpu_torch import kernels
+    from librempeg_tpu_torch.codecs.mpeg4 import encoder as ME
+    from librempeg_tpu_torch.codecs.mpeg4 import trellis as RD
+    from librempeg_tpu_torch.codecs.mpeg4._decoder import Mpeg4Decoder
+    from librempeg_tpu_torch.formats.api import open_input
+    from librempeg_tpu_torch.sched.pipeline import Transcoder
+    from librempeg_tpu_torch.utils import stagetimer
+
+    gold = np.load(os.path.join(GOLD, "bench_1080p_options.npz"))
+    gold_md5 = open(os.path.join(GOLD, "bench_1080p_frames.md5")).read() \
+        .split()
+    tc = Transcoder(options_spec(dev, out_avi))
+    chain = tc.chains[0]
+    md5s, inputs, written, vops = [], [], [], []
+    b_ms, rd_ms = [], []
+    dec_decode, dec_flush = chain.decoder.decode, chain.decoder.flush
+    enc_encode, mux_write = chain.encoder.encode, tc.mux.write
+    packer_vop = ME._Mpeg4Packer.vop
+    b_device, quantize_rd = ME._encode_b_device, RD.quantize_rd
+
+    def decode(pkt):
+        fs = dec_decode(pkt)
+        md5s.extend(frame_md5(f.planes) for f in fs)
+        return fs
+
+    def flush():
+        fs = dec_flush()
+        md5s.extend(frame_md5(f.planes) for f in fs)
+        return fs
+
+    def encode(frame):
+        check(frame.format == OPTIONS_PIX_FMT, frame.format)
+        inputs.append(tuple(p.cpu().numpy() for p in frame.planes))
+        return enc_encode(frame)
+
+    def write(pkt):
+        written.append((pkt.pts, pkt.dts, vop_type(bytes(pkt.data))))
+        return mux_write(pkt)
+
+    def vop(self, bw, coding_type, frame_idx, qscale=None):
+        vops.append(("IPB"[coding_type], frame_idx, qscale))
+        return packer_vop(self, bw, coding_type, frame_idx, qscale)
+
+    def timed_call(fn, into):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            into.append((time.perf_counter() - t0) * 1e3)
+            return out
+        return run
+
+    chain.decoder.decode, chain.decoder.flush = decode, flush
+    chain.encoder.encode, tc.mux.write = encode, write
+    ME._Mpeg4Packer.vop = vop
+    ME._encode_b_device = timed_call(b_device, b_ms)
+    RD.quantize_rd = timed_call(quantize_rd, rd_ms)
+    kernels.reset_counts()
+    try:
+        t0 = time.perf_counter()
+        tc.run()
+        wall_checked = time.perf_counter() - t0
+        counts = kernels.counts()
+    finally:
+        ME._Mpeg4Packer.vop = packer_vop
+        ME._encode_b_device, RD.quantize_rd = b_device, quantize_rd
+
+    bad = [i for i, (a, b) in enumerate(zip(md5s, gold_md5)) if a != b]
+    check(len(md5s) == 48 and not bad,
+          f"options: decoded frames differ from the JAX package's: "
+          f"{len(md5s)} frames, {bad}")
+    types = "".join(t for _, _, t in written)
+    gtypes = str(gold["vop_types"])
+    check(len(written) == 48, f"options: {len(written)} packets")
+    check(types == gtypes, f"options: VOP types {types} (JAX {gtypes})")
+    check(types == "".join(vop_type(p) for p in avi_payloads(out_avi)),
+          "options: the AVI's VOP types differ from the packets written")
+    dts = [d for _, d, _ in written]
+    pts = [p for p, _, _ in written]
+    check(all(b > a for a, b in zip(dts, dts[1:])), f"options: dts {dts}")
+    check(sorted(pts) == list(range(48)), f"options: pts {pts}")
+    check(pts == gold["pts"].tolist() and dts == gold["dts"].tolist(),
+          "options: pts/dts differ from the JAX package's")
+
+    # the range conversion: the first yuvj420p frame at the encoder
+    off, rs = (int(x) for x in gold["sample"])
+    first = inputs[0]
+    jrows = [gold[f"{c}_sample"] for c in "yuv"]
+    rows = [p[off::rs] for p in first]
+    d = np.concatenate([np.abs(a.astype(np.int32) - b).ravel()
+                        for a, b in zip(rows, jrows)])
+    range_share = float(np.count_nonzero(d) / d.size)
+    range_psnr = planes_psnr_db(rows, jrows)
+    check(range_psnr >= RANGE_PSNR_FLOOR_DB,
+          f"options: first yuvj420p frame {range_psnr} dB against the JAX "
+          f"package's rows (floor {RANGE_PSNR_FLOOR_DB})")
+
+    # decoded quality: the vendored decoder over the AVI's 48 VOPs, each
+    # frame against the port's own encoder input
+    t0 = time.perf_counter()
+    dec = Mpeg4Decoder()
+    demux = open_input(out_avi)
+    decoded = [f for pk in demux.packets() for f in dec.decode(pk)]
+    decoded += dec.flush()
+    demux.close()
+    decode_s = time.perf_counter() - t0
+    check(len(decoded) == 48, f"options: {len(decoded)} decoded frames")
+    psnr = [planes_psnr_db(a, f.planes) for a, f in zip(inputs, decoded)]
+    disp = {i: t for t, i, _ in vops}
+    gpsnr = gold["decoded_psnr_db"].tolist()
+    mean = {}
+    for kind, pick in (("ip", lambda t: t != "B"), ("b", lambda t: t == "B")):
+        idx = [i for i in range(48) if pick(disp[i])]
+        mean[kind] = (statistics.fmean(psnr[i] for i in idx),
+                      statistics.fmean(gpsnr[i] for i in idx))
+        check(abs(mean[kind][0] - mean[kind][1]) <= OPTIONS_PSNR_TOL_DB,
+              f"options: decoded {kind} PSNR mean {mean[kind]} (limit "
+              f"{OPTIONS_PSNR_TOL_DB} dB)")
+    log("options per frame (display order): type, decoded PSNR port / JAX "
+        "(dB), quantiser port / JAX")
+    pq = {i: q for _, i, q in vops}
+    gq = {i: int(q) for (_, i, _), q in zip(vops, gold["qscale"])}
+    for i in range(48):
+        log(f"  {i:2d} {disp[i]} {psnr[i]:.4f} / {gpsnr[i]:.4f}  q {pq[i]} / "
+            f"{gq[i]}")
+    qs = [q for _, _, q in vops]
+    first_q = next((k for k, (a, b) in enumerate(zip(qs, gold["qscale"]))
+                    if a != b), None)
+    check(len(qs) == 48 and first_q is None,
+          f"options: VOP {first_q} (coding order) is the first whose "
+          f"quantiser differs from the JAX package's")
+
+    n_pvop = types.count("P")
+    check(len(rd_ms) == types.count("I") + n_pvop,
+          f"options: {len(rd_ms)} trellis calls for {types.count('I')} "
+          f"I- and {n_pvop} P-VOPs (one per frame)")
+    check(counts["mc"] == counts["intra"] == counts["deblock"] == 44,
+          f"options: H.264 kernel launches {counts}")
+    check(counts["hpel"] == n_pvop and counts["hpel_luma"] == 0
+          and counts["hpel_chroma"] == 0,
+          f"options: half-pel launches {counts} for {n_pvop} P-VOPs")
+
+    # the rate and stage split, unhooked
+    stagetimer.reset()
+    tc2 = Transcoder(options_spec(dev, out_avi + ".2.avi"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tc2.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return {"frames": 48, "vop_types": types, "launches": counts,
+            "range_share_differ": range_share, "range_psnr_db": range_psnr,
+            "decoded_psnr_ip_db": mean["ip"], "decoded_psnr_b_db": mean["b"],
+            "psnr_db": psnr, "jax_psnr_db": gpsnr, "first_q_diff": first_q,
+            "fps": 48 / wall, "wall_s": wall, "checked_wall_s": wall_checked,
+            "split_s": {k: v["s"] for k, v in stagetimer.report().items()},
+            "b_pass_ms": statistics.median(b_ms), "b_passes": len(b_ms),
+            "trellis_frame_ms": statistics.median(rd_ms),
+            "trellis_frames": len(rd_ms), "decode_check_s": decode_s}
 
 
 def main(argv: list[str]) -> int:
@@ -937,10 +1194,28 @@ def main(argv: list[str]) -> int:
             f"{s['launches']}, {s['wall_s']:.2f} s, peak device memory "
             f"{s['peak_device_mib']:.1f} MiB, {s['avi_bytes']} AVI bytes")
         f = fps_phase(dev, os.path.join(td, "fps.avi"), profile_dir)
-    log(f"fps: {f['fps']:.3f} (steady state, 24 frames after 16 warm)")
-    log("split: " + json.dumps(f["split_s"]))
-    if "profile_8_frames" in f:
-        log("profile: " + json.dumps(f["profile_8_frames"]))
+        log(f"fps: {f['fps']:.3f} (steady state, 24 frames after 16 warm)")
+        log("split: " + json.dumps(f["split_s"]))
+        if "profile_8_frames" in f:
+            log("profile: " + json.dumps(f["profile_8_frames"]))
+        o = options_phase(dev, os.path.join(td, "options.avi"))
+    log(f"options: {o['frames']} frames, {o['vop_types']}, md5 ok, "
+        f"launches {o['launches']}")
+    log(f"options: first yuvj420p frame {o['range_share_differ']:.6f} of "
+        f"sampled rows differ from the JAX package's, PSNR "
+        f"{o['range_psnr_db']:.2f} dB (floor {RANGE_PSNR_FLOOR_DB})")
+    log(f"options: decoded PSNR I/P mean {o['decoded_psnr_ip_db'][0]:.4f} dB "
+        f"(JAX {o['decoded_psnr_ip_db'][1]:.4f}), B mean "
+        f"{o['decoded_psnr_b_db'][0]:.4f} dB (JAX "
+        f"{o['decoded_psnr_b_db'][1]:.4f}); first VOP whose quantiser "
+        f"differs from the JAX package's: {o['first_q_diff']}")
+    log(f"options: {o['fps']:.3f} fps ({o['wall_s']:.3f} s for 48 frames, "
+        f"unhooked run; checked run {o['checked_wall_s']:.3f} s), B-VOP "
+        f"device pass {o['b_pass_ms']:.3f} ms median of {o['b_passes']}, "
+        f"trellis {o['trellis_frame_ms']:.3f} ms per frame median of "
+        f"{o['trellis_frames']}; vendored decode of the AVI "
+        f"{o['decode_check_s']:.2f} s")
+    log("options split: " + json.dumps(o["split_s"]))
 
     k = kernel_leg_phase(dev, leg, profile_dir)
     log(f"kernel leg: {LEG_BATCH}x{LEG_H}x{LEG_W} -> {LEG_DH}x{LEG_DW}, "
@@ -962,6 +1237,7 @@ def main(argv: list[str]) -> int:
         {"name": name, "route": "cuda", "source": KERNELS[name][0],
          "replaces": KERNELS[name][1], "row": KERNELS[name][2],
          "launches": launches[name], "path": KERNELS[name][3],
+         "launches_options": o["launches"][name],
          **{k: kres[name][k] for k in (
              "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
              "bound_by", "library_ms", "library_note")}}

@@ -4,8 +4,13 @@ A thin wrapper over sched.pipeline.Transcoder that accepts only the
 options the slice implements:
 
     python -m librempeg_tpu_torch.cli.ffmpeg -i IN.264
-        [-s WxH | -vf scale=W:H] -c:v mpeg4 [-b:v N] [-g N]
+        [-s WxH | -vf scale=W:H[,format=F]] [-pix_fmt F] -c:v mpeg4
+        [-b:v N | -q:v N] [-g N] [-bf N] [-trellis N]
         [-frames:v N] [-device cuda|cpu] [-y] OUT.avi
+
+-pix_fmt appends format=F after the scale (e.g. yuvj420p, a range
+change); -bf sets the B-VOPs between anchors (0-4) and -trellis the RD
+quantisation of I/P-VOPs (0-2).
 
 -device defaults to cuda; without a card the run fails rather than
 moving to the CPU.
@@ -69,6 +74,12 @@ def parse_args(argv: list[str]) -> tuple[TranscodeSpec, bool]:
             smap.codec_opts["bit_rate"] = _int(v)
         elif a == "-g":
             smap.codec_opts["gop_size"] = int(v)
+        elif a == "-bf":
+            smap.codec_opts["max_b_frames"] = int(v)
+        elif a == "-trellis":
+            smap.codec_opts["trellis"] = int(v)
+        elif a == "-pix_fmt":
+            smap.pix_fmt = v
         elif a in ("-q:v", "-qscale:v"):
             smap.codec_opts["qscale"] = int(v)
         elif a in ("-frames:v", "-vframes"):

@@ -3,16 +3,20 @@
 Port of librempeg_tpu/codecs/mpeg4/encoder.py. The device half runs on
 tensors on the encoder's device: integer full search
 (ops.motion.full_search_mc_xla), half-pel refinement + MC (the half-pel
-kernel, codecs/mpeg4/me_pallas.py), the spec DCT and H.263 quantiser,
-in-loop reconstruction, and the compaction of the coded levels for the
-host fetch (_sparsify_slim / _sparsify_fat). The host half (DC and MV
-prediction, VLC packing in native/mpeg4.cpp, rate control) is the JAX
-package's, copied unchanged.
+kernel, codecs/mpeg4/me_pallas.py), the spec DCT and H.263 quantiser or
+the trellis (RD) quantiser (codecs/mpeg4/trellis.py), in-loop
+reconstruction, and the compaction of the coded levels for the host
+fetch (_sparsify_slim / _sparsify_fat). B-VOPs (-bf) take a plain-torch
+pass (_encode_b_device: the searches against both anchors and the
+residuals of the four prediction modes). The host half (DC and MV
+prediction, VLC packing in native/mpeg4.cpp, B-VOP mode decision and
+packing, anchor-group scheduling, rate control) is the JAX package's,
+copied unchanged.
 
 Simple-profile choices: quant_type=0 (H.263 quantizer), I/P GOP
-structure, half-pel MVs with vop_rounding_type 0, ac_pred off, resync
-markers off. Trellis quantisation, B-VOPs and the multi-device path are
-not ported yet.
+structure (Advanced Simple VOL with B-VOPs), half-pel MVs with
+vop_rounding_type 0, ac_pred off, resync markers off. The multi-device
+(-mesh) path is not ported yet.
 """
 from __future__ import annotations
 
@@ -25,6 +29,7 @@ import torch.nn.functional as F
 from librempeg_tpu_torch.codecs.api import CodecInfo, Encoder
 from librempeg_tpu_torch.codecs.mpeg4 import me_pallas as MEP
 from librempeg_tpu_torch.codecs.mpeg4 import tables as T
+from librempeg_tpu_torch.codecs.mpeg4 import trellis as rdq
 from librempeg_tpu_torch.codecs.mpeg4.bits import BitWriter
 from librempeg_tpu_torch.core.errors import InvalidData, Unsupported
 from librempeg_tpu_torch.core.frame import VideoFrame
@@ -111,34 +116,72 @@ def _quant_inter(coeffs, qscale: int):
 _ZZ: dict = {}
 
 
-def _zigzag(level: torch.Tensor) -> torch.Tensor:
-    """[..., 8, 8] levels -> [nblk, 64] int16 in zigzag order."""
-    key = str(level.device)
+def _zz_index(dev) -> torch.Tensor:
+    """The zigzag scan as an index tensor on `dev`, uploaded once."""
+    key = str(dev)
     zz = _ZZ.get(key)
     if zz is None:
         zz = _ZZ[key] = torch.as_tensor(np.asarray(T.ZIGZAG, np.int64),
-                                        device=level.device)
-    return level.reshape(-1, 64)[:, zz].to(torch.int16)
+                                        device=dev)
+    return zz
 
 
-def _encode_i_device(y, u, v, qscale: int, dcs_luma: int, dcs_chroma: int):
+def _zigzag(level: torch.Tensor) -> torch.Tensor:
+    """[..., 8, 8] levels -> [nblk, 64] int16 in zigzag order."""
+    return level.reshape(-1, 64)[:, _zz_index(level.device)] \
+        .to(torch.int16)
+
+
+def _dequant_recon(zz_levels: torch.Tensor, qscale: int) -> torch.Tensor:
+    """Inverse-zigzag + H.263 AC dequant -> [nblk, 8, 8] ISO coeffs (the
+    DC slot holds whatever zz_levels[:, 0] dequantizes to; intra callers
+    overwrite it)."""
+    lev = torch.zeros_like(zz_levels)
+    lev[:, _zz_index(zz_levels.device)] = zz_levels
+    return _dequant(lev, qscale).reshape(-1, 8, 8)
+
+
+def _quant_rd(coeffs: list, qscale: int, intra: bool) -> list:
+    """Trellis (RD) levels [nblk, 64] (zigzag order) of each plane's
+    [..., 8, 8] coefficients. The planes share the quantiser and the RL
+    table, so one lattice (trellis.quantize_rd) serves all three; its
+    blocks are independent, so the levels are those of one call per
+    plane."""
+    dev = coeffs[0].device
+    zzc = torch.cat([c.reshape(-1, 64)[:, _zz_index(dev)] for c in coeffs])
+    zz = rdq.quantize_rd(zzc, qscale, intra, 1 if intra else 0)
+    return list(zz.split([c.numel() // 64 for c in coeffs]))
+
+
+def _encode_i_device(y, u, v, qscale: int, dcs_luma: int, dcs_chroma: int,
+                     trellis: bool = False):
     """I-VOP pass over one frame's planes. Returns per plane
     (dc_levels [bh, bw], ac_zz [nblk, 64] int16, recon plane f32)."""
+    names = ("y", "u", "v")
+    planes = [x.to(torch.float32) for x in (y, u, v)]
+    coeffs = [_fdct_spec(dct8x8.to_blocks(p)) for p in planes]
+    rd = _quant_rd(coeffs, qscale, True) if trellis else None
     out = {}
-    for name, plane, chroma in (("y", y, False), ("u", u, True),
-                                ("v", v, True)):
-        p = plane.to(torch.float32)
+    for i, (name, p, c) in enumerate(zip(names, planes, coeffs)):
         h, w = p.shape
-        coeffs = _fdct_spec(dct8x8.to_blocks(p))
-        dc, ac, recon = _quant_intra(coeffs, qscale,
-                                     dcs_chroma if chroma else dcs_luma)
-        out[name] = (dc.reshape(h // 8, w // 8), _zigzag(ac),
+        dcs = dcs_chroma if i else dcs_luma
+        if trellis:
+            # DC as in _quant_intra, AC levels from the lattice
+            dc = torch.round(c[..., 0, 0] / dcs).to(torch.int32)
+            deq = _dequant_recon(rd[i], qscale)
+            deq[:, 0, 0] = dc.reshape(-1).to(torch.float32) * dcs
+            recon = _idct_spec(deq).reshape(c.shape)
+            zz = rd[i].to(torch.int16)
+        else:
+            dc, ac, recon = _quant_intra(c, qscale, dcs)
+            zz = _zigzag(ac)
+        out[name] = (dc.reshape(h // 8, w // 8), zz,
                      dct8x8.from_blocks(recon, h, w).clamp(0, 255))
     return out
 
 
 def _encode_p_device(y, u, v, ref_y, ref_u, ref_v, qscale: int,
-                     search_range: int = 8):
+                     search_range: int = 8, trellis: bool = False):
     """P-VOP pass: even-pel integer full search, half-pel refinement +
     MC of all planes (the half-pel kernel), residual transform coding
     and in-loop recon. MVs are in HALF-PEL units."""
@@ -148,14 +191,106 @@ def _encode_p_device(y, u, v, ref_y, ref_u, ref_v, qscale: int,
     mvh, pred_y, pred_u, pred_v = MEP.hpel_refine_mc(
         yf[0], ref_y, ref_u, ref_v, mv_i[0], rnd=0)
     out = {"mv": mvh}
-    for name, plane, pred in (("y", yf[0], pred_y), ("u", u, pred_u),
-                              ("v", v, pred_v)):
-        p = plane.to(torch.float32)
+    planes = (yf[0], u.to(torch.float32), v.to(torch.float32))
+    preds = (pred_y, pred_u, pred_v)
+    coeffs = [_fdct_spec(dct8x8.to_blocks(p - pred))
+              for p, pred in zip(planes, preds)]
+    rd = _quant_rd(coeffs, qscale, False) if trellis else None
+    for i, (name, p, pred, c) in enumerate(zip("yuv", planes, preds,
+                                               coeffs)):
         h, w = p.shape
-        coeffs = _fdct_spec(dct8x8.to_blocks(p - pred))
-        level, rec_res = _quant_inter(coeffs, qscale)
+        if trellis:
+            rec_res = _idct_spec(_dequant_recon(rd[i], qscale)) \
+                .reshape(c.shape)
+            zz = rd[i].to(torch.int16)
+        else:
+            level, rec_res = _quant_inter(c, qscale)
+            zz = _zigzag(level)
         recon = (pred + dct8x8.from_blocks(rec_res, h, w)).clamp(0, 255)
-        out[name] = (_zigzag(level), recon)
+        out[name] = (zz, recon)
+    return out
+
+
+def _encode_b_device(y, u, v, fy, fu, fv, by_, bu, bv_, qscale: int,
+                     dmvf, dmvb, search_range: int = 8):
+    """B-VOP pass: even-pel ME with half-pel refinement against BOTH
+    anchors, and the residual levels of the forward, backward,
+    bidirectional and direct candidates; the host picks the per-MB mode
+    from the returned SAD costs. Plain tensor code (the JAX package runs
+    it in XLA, outside any Pallas kernel)."""
+    f32 = torch.float32
+    yf = y.to(f32)[None]
+    mvf, cost_f, pred_fy = motion.full_search_mc_hpel(
+        yf, fy.to(f32)[None], search_range, 16, 0, 2)
+    mvb, cost_b, pred_by = motion.full_search_mc_hpel(
+        yf, by_.to(f32)[None], search_range, 16, 0, 2)
+    pred_biy = torch.floor((pred_fy + pred_by + 1.0) * 0.5)
+    h, w = y.shape
+    # bidir luma SAD per MB
+    cost_bi = (yf - pred_biy).abs()[0].reshape(h // 16, 16, w // 16, 16) \
+        .sum(dim=(1, 3))
+    # direct-mode candidate: prediction at the TRB/TRD-scaled colocated
+    # MVs (zero delta), averaged like the decoder
+    dpad = search_range + 2
+    pred_dfy = motion.mc_hpel(fy.to(f32)[None], dmvf, 16, dpad, 0)
+    pred_dby = motion.mc_hpel(by_.to(f32)[None], dmvb, 16, dpad, 0)
+    pred_dy = torch.floor((pred_dfy + pred_dby + 1.0) * 0.5)
+    cost_d = (yf - pred_dy).abs()[0].reshape(h // 16, 16, w // 16, 16) \
+        .sum(dim=(1, 3))
+    out = {"mvf": mvf[0], "mvb": mvb[0], "cost_f": cost_f[0],
+           "cost_b": cost_b[0], "cost_bi": cost_bi, "cost_d": cost_d}
+    mvf_c, mvb_c = MEP._chroma_mv(mvf), MEP._chroma_mv(mvb)
+    dmvf_c, dmvb_c = MEP._chroma_mv(dmvf), MEP._chroma_mv(dmvb)
+    cpad = search_range // 2 + 2
+    preds = {"f": {"y": pred_fy[0]}, "b": {"y": pred_by[0]},
+             "bi": {"y": pred_biy[0]}, "d": {"y": pred_dy[0]}}
+    for cname, (rf, rb) in (("u", (fu, bu)), ("v", (fv, bv_))):
+        rf, rb = rf.to(f32)[None], rb.to(f32)[None]
+        pf = motion.mc_hpel(rf, mvf_c, 8, cpad, 0)[0]
+        pb = motion.mc_hpel(rb, mvb_c, 8, cpad, 0)[0]
+        pdf = motion.mc_hpel(rf, dmvf_c, 8, search_range + 2, 0)[0]
+        pdb = motion.mc_hpel(rb, dmvb_c, 8, search_range + 2, 0)[0]
+        preds["f"][cname] = pf
+        preds["b"][cname] = pb
+        preds["bi"][cname] = torch.floor((pf + pb + 1.0) * 0.5)
+        preds["d"][cname] = torch.floor((pdf + pdb + 1.0) * 0.5)
+    for mode in ("f", "b", "bi", "d"):
+        for name, plane in (("y", y), ("u", u), ("v", v)):
+            resid = plane.to(f32) - preds[mode][name]
+            level, _ = _quant_inter(_fdct_spec(dct8x8.to_blocks(resid)),
+                                    qscale)
+            out[f"{mode}_{name}"] = _zigzag(level)
+    return out
+
+
+#: the order of _encode_b_device's outputs in the one host fetch
+_B_LEVELS = tuple(f"{m}_{p}" for m in ("f", "b", "bi", "d") for p in "yuv")
+_B_MAPS = ("mvf", "mvb", "cost_f", "cost_b", "cost_bi", "cost_d")
+
+
+def _pack_b_outputs(out: dict) -> torch.Tensor:
+    """_encode_b_device's 12 level arrays, 2 MV fields and 4 cost maps
+    as one int16 tensor (MVs and the integer-valued costs as int32
+    halves), so the host fetch is one copy."""
+    parts = [out[k].reshape(-1) for k in _B_LEVELS]
+    parts += [_as_i16(out[k].reshape(-1)) for k in _B_MAPS]
+    return torch.cat(parts)
+
+
+def _unpack_b_outputs(flat: np.ndarray, mb_h: int, mb_w: int) -> dict:
+    """The host side of _pack_b_outputs."""
+    nby, nbc = 4 * mb_h * mb_w, mb_h * mb_w
+    out, o = {}, 0
+    for k in _B_LEVELS:
+        n = nby if k.endswith("y") else nbc
+        out[k] = flat[o:o + n * 64].reshape(n, 64)
+        o += n * 64
+    for k in _B_MAPS:
+        n = 2 * mb_h * mb_w * (2 if k.startswith("mv") else 1)
+        v = flat[o:o + n].view(np.int32)
+        o += n
+        out[k] = v.reshape(mb_h, mb_w, 2) if k.startswith("mv") \
+            else v.reshape(mb_h, mb_w).astype(np.float32)
     return out
 
 
@@ -231,11 +366,12 @@ def _sparsify_slim(zz):
             _as_i16(cnt_t.reshape(1))]
 
 
-def _encode_i_packed(y, u, v, qscale, dcs_luma, dcs_chroma, cap, ecap):
+def _encode_i_packed(y, u, v, qscale, dcs_luma, dcs_chroma, cap, ecap,
+                     trellis=False):
     """I-VOP pass returning (packed int16, recon planes): all host-side
     data (sparse zz coefficients + dc levels) in ONE array, so the host
     fetch is one small copy per frame."""
-    out = _encode_i_device(y, u, v, qscale, dcs_luma, dcs_chroma)
+    out = _encode_i_device(y, u, v, qscale, dcs_luma, dcs_chroma, trellis)
     zz_blocks = torch.cat([out[k][1] for k in ("y", "u", "v")])
     parts = _sparsify_fat(zz_blocks, cap, ecap)
     parts += [out[k][0].reshape(-1).to(torch.int16) for k in ("y", "u", "v")]
@@ -243,8 +379,9 @@ def _encode_i_packed(y, u, v, qscale, dcs_luma, dcs_chroma, cap, ecap):
 
 
 def _encode_p_packed(y, u, v, ry, ru, rv, qscale, search_range, slim,
-                     cap=0, ecap=0):
-    out = _encode_p_device(y, u, v, ry, ru, rv, qscale, search_range)
+                     cap=0, ecap=0, trellis=False):
+    out = _encode_p_device(y, u, v, ry, ru, rv, qscale, search_range,
+                           trellis)
     zz_blocks = torch.cat([out["y"][0], out["u"][0], out["v"][0]])
     if slim:
         parts = _sparsify_slim(zz_blocks)
@@ -333,11 +470,14 @@ def _put_mv(bw: BitWriter, d: int) -> None:
 class _Mpeg4Packer:
     """Assembles headers + macroblock layer."""
 
-    def __init__(self, width, height, fps: Rational, qscale: int):
+    def __init__(self, width, height, fps: Rational, qscale: int,
+                 bframes: bool = False):
         self.w, self.h = width, height
         self.fps = fps
+        self.bframes = bframes
         self.qscale = qscale
         self.last_sec = 0
+        self.prev_sec = 0
         # time resolution = fps numerator (ticks of fps.den per frame)
         self.time_res = max(1, fps.num)
         self.inc_bits = max(1, int(self.time_res - 1).bit_length())
@@ -354,10 +494,17 @@ class _Mpeg4Packer:
         bw.put(0x00000100, 32)     # video_object
         bw.put(0x00000120, 32)     # video_object_layer
         bw.put(0, 1)               # random_accessible_vol
-        bw.put(1, 8)               # video_object_type: simple
+        # ASP object type when B-VOPs are in use (like the reference)
+        bw.put(17 if self.bframes else 1, 8)
         bw.put(0, 1)               # is_object_layer_identifier
         bw.put(1, 4)               # aspect_ratio_info: square
-        bw.put(0, 1)               # vol_control_parameters
+        if self.bframes:
+            bw.put(1, 1)           # vol_control_parameters
+            bw.put(1, 2)           # chroma_format 4:2:0
+            bw.put(0, 1)           # low_delay: B-VOPs reorder
+            bw.put(0, 1)           # vbv_parameters
+        else:
+            bw.put(0, 1)           # vol_control_parameters
         bw.put(0, 2)               # shape: rectangular
         bw.put(1, 1)               # marker
         bw.put(self.time_res, 16)
@@ -383,13 +530,20 @@ class _Mpeg4Packer:
     def vop(self, bw: BitWriter, coding_type: int, frame_idx: int,
             qscale: int | None = None) -> None:
         bw.put(0x000001B6, 32)
-        bw.put(coding_type, 2)     # 0 = I, 1 = P
-        # time: seconds elapsed as modulo_time_base '1's
+        bw.put(coding_type, 2)     # 0 = I, 1 = P, 2 = B
+        # time: seconds elapsed as modulo_time_base '1's. B-VOPs code
+        # their modulo relative to the PREVIOUS non-B time base (the
+        # decoder's last_time_base), non-B ones advance the base.
         total_ticks = frame_idx * self.fps.den
         sec = total_ticks // self.time_res
-        for _ in range(sec - self.last_sec):
-            bw.put(1, 1)
-        self.last_sec = sec
+        if coding_type == 2:
+            for _ in range(max(0, sec - self.prev_sec)):
+                bw.put(1, 1)
+        else:
+            for _ in range(sec - self.last_sec):
+                bw.put(1, 1)
+            self.prev_sec = self.last_sec
+            self.last_sec = sec
         bw.put(0, 1)
         bw.put(1, 1)               # marker
         bw.put(total_ticks % self.time_res, self.inc_bits)
@@ -401,6 +555,9 @@ class _Mpeg4Packer:
         bw.put(qscale if qscale is not None else self.qscale, 5)
         if coding_type == 1:
             bw.put(1, 3)           # vop_fcode_forward
+        elif coding_type == 2:
+            bw.put(1, 3)           # vop_fcode_forward
+            bw.put(1, 3)           # vop_fcode_backward
 
 
 class RateController:
@@ -455,19 +612,15 @@ class Mpeg4Encoder(Encoder):
         Option("bit_rate", int, 0, alias="b", min=0, max=1 << 30,
                help="target bitrate (bits/s); 0 = constant qscale"),
         Option("max_b_frames", int, 0, alias="bf", min=0, max=4,
-               help="B-frames between anchors (not ported: must be 0)"),
+               help="B-frames between anchors (fwd/bwd/bidir modes)"),
         Option("trellis", int, 0, min=0, max=2,
-               help="RD (trellis) quantisation (not ported: must be 0)"),
+               help="RD (trellis) coefficient quantization on I/P"),
     )
 
     def __init__(self, width=0, height=0, pix_fmt="yuv420p",
                  framerate: Rational = Rational(25, 1), device="cuda",
                  **opts):
         super().__init__(**opts)
-        if self.opts["trellis"]:
-            raise Unsupported("mpeg4: trellis quantisation is not ported")
-        if self.opts["max_b_frames"]:
-            raise Unsupported("mpeg4: B-VOPs are not ported")
         self.device = resolve(device)
         self._pad_w = (16 - width % 16) % 16
         self._pad_h = (16 - height % 16) % 16
@@ -481,6 +634,15 @@ class Mpeg4Encoder(Encoder):
         self._frame_idx = 0
         self._ref = None  # (y, u, v) recon planes on the device
         self._next_pts = 0
+        # B-frame state
+        self._pending: list = []        # buffered (frame, display index)
+        self._prev_anchor = None        # older anchor recon
+        self._disp_idx = 0
+        self._decode_idx = 0
+        self._anchor_skip = None        # future-anchor MB skip mask
+        self._anchor_mvs = None         # future-anchor half-pel MVs
+        self._prev_anchor_disp = 0
+        self._cur_anchor_disp = 0
         #: set to a list to collect each frame's in-loop recon PSNR (dB,
         #: all three planes) against its input, computed at fetch time
         self.recon_psnr = None
@@ -494,7 +656,181 @@ class Mpeg4Encoder(Encoder):
             framerate=self.framerate)
 
     def encode(self, frame: VideoFrame):
+        if self.opts["max_b_frames"]:
+            return self._encode_with_b(frame)
         return self.encode_finish(self.encode_async(frame))
+
+    # ---- B-frame scheduling (display buffering + decode-order emit)
+    def _encode_with_b(self, frame: VideoFrame):
+        bf = self.opts["max_b_frames"]
+        d = self._disp_idx
+        self._disp_idx += 1
+        is_i = d % self.opts["gop_size"] == 0 or self._ref is None
+        if is_i or len(self._pending) >= bf:
+            return self._emit_anchor_group(frame, d, is_i)
+        self._pending.append((frame, d))
+        return []
+
+    def _emit_anchor_group(self, frame, d, is_i):
+        prev_anchor = self._ref
+        self._prev_anchor_disp = self._cur_anchor_disp
+        self._cur_anchor_disp = d
+        h = self.encode_async(frame, force_type="I" if is_i else "P",
+                              display_idx=d)
+        pkts = self.encode_finish(h)
+        pkts[0] = pkts[0].replace(dts=self._decode_idx)
+        self._decode_idx += 1
+        for bframe, bd in self._pending:
+            pkt = self._encode_bvop(bframe, bd, prev_anchor, self._ref)
+            pkts.append(pkt.replace(dts=self._decode_idx))
+            self._decode_idx += 1
+        self._pending = []
+        self._prev_anchor = prev_anchor
+        return pkts
+
+    def _encode_bvop(self, frame, d, fwd_refs, bwd_refs) -> Packet:
+        y, u, v = self._planes(frame)
+        q = self._packer.qscale if self._rc is None else \
+            self._rc.pick_qscale(False)
+        dmvf, dmvb = self._direct_mvs(d)
+        dev = self.device
+        out = _encode_b_device(
+            y, u, v, *fwd_refs, *bwd_refs, q,
+            torch.from_numpy(dmvf).to(dev)[None],
+            torch.from_numpy(dmvb).to(dev)[None], self.opts["search_range"])
+        mb_w, mb_h = self.cw // 16, self.ch // 16
+        out = _unpack_b_outputs(_pack_b_outputs(out).cpu().numpy(), mb_h,
+                                mb_w)
+        bw = BitWriter()
+        self._packer.vop(bw, 2, d, q)
+        body = self._pack_b(bw, out, q)
+        pkt = Packet(data=body, pts=d, dts=d, duration=1,
+                     time_base=self.time_base)
+        if self._rc is not None:
+            self._rc.update(len(body) * 8, False)
+        return pkt
+
+    def _direct_mvs(self, d):
+        """TRB/TRD-scaled colocated MVs (zero delta) for direct mode;
+        matches the decoder's C-truncating scaling (np.fix)."""
+        mb_w, mb_h = self.cw // 16, self.ch // 16
+        pmv = self._anchor_mvs
+        if pmv is None:
+            pmv = np.zeros((mb_h, mb_w, 2), np.int32)
+        trb = d - self._prev_anchor_disp
+        trd = self._cur_anchor_disp - self._prev_anchor_disp
+        p = pmv.astype(np.int64)
+        fwd = np.fix(p * trb / trd).astype(np.int32)
+        bwd = np.fix(p * (trb - trd) / trd).astype(np.int32)
+        return fwd, bwd
+
+    def _pack_b(self, bw: BitWriter, out, q: int) -> bytes:
+        """B-VOP macroblock layer: per-MB mode decision between direct,
+        forward, backward and bidirectional 16x16 prediction;
+        colocated-skipped MBs (in the future anchor) are not coded."""
+        mb_w, mb_h = self.cw // 16, self.ch // 16
+        nbx = mb_w * 2
+        mvf, mvb = out["mvf"], out["mvb"]                  # half-pel
+        cost_f, cost_b = out["cost_f"], out["cost_b"]
+        cost_bi, cost_d = out["cost_bi"], out["cost_d"]
+        zz = {m: {p: out[f"{m}_{p}"] for p in ("y", "u", "v")}
+              for m in ("f", "b", "bi", "d")}
+        co_skip = self._anchor_skip
+        if co_skip is None:
+            co_skip = np.zeros((mb_h, mb_w), bool)
+        # bidir pays two MV fields; bias roughly the extra bits
+        lam = 16.0 * q
+        for my in range(mb_h):
+            last_f = np.zeros(2, np.int32)
+            last_b = np.zeros(2, np.int32)
+            for mx in range(mb_w):
+                if co_skip[my, mx]:
+                    continue
+                costs = (float(cost_d[my, mx]),
+                         float(cost_f[my, mx]) + lam,
+                         float(cost_b[my, mx]) + lam,
+                         float(cost_bi[my, mx]) + 2 * lam)
+                mode = ("d", "f", "b", "bi")[int(np.argmin(costs))]
+                lblk = [(2 * my, 2 * mx), (2 * my, 2 * mx + 1),
+                        (2 * my + 1, 2 * mx), (2 * my + 1, 2 * mx + 1)]
+                acs_y = [zz[mode]["y"][by * nbx + bx] for by, bx in lblk]
+                ac_u = zz[mode]["u"][my * mb_w + mx]
+                ac_v = zz[mode]["v"][my * mb_w + mx]
+                cbp = 0
+                for i, a in enumerate(acs_y):
+                    if np.any(a):
+                        cbp |= 32 >> i
+                if np.any(ac_u):
+                    cbp |= 2
+                if np.any(ac_v):
+                    cbp |= 1
+                if mode == "d" and cbp == 0:
+                    bw.put(1, 1)        # modb1: direct, nothing else
+                    continue
+                bw.put(0, 1)            # modb1: mb_type/vectors coded
+                bw.put(0 if cbp else 1, 1)   # modb2: cbp present?
+                # mb_type: '1' direct, '01' bidir, '001' backward,
+                # '0001' forward
+                code = {"d": (1, 1), "bi": (1, 2), "b": (1, 3),
+                        "f": (1, 4)}[mode]
+                bw.put(*code)
+                if cbp:
+                    bw.put(cbp, 6)
+                    if mode != "d":
+                        bw.put(0, 1)    # dbquant flag: keep qp
+                if mode == "d":
+                    _put_mv(bw, 0)      # zero direct delta
+                    _put_mv(bw, 0)
+                if mode in ("f", "bi"):
+                    mvh = mvf[my, mx]
+                    _put_mv(bw, int(mvh[1]) - int(last_f[1]))
+                    _put_mv(bw, int(mvh[0]) - int(last_f[0]))
+                    last_f[:] = mvh
+                if mode in ("b", "bi"):
+                    mvh = mvb[my, mx]
+                    _put_mv(bw, int(mvh[1]) - int(last_b[1]))
+                    _put_mv(bw, int(mvh[0]) - int(last_b[0]))
+                    last_b[:] = mvh
+                for i in range(4):
+                    if cbp & (32 >> i):
+                        _put_coeffs(bw, acs_y[i], 0, intra=False)
+                if cbp & 2:
+                    _put_coeffs(bw, ac_u, 0, intra=False)
+                if cbp & 1:
+                    _put_coeffs(bw, ac_v, 0, intra=False)
+        bw.align_stuffing()
+        return bw.bytes()
+
+    def _stash_anchor_skip(self, is_i, flat, tail):
+        """Record the anchor's MB skip mask: colocated-skipped MBs in the
+        future anchor force B MBs to be skipped too (§7.6.7)."""
+        mb_w, mb_h = self.cw // 16, self.ch // 16
+        if is_i:
+            self._anchor_skip = np.zeros((mb_h, mb_w), bool)
+            self._anchor_mvs = None
+            return
+        H, W = self.ch, self.cw
+        nby = (H // 8) * (W // 8)
+        nbc = (H // 16) * (W // 16)
+        zz_y = flat[:nby * 64].reshape(nby, 64)
+        zz_u = flat[nby * 64:(nby + nbc) * 64].reshape(nbc, 64)
+        zz_v = flat[(nby + nbc) * 64:].reshape(nbc, 64)
+        mv = tail[:mb_h * mb_w * 2].reshape(mb_h, mb_w, 2)
+        yany = (zz_y.reshape(mb_h * 2, mb_w * 2, 64) != 0).any(-1)
+        yany = yany.reshape(mb_h, 2, mb_w, 2).any(1).any(-1)
+        uany = (zz_u != 0).any(-1).reshape(mb_h, mb_w)
+        vany = (zz_v != 0).any(-1).reshape(mb_h, mb_w)
+        self._anchor_skip = (~yany & ~uany & ~vany
+                             & (mv == 0).all(-1))
+        self._anchor_mvs = np.asarray(mv, np.int32).copy()
+
+    def flush(self):
+        if not self._pending:
+            return []
+        # trailing frames: the last buffered one becomes the final
+        # anchor; earlier ones encode as B between the two anchors
+        frame, d = self._pending.pop()
+        return self._emit_anchor_group(frame, d, is_i=False)
 
     def _planes(self, frame: VideoFrame):
         """The frame's planes on the encoder's device, edge-padded to
@@ -510,15 +846,21 @@ class Mpeg4Encoder(Encoder):
             out.append(t)
         return tuple(out)
 
-    def encode_async(self, frame: VideoFrame) -> dict:
+    def encode_async(self, frame: VideoFrame, *, force_type=None,
+                     display_idx=None) -> dict:
         """Run the device pass for one frame and return a handle for
         encode_finish (which fetches the compacted levels and packs the
-        bitstream, so a pipeline can overlap it with the next frame)."""
+        bitstream, so a pipeline can overlap it with the next frame).
+        The B-frame scheduler passes the anchor's type and display
+        index."""
         if frame.format not in ("yuv420p", "yuvj420p"):
             raise Unsupported(f"mpeg4: input must be yuv420p, got "
                               f"{frame.format}")
-        is_i = self._frame_idx % self.opts["gop_size"] == 0 \
-            or self._ref is None
+        if force_type is not None:
+            is_i = force_type == "I"
+        else:
+            is_i = self._frame_idx % self.opts["gop_size"] == 0 \
+                or self._ref is None
         if self.opts["bit_rate"] > 0:
             if self._rc is None:
                 self._rc = RateController(self.opts["bit_rate"],
@@ -528,8 +870,9 @@ class Mpeg4Encoder(Encoder):
         else:
             q = self.opts["qscale"]
         if self._packer is None:
-            self._packer = _Mpeg4Packer(self.width, self.height,
-                                        self.framerate, q)
+            self._packer = _Mpeg4Packer(
+                self.width, self.height, self.framerate, q,
+                bframes=bool(self.opts["max_b_frames"]))
         y, u, v = self._planes(frame)
         bw = BitWriter()
         data0 = self._packer.sequence_headers() if self._frame_idx == 0 \
@@ -537,17 +880,21 @@ class Mpeg4Encoder(Encoder):
         refs = self._ref
         self._sp_init()
         slim = not is_i and self._sp_slim_ok
+        rd = bool(self.opts["trellis"])
         if is_i:
             packed, recon = _encode_i_packed(
                 y, u, v, q, T.dc_scaler(q, False), T.dc_scaler(q, True),
-                *self._fat_caps())
+                *self._fat_caps(), trellis=rd)
         else:
             packed, recon = _encode_p_packed(
                 y, u, v, *refs, q, self.opts["search_range"], slim,
-                *(() if slim else self._fat_caps()))
+                *(() if slim else self._fat_caps()), trellis=rd)
         self._ref = recon
-        self._packer.vop(bw, 0 if is_i else 1, self._frame_idx, q)
-        pts = frame.pts if frame.pts != NOPTS else self._next_pts
+        hdr_idx = display_idx if display_idx is not None \
+            else self._frame_idx
+        self._packer.vop(bw, 0 if is_i else 1, hdr_idx, q)
+        pts = display_idx if display_idx is not None else (
+            frame.pts if frame.pts != NOPTS else self._next_pts)
         self._next_pts = pts + 1
         handle = {"bw": bw, "data0": data0, "q": q, "is_i": is_i,
                   "packed": packed, "planes": (y, u, v), "refs": refs,
@@ -589,18 +936,21 @@ class Mpeg4Encoder(Encoder):
                 h["full"] = True
             # recon is identical to the original dispatch (same inputs,
             # only the fetch layout differs): self._ref is left alone
+            rd = bool(self.opts["trellis"])
             if is_i:
                 h["packed"], _ = _encode_i_packed(
                     y, u, v, q, T.dc_scaler(q, False),
-                    T.dc_scaler(q, True), *caps)
+                    T.dc_scaler(q, True), *caps, trellis=rd)
             else:
                 h["packed"], _ = _encode_p_packed(
                     y, u, v, *h["refs"], q, self.opts["search_range"],
-                    False, *caps)
+                    False, *caps, trellis=rd)
             h["caps"] = caps
         if "recon" in h:
             self.recon_psnr.append(_psnr(h["planes"], h["recon"]))
         bw = h["bw"]
+        if self.opts["max_b_frames"]:
+            self._stash_anchor_skip(is_i, flat, tail)
         if is_i:
             body = self._pack_i(bw, flat, tail, q)
         else:

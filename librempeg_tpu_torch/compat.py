@@ -22,6 +22,7 @@ from librempeg_tpu_torch.codecs.mpeg4.encoder import (
     RateController,
     _Mpeg4Packer,
 )
+from librempeg_tpu_torch.core.frame import VideoFrame
 from librempeg_tpu_torch.core.rational import Rational
 
 
@@ -57,23 +58,34 @@ def decoder_state_from_numpy(sps, pps, dpb, poc_state=(0, 0),
     return dec
 
 
+def _planes_on(planes, dtype, device):
+    return tuple(torch.from_numpy(np.array(p, dtype=dtype)).to(device)
+                 for p in planes)
+
+
 def encoder_state_from_numpy(width: int, height: int, ref, frame_idx: int,
                              rc: dict | None = None,
                              slim_ok: bool | None = None,
                              packer: dict | None = None,
                              framerate: Rational = Rational(25, 1),
-                             device="cuda", **opts) -> Mpeg4Encoder:
+                             device="cuda", bframes: dict | None = None,
+                             **opts) -> Mpeg4Encoder:
     """An Mpeg4Encoder positioned after `frame_idx` coded frames.
 
     ref: the (y, u, v) float32 in-loop recon planes of the last coded
     frame (unrounded, as the encoder keeps them). rc: rate-controller
     fields (buffer, c_i, c_p, last_q) when bit_rate is set. slim_ok:
     the sparse-fetch layout flag (None: derive from the frame size).
-    packer: header-state field (last_sec) of the VOP time code."""
+    packer: header-state fields (last_sec, prev_sec) of the VOP time
+    code. bframes (with max_b_frames > 0): the B-frame scheduler's
+    state -- prev_anchor (the older anchor's recon planes, or None),
+    anchor_skip ([mb_h, mb_w] bool) and anchor_mvs ([mb_h, mb_w, 2]
+    half-pel, or None) of the newest anchor, pending (the buffered
+    frames as (y, u, v) uint8 planes and display index), disp_idx,
+    decode_idx, prev_anchor_disp and cur_anchor_disp."""
     enc = Mpeg4Encoder(width=width, height=height, framerate=framerate,
                        device=device, **opts)
-    enc._ref = tuple(torch.from_numpy(np.array(p, dtype=np.float32))
-                     .to(enc.device) for p in ref)
+    enc._ref = _planes_on(ref, np.float32, enc.device)
     enc._frame_idx = frame_idx
     enc._next_pts = frame_idx
     if rc is not None:
@@ -88,6 +100,24 @@ def encoder_state_from_numpy(width: int, height: int, ref, frame_idx: int,
         enc._sp_slim_ok = bool(slim_ok)
     if packer is not None:
         enc._packer = _Mpeg4Packer(width, height, framerate,
-                                   enc.opts["qscale"])
+                                   enc.opts["qscale"],
+                                   bframes=bool(enc.opts["max_b_frames"]))
         enc._packer.last_sec = int(packer["last_sec"])
+        enc._packer.prev_sec = int(packer.get("prev_sec", 0))
+    if bframes is not None:
+        b = bframes
+        pa = b.get("prev_anchor")
+        enc._prev_anchor = None if pa is None else _planes_on(
+            pa, np.float32, enc.device)
+        skip, mvs = b.get("anchor_skip"), b.get("anchor_mvs")
+        enc._anchor_skip = None if skip is None else np.array(skip, bool)
+        enc._anchor_mvs = None if mvs is None else np.array(mvs, np.int32)
+        enc._pending = [
+            (VideoFrame(planes=_planes_on(planes, np.uint8, enc.device),
+                        format="yuv420p", width=width, height=height,
+                        pts=d), d)
+            for planes, d in b.get("pending", ())]
+        for k in ("disp_idx", "decode_idx", "prev_anchor_disp",
+                  "cur_anchor_disp"):
+            setattr(enc, "_" + k, int(b[k]))
     return enc

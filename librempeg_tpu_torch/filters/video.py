@@ -1,11 +1,13 @@
-"""Video filters of the slice: null and scale.
+"""Video filters of the slice: null, scale and format.
 
-Port of NullFilter and ScaleFilter from librempeg_tpu/filters/video.py
-(vf_null.c / vf_scale.c analogs). Size expressions use core.eval_expr
-like the reference; the pixel work is the planar scaler.
+Port of NullFilter, ScaleFilter and FormatFilter from
+librempeg_tpu/filters/video.py (vf_null.c / vf_scale.c / vf_format.c
+analogs). Size expressions use core.eval_expr like the reference; the
+pixel work is the scaler (scale/scaler.py).
 """
 from __future__ import annotations
 
+from librempeg_tpu_torch.core.errors import InvalidData
 from librempeg_tpu_torch.core.eval_expr import eval_expr
 from librempeg_tpu_torch.core.frame import VideoFrame
 from librempeg_tpu_torch.core.options import Option, OptionTable
@@ -66,4 +68,40 @@ class ScaleFilter(Filter):
         s = get_scaler(frame.format, frame.width, frame.height,
                        o.pix_fmt or frame.format, o.width, o.height,
                        kernel=self.opts["flags"])
+        return [(0, s.scale_frame(frame))]
+
+
+@register_filter
+class FormatFilter(Filter):
+    NAME = "format"
+    DESCRIPTION = "Convert the input video to one of the specified formats."
+    PURE = True
+    CONVERTS = True
+    OPT_ORDER = ("pix_fmts",)
+    OPTIONS = OptionTable(Option("pix_fmts", str, ""))
+
+    def _fmts(self) -> list[str]:
+        return [f for f in self.opts["pix_fmts"].replace("|", ":").split(":")
+                if f]
+
+    def out_formats(self, pad: int = 0):
+        return tuple(self._fmts()) or None
+
+    def configure(self, in_props):
+        self.in_props = in_props
+        out = in_props[0].copy()
+        fmts = self._fmts()
+        if not fmts:
+            raise InvalidData("format: no pix_fmts given")
+        if out.pix_fmt not in fmts:
+            out.pix_fmt = fmts[0]
+        self._target = out.pix_fmt
+        self.out_props = [out]
+        return self.out_props
+
+    def filter_frame(self, frame: VideoFrame, pad=0):
+        if frame.format == self._target:
+            return [(0, frame)]
+        s = get_scaler(frame.format, frame.width, frame.height,
+                       self._target, frame.width, frame.height)
         return [(0, s.scale_frame(frame))]

@@ -1,10 +1,11 @@
 """Block motion estimation and compensation (the encoder's search).
 
-Port of the parts of librempeg_tpu/ops/motion.py that the MPEG-4 P-VOP
-path runs: the integer full search (full_search_mc_xla, XLA in the JAX
-package, plain tensor code here) and the half-pel refinement and
+Port of the parts of librempeg_tpu/ops/motion.py that the MPEG-4 P- and
+B-VOP paths run: the integer full search (full_search_mc_xla, XLA in the
+JAX package, plain tensor code here), the half-pel refinement and
 compensation (_hpel_refine, mc_hpel), which are the plain version of
-the half-pel kernel (codecs/mpeg4/me_pallas.py).
+the half-pel kernel (codecs/mpeg4/me_pallas.py), and the two together
+(full_search_mc_hpel, the B-VOP search).
 
 Numerics of the integer search: like the JAX package it casts the
 current and reference planes to bf16 and takes the difference in bf16.
@@ -139,6 +140,23 @@ def _hpel_refine(cur, ref_pad, pad_y, pad_x, mv_i, rounding, bs):
     mv_h = 2 * mv_i + best_d
     pred = best_pred.permute(0, 1, 3, 2, 4).reshape(n, h, w)
     return mv_h, best_cost.to(torch.float32), pred.to(torch.float32)
+
+
+def full_search_mc_hpel(cur: torch.Tensor, ref: torch.Tensor,
+                        search_range: int = 8, block_size: int = 16,
+                        rounding: int = 0, step: int = 2):
+    """Integer full search (full_search_mc_xla) + half-pel refinement
+    (_hpel_refine) over the reference edge-padded by search_range + 2
+    and truncated to integers. The B-VOP search: plain tensor code.
+
+    Returns (mv [N, bh, bw, 2] int32 HALF-PEL units, cost f32, pred
+    f32); the prediction is decoder-exact for vop_rounding_type
+    `rounding`."""
+    mv_i, _, _ = full_search_mc_xla(cur, ref, search_range, block_size,
+                                    step)
+    pad = search_range + 2
+    ref_pad = _edge_pad(ref.to(torch.float32), pad, pad).to(torch.int32)
+    return _hpel_refine(cur, ref_pad, pad, pad, mv_i, rounding, block_size)
 
 
 def mc_hpel(ref: torch.Tensor, mv_h: torch.Tensor, block_size: int,

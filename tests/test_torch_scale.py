@@ -91,5 +91,14 @@ def test_scale_filter_chain():
 
 
 def test_scaler_rejects_unported_conversions():
+    """Every format core/pixfmt registers converts (test_torch_colorspace);
+    an unknown pixel format or scaler kernel still raises."""
     with pytest.raises(Unsupported):
-        tget("yuv420p", 64, 48, "rgb24", 64, 48)
+        tget("yuv420p", 64, 48, "yuv420p_nonesuch", 64, 48)
+    with pytest.raises(Unsupported):
+        tget("nonesuch", 64, 48, "yuv420p", 64, 48)
+    with pytest.raises(Unsupported):
+        tget("yuv420p", 64, 48, "yuv420p", 32, 24, kernel="nonesuch")
+    assert tget("yuv420p", 64, 48, "rgb24", 64, 48).scale_planes(
+        tuple(torch.zeros(s, dtype=torch.uint8)
+              for s in ((48, 64), (24, 32), (24, 32))))[0].shape == (48, 64, 3)

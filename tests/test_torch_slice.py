@@ -19,6 +19,13 @@ another byte in the half-pel search, and the integer search's bf16 SAD
 is summed through a bf16 q/r split in the JAX package but exactly in
 float32 in the port (ops/motion.py), which can break near-ties
 differently.
+
+test_slice_options_match_jax runs the same clip with the options of an
+everyday transcode: -pix_fmt yuvj420p (the range change through the
+scaler's RGB path), -bf 2 and -trellis 1. The encoder's input frames
+(yuvj420p) are held to the scaler's tolerance (at most 0.1% of samples
+differ, by at most 1), the packet types, pts and dts must be equal, and
+the anchors' recon as above.
 """
 import numpy as np
 import pytest
@@ -70,13 +77,22 @@ def _psnr(a, b):
     return float("inf") if mse == 0 else 10 * np.log10(255 ** 2 / mse)
 
 
-def _run(P, C, E, src, out, monkeypatch, **spec_kw):
+def _run(P, C, E, src, out, monkeypatch, codec_opts=None, pix_fmt="",
+         enc_in=None, **spec_kw):
     """Transcode with package P, recording decoded frames (numpy), the
     encoder's recon after each frame and each P-VOP's MV field (the
-    last 2 * nmb int16 of the packed fetch, in both packages)."""
+    last 2 * nmb int16 of the packed fetch, in both packages); with
+    enc_in, also the frames the synchronous (B-frame) encoder takes."""
     frames, recon, mvs = [], [], []
     dec_decode = C.H264Decoder.decode
     enc_async = E.Mpeg4Encoder.encode_async
+    enc_encode = E.Mpeg4Encoder.encode
+
+    def encode(self, frame):
+        if enc_in is not None:
+            enc_in.append([np.asarray(getattr(p, "cpu", lambda: p)())
+                           for p in frame.planes])
+        return enc_encode(self, frame)
 
     def decode(self, pkt):
         fs = dec_decode(self, pkt)
@@ -96,10 +112,13 @@ def _run(P, C, E, src, out, monkeypatch, **spec_kw):
 
     monkeypatch.setattr(C.H264Decoder, "decode", decode)
     monkeypatch.setattr(E.Mpeg4Encoder, "encode_async", encode_async)
+    monkeypatch.setattr(E.Mpeg4Encoder, "encode", encode)
     P.Transcoder(P.TranscodeSpec(
         input_url=str(src), output_url=str(out),
-        video=P.StreamMap(codec="mpeg4", codec_opts={"qscale": 5},
-                          width=64, height=48), **spec_kw)).run()
+        video=P.StreamMap(codec="mpeg4",
+                          codec_opts=codec_opts or {"qscale": 5},
+                          width=64, height=48, pix_fmt=pix_fmt),
+        **spec_kw)).run()
     monkeypatch.undo()
     return frames, recon, mvs
 
@@ -128,9 +147,51 @@ def test_slice_matches_jax(tmp_path, monkeypatch):
     print(f"P-VOP MBs whose MV differs, port vs JAX: {diff:.4f}")
 
 
+def _timestamps(path):
+    return [(p.pts, p.dts) for p in open_input(str(path)).packets()]
+
+
+def test_slice_options_match_jax(tmp_path, monkeypatch):
+    src = tmp_path / "clip.264"
+    make_clip(src)
+    kw = dict(codec_opts={"qscale": 5, "max_b_frames": 2, "trellis": 1},
+              pix_fmt="yuvj420p")
+    ji, ti = [], []
+    jf, jr, jm = _run(JP, JC, JE, src, tmp_path / "jax.avi", monkeypatch,
+                      enc_in=ji, **kw)
+    tf, tr, tm = _run(TP, TC, TE, src, tmp_path / "port.avi", monkeypatch,
+                      enc_in=ti, device="cpu", **kw)
+    assert len(jf) == len(tf) == 12
+    for i, (a, b) in enumerate(zip(jf, tf)):
+        for pa, pb in zip(a, b):
+            assert np.array_equal(pa, pb), f"decoded frame {i}"
+    assert len(ji) == len(ti) == 12
+    d = np.concatenate([np.abs(np.asarray(a, np.int32) - b).ravel()
+                        for x, y in zip(ji, ti) for a, b in zip(x, y)])
+    print(f"yuvj420p encoder input: {np.count_nonzero(d) / d.size:.6f} of "
+          f"samples differ, max |d| {d.max()}")
+    assert np.count_nonzero(d) / d.size <= 1e-3 and d.max() <= 1
+    jt, tt = _vop_types(tmp_path / "jax.avi"), _vop_types(tmp_path /
+                                                         "port.avi")
+    assert jt == tt == "IPBBPBBPBBPB"
+    assert _timestamps(tmp_path / "jax.avi") == \
+        _timestamps(tmp_path / "port.avi")
+    psnrs = [min(_psnr(a, b) for a, b in zip(x, y))
+             for x, y in zip(jr, tr)]
+    print("anchor recon PSNR port vs JAX (dB):",
+          " ".join(f"{p:.1f}" for p in psnrs))
+    assert len(psnrs) == 5 and min(psnrs) >= 40
+    assert len(jm) == len(tm) == 4
+    diff = np.mean([np.any((a != b).reshape(-1, 2), axis=1).mean()
+                    for a, b in zip(jm, tm)])
+    print(f"P-VOP MBs whose MV differs, port vs JAX: {diff:.4f}")
+
+
 @pytest.mark.parametrize("argv", [
     ["-s", "64x48", "-b:v", "300k", "-g", "6"],
     ["-vf", "scale=64:48", "-q:v", "5"],
+    ["-s", "64x48", "-pix_fmt", "yuvj420p", "-bf", "2", "-trellis", "1",
+     "-q:v", "5"],
 ])
 def test_cli_transcodes(tmp_path, argv):
     from librempeg_tpu_torch.cli import ffmpeg

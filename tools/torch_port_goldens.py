@@ -10,17 +10,41 @@ Runs the JAX package (the reference) on the CPU:
   types and the encoder's in-loop recon PSNR against its scaled input,
   frame by frame, in tests/data/torch_port/bench_1080p_transcode.json;
 * counts the intra MBs in each of the asset's P frames (the intra
-  kernel runs only on P frames that have some) into the same file.
+  kernel runs only on P frames that have some) into the same file, with
+  each VOP's quantiser in coding order;
+* runs the options transcode (the same at -pix_fmt yuvj420p -g 12 -bf 2
+  -trellis 1) and writes tests/data/torch_port/bench_1080p_options.npz:
+  the VOP types, pts and dts in decode order, each VOP's quantiser, the
+  PSNR of every decoded frame (the JAX package's MPEG-4 decoder) against
+  the encoder's input, in display order, and rows OFF::RS of the three
+  planes of the first yuvj420p frame the encoder takes.
 
-Usage: python tools/torch_port_goldens.py
+Usage: python tools/torch_port_goldens.py [--calibrate | --check-port]
+
+--calibrate also runs the options transcode through the port on the CPU
+and prints its agreement with the JAX package's: the share of the first
+yuvj420p frame's samples that differ and their PSNR (whole frame and
+stored rows), the VOP types, and the mean decoded PSNR of the I/P and
+the B frames (each against its own encoder input) -- the numbers the
+options phase of chip_smoke.py sets its floors from. The port takes
+about 10 minutes at this size on a CPU.
+
+--check-port writes nothing and runs no JAX transcode: it runs the
+port's options transcode on the CPU and holds it to the stored
+bench_1080p_options.npz as chip_smoke.py's options phase does (the
+quantisers, and the decoded I/P and B PSNR means within
+OPTIONS_PSNR_TOL_DB). Run from a copy of the repo with a fault planted
+in the port, it reads how far that fault moves those numbers.
 """
 from __future__ import annotations
 
+import argparse
 import hashlib
 import json
 import os
 import sys
 import tempfile
+import time
 
 import numpy as np
 
@@ -34,8 +58,10 @@ jax.config.update("jax_platforms", "cpu")
 from librempeg_tpu.codecs.h264 import parse as P  # noqa: E402
 from librempeg_tpu.codecs.h264.codec import H264Decoder  # noqa: E402
 from librempeg_tpu.codecs.mpeg4 import encoder as ME  # noqa: E402
+from librempeg_tpu.codecs.mpeg4.decoder import Mpeg4Decoder  # noqa: E402
 from librempeg_tpu.formats.api import open_input  # noqa: E402
 from librempeg_tpu.native import build as native  # noqa: E402
+from librempeg_tpu.sched import pipeline as JP  # noqa: E402
 from librempeg_tpu.sched.pipeline import (  # noqa: E402
     StreamMap,
     TranscodeSpec,
@@ -44,6 +70,16 @@ from librempeg_tpu.sched.pipeline import (  # noqa: E402
 
 ASSET = os.path.join(REPO, "assets", "bench_1080p.264")
 OUT = os.path.join(REPO, "tests", "data", "torch_port")
+OPTIONS_OUT = os.path.join(OUT, "bench_1080p_options.npz")
+# the options transcode: -s 1280x720 -pix_fmt yuvj420p -b:v 4M -g 12
+# -bf 2 -trellis 1
+OPTIONS = {"bit_rate": 4_000_000, "gop_size": 12, "max_b_frames": 2,
+           "trellis": 1}
+OPTIONS_PIX_FMT = "yuvj420p"
+# rows OFF::RS of the first yuvj420p frame's planes
+OFF, RS = 3, 7
+# chip_smoke.py's limit on the decoded PSNR means of the options path
+OPTIONS_PSNR_TOL_DB = 0.02
 
 
 def frame_md5(planes) -> str:
@@ -100,8 +136,22 @@ def psnr(planes, recon) -> float:
         10.0 * float(np.log10(255.0 ** 2 * n / se))
 
 
+def recording_vops(packer_cls, vops: list):
+    """Patch packer_cls.vop to append (coding type, display index,
+    quantiser) of every VOP header it writes; returns the original."""
+    orig = packer_cls.vop
+
+    def vop(self, bw, coding_type, frame_idx, qscale=None):
+        vops.append((coding_type, frame_idx,
+                     self.qscale if qscale is None else qscale))
+        return orig(self, bw, coding_type, frame_idx, qscale)
+
+    packer_cls.vop = vop
+    return orig
+
+
 def bench_transcode() -> dict:
-    psnrs = []
+    psnrs, vops = [], []
     orig = ME.Mpeg4Encoder.encode_async
 
     def encode_async(self, frame, **kw):
@@ -110,6 +160,7 @@ def bench_transcode() -> dict:
         return h
 
     ME.Mpeg4Encoder.encode_async = encode_async
+    orig_vop = recording_vops(ME._Mpeg4Packer, vops)
     try:
         with tempfile.TemporaryDirectory() as td:
             out = os.path.join(td, "bench.avi")
@@ -121,13 +172,165 @@ def bench_transcode() -> dict:
             pkts = list(open_input(out).packets())
     finally:
         ME.Mpeg4Encoder.encode_async = orig
+        ME._Mpeg4Packer.vop = orig_vop
     return {"packets": len(pkts),
             "vop_types": "".join(vop_type(p.data) for p in pkts),
             "recon_psnr_db": psnrs,
-            "mean_recon_psnr_db": float(np.mean(psnrs))}
+            "mean_recon_psnr_db": float(np.mean(psnrs)),
+            "qscale": [q for _, _, q in vops]}
 
 
-def main() -> None:
+def options_transcode(pipeline, encoder_mod, **spec_kw) -> dict:
+    """The options transcode through a package's Transcoder (its
+    pipeline and mpeg4 encoder modules): the encoder's packets (decode
+    order, with its pts and dts), VOP records, the encoder's input
+    frames (numpy, display order) and the decoded frames (the JAX
+    package's MPEG-4 decoder, display order)."""
+    vops, inputs, pkts = [], [], []
+    enc_cls = encoder_mod.Mpeg4Encoder
+    orig, orig_flush = enc_cls.encode, enc_cls.flush
+
+    def encode(self, frame):
+        inputs.append(tuple(np.asarray(getattr(p, "cpu", lambda: p)())
+                            for p in frame.planes))
+        out = orig(self, frame)
+        pkts.extend(out)
+        return out
+
+    def flush(self):
+        out = orig_flush(self)
+        pkts.extend(out)
+        return out
+
+    enc_cls.encode, enc_cls.flush = encode, flush
+    orig_vop = recording_vops(encoder_mod._Mpeg4Packer, vops)
+    try:
+        with tempfile.TemporaryDirectory() as td:
+            out = os.path.join(td, "options.avi")
+            pipeline.Transcoder(pipeline.TranscodeSpec(
+                input_url=ASSET, output_url=out,
+                video=pipeline.StreamMap(codec="mpeg4", codec_opts=OPTIONS,
+                                         width=1280, height=720,
+                                         pix_fmt=OPTIONS_PIX_FMT),
+                **spec_kw)).run()
+            muxed = [bytes(p.data) for p in open_input(out).packets()]
+    finally:
+        enc_cls.encode, enc_cls.flush = orig, orig_flush
+        encoder_mod._Mpeg4Packer.vop = orig_vop
+    assert muxed == [bytes(p.data) for p in pkts]
+    dec = Mpeg4Decoder()
+    decoded = [tuple(np.asarray(p) for p in f.planes)
+               for pk in pkts for f in dec.decode(pk)]
+    decoded += [tuple(np.asarray(p) for p in f.planes) for f in dec.flush()]
+    return {"packets": pkts, "vops": vops, "inputs": inputs,
+            "decoded": decoded}
+
+
+def options_summary(run: dict) -> dict:
+    types = "".join("IPB"[t] for t, _, _ in run["vops"])
+    disp = {d: "IPB"[t] for t, d, _ in run["vops"]}
+    ps = [psnr(a, b) for a, b in zip(run["inputs"], run["decoded"])]
+    b = [p for i, p in enumerate(ps) if disp[i] == "B"]
+    ip = [p for i, p in enumerate(ps) if disp[i] != "B"]
+    return {"types": types, "psnr": ps, "mean_ip": float(np.mean(ip)),
+            "mean_b": float(np.mean(b))}
+
+
+def write_options_goldens(run: dict) -> dict:
+    summ = options_summary(run)
+    pk = run["packets"]
+    check = "".join(vop_type(p.data) for p in pk)
+    assert check == summ["types"], (check, summ["types"])
+    assert len(run["decoded"]) == len(run["inputs"]) == len(pk)
+    y, u, v = run["inputs"][0]
+    np.savez_compressed(
+        OPTIONS_OUT, vop_types=np.array(summ["types"]),
+        pts=np.array([p.pts for p in pk], np.int32),
+        dts=np.array([p.dts for p in pk], np.int32),
+        qscale=np.array([q for _, _, q in run["vops"]], np.int32),
+        decoded_psnr_db=np.array(summ["psnr"], np.float64),
+        y_sample=y[OFF::RS], u_sample=u[OFF::RS], v_sample=v[OFF::RS],
+        sample=np.array([OFF, RS], np.int32))
+    print(f"options: {len(pk)} packets {summ['types']}, decoded PSNR I/P "
+          f"{summ['mean_ip']:.4f} dB, B {summ['mean_b']:.4f} dB; wrote "
+          f"{OPTIONS_OUT}: {os.path.getsize(OPTIONS_OUT)} bytes")
+    return summ
+
+
+def calibrate(jrun: dict, jsumm: dict) -> None:
+    """The port's options transcode on the CPU against the JAX
+    package's run."""
+    from librempeg_tpu_torch.codecs.mpeg4 import encoder as TE
+    from librempeg_tpu_torch.sched import pipeline as TP
+
+    t0 = time.perf_counter()
+    trun = options_transcode(TP, TE, device="cpu")
+    tsumm = options_summary(trun)
+    print(f"port options transcode on the CPU: "
+          f"{time.perf_counter() - t0:.1f} s")
+    a = np.concatenate([p.ravel() for p in jrun["inputs"][0]])
+    b = np.concatenate([p.ravel() for p in trun["inputs"][0]])
+    d = np.abs(a.astype(np.int32) - b)
+    rows = [np.concatenate([p[OFF::RS].ravel() for p in r["inputs"][0]])
+            for r in (jrun, trun)]
+    print(f"first yuvj420p frame: {np.count_nonzero(d) / d.size:.6f} of "
+          f"samples differ (max |d| {d.max()}), PSNR "
+          f"{psnr([a], [b]):.2f} dB, stored rows "
+          f"{psnr([rows[0]], [rows[1]]):.2f} dB")
+    print(f"VOP types equal: {tsumm['types'] == jsumm['types']} "
+          f"({tsumm['types']})")
+    print(f"decoded PSNR I/P mean: port {tsumm['mean_ip']:.4f} dB, JAX "
+          f"{jsumm['mean_ip']:.4f} dB; B mean: port {tsumm['mean_b']:.4f}"
+          f" dB, JAX {jsumm['mean_b']:.4f} dB")
+    print("quantisers equal:", [q for *_, q in trun["vops"]]
+          == [q for *_, q in jrun["vops"]])
+    print("pts and dts equal:", [(p.pts, p.dts) for p in trun["packets"]]
+          == [(p.pts, p.dts) for p in jrun["packets"]])
+
+
+def check_port() -> bool:
+    """The port's options transcode on the CPU against the stored
+    goldens; True where it passes chip_smoke.py's options checks."""
+    from librempeg_tpu_torch.codecs.mpeg4 import encoder as TE
+    from librempeg_tpu_torch.sched import pipeline as TP
+
+    gold = np.load(OPTIONS_OUT)
+    t0 = time.perf_counter()
+    trun = options_transcode(TP, TE, device="cpu")
+    ts = options_summary(trun)
+    print(f"port options transcode on the CPU: "
+          f"{time.perf_counter() - t0:.1f} s")
+    disp = {d: "IPB"[t] for t, d, _ in trun["vops"]}
+    gp = gold["decoded_psnr_db"]
+    gmean = {k: float(np.mean([gp[i] for i in range(len(gp))
+                               if (disp[i] == "B") == (k == "b")]))
+             for k in ("ip", "b")}
+    qs = [int(q) for *_, q in trun["vops"]]
+    first_q = next((i for i, (a, b) in enumerate(zip(qs, gold["qscale"]))
+                    if a != b), None)
+    gaps = {"ip": ts["mean_ip"] - gmean["ip"], "b": ts["mean_b"] - gmean["b"]}
+    ok = (ts["types"] == str(gold["vop_types"]) and first_q is None
+          and all(abs(g) <= OPTIONS_PSNR_TOL_DB for g in gaps.values()))
+    print(f"VOP types equal: {ts['types'] == str(gold['vop_types'])}; first "
+          f"VOP whose quantiser differs: {first_q}; decoded PSNR I/P mean "
+          f"{ts['mean_ip']:.4f} dB (JAX {gmean['ip']:.4f}, gap "
+          f"{gaps['ip']:+.4f}), B mean {ts['mean_b']:.4f} dB (JAX "
+          f"{gmean['b']:.4f}, gap {gaps['b']:+.4f}); limit "
+          f"{OPTIONS_PSNR_TOL_DB} dB: {'pass' if ok else 'FAIL'}")
+    return ok
+
+
+def main(argv) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--calibrate", action="store_true",
+                    help="also run the port's options transcode on the CPU "
+                    "and print its agreement")
+    ap.add_argument("--check-port", action="store_true",
+                    help="only run the port's options transcode on the "
+                    "CPU against the stored goldens; write nothing")
+    args = ap.parse_args(argv)
+    if args.check_port:
+        sys.exit(0 if check_port() else 1)
     os.makedirs(OUT, exist_ok=True)
     md5s = decode_md5s(ASSET)
     with open(os.path.join(OUT, "bench_1080p_frames.md5"), "w") as f:
@@ -140,7 +343,13 @@ def main() -> None:
         json.dump(tc, f, indent=1)
     print(f"transcode: {tc['packets']} packets, mean recon PSNR "
           f"{tc['mean_recon_psnr_db']:.4f} dB")
+    t0 = time.perf_counter()
+    run = options_transcode(JP, ME)
+    print(f"options transcode (JAX, CPU): {time.perf_counter() - t0:.1f} s")
+    summ = write_options_goldens(run)
+    if args.calibrate:
+        calibrate(run, summ)
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:])

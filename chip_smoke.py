@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--profile DIR]
 
-It drives three paths and eight kernels. Phases, in order; any failure
+It drives four paths and nine kernels. Phases, in order; any failure
 raises and the script exits non-zero:
 
 1. device: the card's name and power limit (nvidia-smi);
@@ -50,7 +50,22 @@ raises and the script exits non-zero:
    each, hpel once per P-VOP and the per-MB forms never. A second,
    unhooked run gives the rate and stage split; the checked run times
    each B-VOP device pass and each trellis frame (one lattice call);
-7. kernel leg: parallel.transcode_step as bench.py's kernel leg runs it
+7. audio: the audio transcode (-ar 48000 -c:a aac -b:a 128k) of 10 s of
+   testgen.audio_mix at 44.1 kHz stereo s16 written as a WAV, held to
+   tests/data/torch_port/audio_aac.npz (audio_transcode_checks): the
+   WAV's md5, the resampler alone (-c:a pcm_s16le: length exact, the
+   golden's sampled windows), the AAC packets' pts exact, every ADTS
+   header valid, the bytes and the port's decoded SNR within limits of
+   the JAX package's, and -ac 1 on 2 s (mono, the rematrix within 1
+   LSB). The noise shaper's kernel (shape_scan) is held bit-exact to its
+   plain version on the resampled clip with both shapers, in two chunks,
+   then launches once per WAV packet of -af aresample=48000:
+   dither_method=lipshitz -c:a pcm_s16le over the whole clip, every
+   launch replayed bit-exact through the plain version; the phase
+   prints the stage split, the realtime factor,
+   the MDCT's device time apart from the host quantiser, and its wall
+   time;
+8. kernel leg: parallel.transcode_step as bench.py's kernel leg runs it
    (8 testgen frames 1920x1088 -> 1280x720, qscale 4, 4 chained steps),
    held to the JAX package's goldens (tests/data/torch_port/
    kernel_leg.npz); fsearch must launch once per step; then one warm
@@ -116,6 +131,10 @@ KERNELS = {
     "residual": ("librempeg_tpu_torch/csrc/residual.cu",
                  "librempeg_tpu/codecs/h264/residual_pallas.py:257", "6",
                  "kernel phase (no path runs it)"),
+    # a lax.scan in the JAX package, not a Pallas kernel
+    "shape_scan": ("librempeg_tpu_torch/csrc/shape_scan.cu",
+                   "librempeg_tpu/resample/dither.py:47", "7",
+                   "audio (aresample=48000:dither_method=lipshitz)"),
 }
 E2E_KERNELS = tuple(n for n, k in KERNELS.items() if k[3] == "e2e")
 
@@ -159,6 +178,34 @@ RANGE_PSNR_FLOOR_DB = 50.0
 # a bidirectional prediction rounded down reads +0.0038 and -0.0075 with
 # every quantiser equal, and only the CPU tests catch it (PERF.md)
 OPTIONS_PSNR_TOL_DB = 0.02
+
+# the audio path (cli: -i in.wav -ar 48000 -c:a aac -b:a 128k out.aac):
+# AUDIO_SECONDS of testgen.audio_mix at 44.1 kHz stereo s16, held to
+# tests/data/torch_port/audio_aac.npz (tools/torch_port_goldens.py
+# --audio); the WAV demuxer's packets hold AUDIO_CHUNK samples
+AUDIO_IN_RATE, AUDIO_OUT_RATE = 44100, 48000
+AUDIO_SECONDS, AUDIO_AC_SECONDS = 10, 2
+AUDIO_BIT_RATE = 128_000
+AUDIO_CHUNK = 1024
+AUDIO_WIN = 1024           # samples per stored window of the resampled s16
+SCAN_N = 4096              # samples per channel of the shape_scan check
+# Limits, from the port on a CPU against the goldens
+# (tools/torch_port_goldens.py --audio --calibrate / --check-port) and
+# faults planted in copies (PERF.md section 6). Resampled s16
+# windows: the CPU port differs on 0 samples; a Kaiser beta of 8.5 in
+# place of 9 on 3.6% (max |d| 5); the card's GEMM sums in another order,
+# which flips about 2e-4 of samples on a CPU at other call sizes. AAC
+# bytes: the CPU port's equal the golden's; the rate control holds them
+# within 0.005% under both planted faults, so this limit catches only a
+# wrong rate. Decoded SNR: the CPU port reads +0.0059 dB; an AAC rate
+# loop accepting 0.8-1.2 of the budget in place of 0.85-1.1 reads
+# -0.0428, a psy SMR of 28 dB in place of 29 reads -0.1514.
+AUDIO_RS_SHARE = 2e-3
+AUDIO_BYTES_TOL = 5e-3
+AUDIO_SNR_TOL_DB = 0.03
+# cycles of one dependent float operation on the SM (the shortest
+# pipeline latency): the shape_scan kernel's bound is its serial chain
+DEP_OP_CYCLES = 4
 
 
 def log(msg: str) -> None:
@@ -316,7 +363,8 @@ def max_abs_err(got, want) -> float:
     err = 0.0
     for a, b in zip(got, want):
         check(a.shape == b.shape and a.dtype == b.dtype, (a.shape, b.shape))
-        err = max(err, float((a.double() - b.double()).abs().max()))
+        if a.numel():
+            err = max(err, float((a.double() - b.double()).abs().max()))
     return err
 
 
@@ -1118,6 +1166,344 @@ def options_phase(dev, out_avi: str) -> dict:
             "trellis_frames": len(rd_ms), "decode_check_s": decode_s}
 
 
+# -- the audio path ----------------------------------------------------------
+
+def sync(dev) -> None:
+    """Wait for the card (nothing to wait for on the CPU)."""
+    import torch
+
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def write_audio_wav(path: str, seconds: int):
+    """testgen.audio_mix at 44.1 kHz stereo as s16, written as a WAV by
+    the port's muxer; returns the [2, n] int16 samples."""
+    import numpy as np
+
+    from librempeg_tpu_torch.core.packet import Packet
+    from librempeg_tpu_torch.formats import api as FA
+    from librempeg_tpu_torch.utils import testgen
+
+    x = testgen.s16(testgen.audio_mix(AUDIO_IN_RATE, AUDIO_IN_RATE * seconds))
+    mux = FA.open_output(path)
+    mux.add_stream(FA.CodecParameters(
+        codec_type="audio", codec_id="pcm_s16le", sample_rate=AUDIO_IN_RATE,
+        nb_channels=2))
+    mux.write(Packet(data=np.ascontiguousarray(x.T).tobytes(), pts=0))
+    mux.close()
+    return x
+
+
+def read_wav(path: str):
+    """(rate, [channels, n] int16) of a pcm_s16le WAV."""
+    import numpy as np
+
+    from librempeg_tpu_torch.formats.api import open_input
+
+    d = open_input(path)
+    par = d.streams[0].codecpar
+    check(par.codec_id == "pcm_s16le", par.codec_id)
+    raw = b"".join(bytes(p.data) for p in d.packets())
+    d.close()
+    return par.sample_rate, np.frombuffer(raw, "<i2").reshape(
+        -1, par.nb_channels).T
+
+
+def adts_lengths(data: bytes) -> list[int]:
+    """The frame lengths of an ADTS stream, each header checked: sync
+    word, AAC LC, rate index 3 (48 kHz), channel configuration 2, and
+    lengths that add up to the stream."""
+    out, pos = [], 0
+    while pos < len(data):
+        h = data[pos:pos + 7]
+        ln = (h[3] & 3) << 11 | h[4] << 3 | h[5] >> 5 if len(h) == 7 else 0
+        check(len(h) == 7 and h[0] == 0xFF and h[1] & 0xF6 == 0xF0
+              and h[2] >> 6 == 1 and (h[2] >> 2) & 0xF == 3
+              and ((h[2] & 1) << 2 | h[3] >> 6) == 2
+              and 7 < ln <= len(data) - pos,
+              f"ADTS header at byte {pos}: {h.hex()}")
+        out.append(ln)
+        pos += ln
+    return out
+
+
+def snr_db(ref_s16, decoded) -> float:
+    """SNR (dB) of decoded AAC samples (one 1024-sample frame late, the
+    MDCT overlap) against the s16 input the encoder took."""
+    import numpy as np
+
+    ref = np.asarray(ref_s16, np.float64) / 32768.0
+    y = np.asarray(decoded, np.float64)[:, 1024:1024 + ref.shape[1]]
+    e = ref[:, :y.shape[1]] - y
+    return float(10 * np.log10((ref ** 2).sum() / (e ** 2).sum()))
+
+
+def audio_run(dev, wav: str, out: str, **smap) -> dict:
+    """One audio transcode of `wav` through Transcoder, with the packets
+    the muxer receives recorded as (pts, dts, bytes) and the stage split
+    (reset before the run)."""
+    from librempeg_tpu_torch.sched.pipeline import (
+        StreamMap,
+        TranscodeSpec,
+        Transcoder,
+    )
+    from librempeg_tpu_torch.utils import stagetimer
+
+    tc = Transcoder(TranscodeSpec(input_url=wav, output_url=out, device=dev,
+                                  audio=StreamMap(**smap)))
+    pk = []
+    write = tc.mux.write
+
+    def rec(p):
+        pk.append((p.pts, p.dts, len(p.data)))
+        write(p)
+
+    tc.mux.write = rec
+    stagetimer.reset()
+    sync(dev)
+    t0 = time.perf_counter()
+    stats = tc.run()
+    sync(dev)
+    return {"wall_s": time.perf_counter() - t0, "packets": pk,
+            "frames": stats["frames"],
+            "split_s": {k: v["s"] for k, v in stagetimer.report().items()}}
+
+
+def audio_transcode_checks(dev, td: str, gold) -> dict:
+    """The audio path's checks against the JAX package's goldens (also
+    run on the CPU by tools/torch_port_goldens.py --audio --check-port):
+    the 10 s WAV -> -ar 48000 -c:a pcm_s16le (the resampler alone: length
+    exact, the golden's sampled windows within AUDIO_RS_SHARE and 1
+    LSB), -> -ar 48000 -c:a aac -b:a 128k (packets and pts exact, ADTS
+    headers valid, bytes within AUDIO_BYTES_TOL, the port's decoder on
+    the card within AUDIO_SNR_TOL_DB of the golden's SNR, each against
+    its own package's resampled input), and 2 s at -ac 1 (mono, equal to
+    build_matrix(stereo, mono) applied to the input within 1 LSB)."""
+    import numpy as np
+    import torch
+
+    from librempeg_tpu_torch.codecs.aac.decoder import AacDecoder
+    from librempeg_tpu_torch.core.samplefmt import MONO, STEREO
+    from librempeg_tpu_torch.formats.api import open_input
+    from librempeg_tpu_torch.resample.rematrix import build_matrix
+
+    wav = os.path.join(td, "in.wav")
+    x = write_audio_wav(wav, AUDIO_SECONDS)
+    md5 = hashlib.md5(open(wav, "rb").read()).hexdigest()
+    check(md5 == str(gold["wav_md5"]), f"input WAV md5 {md5}")
+
+    # the resampler alone
+    rs_path = os.path.join(td, "rs.wav")
+    rs_run = audio_run(dev, wav, rs_path, codec="pcm_s16le",
+                       sample_rate=AUDIO_OUT_RATE)
+    rate, rs = read_wav(rs_path)
+    check(rate == AUDIO_OUT_RATE and rs.shape == (2, int(gold["rs_len"])),
+          f"resampled WAV {rate} Hz {rs.shape}, golden {gold['rs_len']}")
+    win = np.stack([rs[:, s:s + AUDIO_WIN] for s in gold["rs_win_starts"]])
+    d = np.abs(win.astype(np.int32) - gold["rs_windows"])
+    rs_share = np.count_nonzero(d) / d.size
+    check(rs_share <= AUDIO_RS_SHARE and d.max() <= 1,
+          f"resampled s16 windows: {rs_share} of samples differ from the "
+          f"JAX package's, max |d| {d.max()}")
+
+    # the transcode
+    aac_path = os.path.join(td, "out.aac")
+    run = audio_run(dev, wav, aac_path, codec="aac",
+                    sample_rate=AUDIO_OUT_RATE,
+                    codec_opts={"bit_rate": AUDIO_BIT_RATE})
+    data = open(aac_path, "rb").read()
+    lens = adts_lengths(data)
+    pts = [p for p, _, _ in run["packets"]]
+    check(len(lens) == len(pts) == len(gold["aac_pts"]),
+          f"{len(lens)} ADTS frames, {len(pts)} packets, golden "
+          f"{len(gold['aac_pts'])}")
+    check(pts == [int(p) for p in gold["aac_pts"]]
+          and all(p == t for p, t, _ in run["packets"]),
+          "packet pts/dts differ from the JAX package's")
+    check(lens == [n for _, _, n in run["packets"]], "ADTS lengths")
+    gbytes = int(gold["aac_bytes"])
+    check(abs(len(data) - gbytes) <= AUDIO_BYTES_TOL * gbytes,
+          f"{len(data)} AAC bytes, golden {gbytes}")
+    t0 = time.perf_counter()
+    demux = open_input(aac_path)
+    dec = AacDecoder(demux.streams[0].codecpar, device=dev)
+    decoded = torch.cat([dec.decode(p)[0].data for p in demux.packets()], 1)
+    decoded = decoded.cpu().numpy()
+    demux.close()
+    decode_s = time.perf_counter() - t0
+    check(np.isfinite(decoded).all() and decoded.shape[0] == 2,
+          decoded.shape)
+    snr = snr_db(rs, decoded)
+    gsnr = float(gold["aac_snr_db"])
+    check(abs(snr - gsnr) <= AUDIO_SNR_TOL_DB,
+          f"decoded SNR {snr} dB, golden {gsnr}")
+
+    # -ac 1
+    wav2 = os.path.join(td, "in2.wav")
+    x2 = write_audio_wav(wav2, AUDIO_AC_SECONDS)
+    mono_path = os.path.join(td, "mono.wav")
+    audio_run(dev, wav2, mono_path, codec="pcm_s16le", channels=1)
+    rate, mono = read_wav(mono_path)
+    want = build_matrix(STEREO, MONO).astype(np.float64) @ x2
+    ac_err = float(np.abs(mono - want).max())
+    check(rate == AUDIO_IN_RATE and mono.shape == (1, x2.shape[1])
+          and ac_err <= 1.0, f"-ac 1: {rate} Hz {mono.shape}, max |d| "
+          f"{ac_err} LSB")
+    return {"x": x, "rs": rs, "rs_share_differ": rs_share,
+            "rs_wall_s": rs_run["wall_s"], "packets": len(pts),
+            "aac_bytes": len(data), "golden_aac_bytes": gbytes,
+            "snr_db": snr, "golden_snr_db": gsnr, "decode_check_s": decode_s,
+            "ac_max_err_lsb": ac_err, "wall_s": run["wall_s"],
+            "split_s": run["split_s"]}
+
+
+def sm_clock_hz() -> float:
+    """The card's highest SM clock (nvidia-smi clocks.max.sm)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout
+    return float(out.split()[0]) * 1e6
+
+
+def audio_phase(dev) -> dict:
+    """The audio path on the card: the shape_scan kernel against its
+    plain version, the transcode checks (audio_transcode_checks), the
+    kernel on the path (the 10 s clip through aresample with a noise
+    shaper to s16), and the times."""
+    import numpy as np
+    import torch
+
+    from librempeg_tpu_torch import kernels
+    from librempeg_tpu_torch.ops import tx
+    from librempeg_tpu_torch.resample import dither as RD
+    from librempeg_tpu_torch.resample.resampler import Resampler
+
+    t_phase = time.perf_counter()
+    gold = np.load(os.path.join(GOLD, "audio_aac.npz"))
+    with tempfile.TemporaryDirectory() as td:
+        res = audio_transcode_checks(dev, td, gold)
+    x = torch.from_numpy(res.pop("x")).to(dev)
+    rs = res.pop("rs")
+
+    # the kernel against its plain version: the resampled clip in LSB
+    # units and the ditherer's noise, in two chunks carried through the
+    # returned history
+    r = Resampler(AUDIO_IN_RATE, AUDIO_OUT_RATE, 2, device=dev)
+    xl = (r.process(x[:, :4000].float() / 32768.0) * 32768.0)[:, :SCAN_N]
+    xl = xl.contiguous()
+    check(xl.shape == (2, SCAN_N), xl.shape)
+    noise = torch.from_numpy(RD.Ditherer("lipshitz")._noise(
+        (2, SCAN_N))).to(dev)
+    err = 0.0
+    for method, cs in sorted(RD._SHAPER_COEFS.items()):
+        coefs = torch.tensor(cs, dtype=torch.float32, device=dev)
+        e0 = torch.zeros((len(cs), 2), dtype=torch.float32, device=dev)
+        outs = {}
+        for name, fn in (("kernel", RD.shape_scan),
+                         ("plain", RD.shape_scan_plain)):
+            y1, h1 = fn(xl[:, :2000], noise[:, :2000], coefs, e0)
+            y2, h2 = fn(xl[:, 2000:], noise[:, 2000:], coefs, h1)
+            outs[name] = (torch.cat([y1, y2], 1), h2)
+        sync(dev)
+        e = max_abs_err(outs["kernel"], outs["plain"])
+        check(e == 0, f"shape_scan ({method}) differs from its plain "
+              f"version: {e}")
+        err = max(err, e)
+
+    # the kernel on the path: the CLI's -af aresample=48000:
+    # dither_method=lipshitz -c:a pcm_s16le over the clip, one convert
+    # (one launch) per WAV packet. Every launch is recorded (its inputs
+    # and outputs are fresh tensors that nothing writes afterwards) and
+    # replayed through the plain version below, bit-exact.
+    calls = []
+    kernel = RD.shape_scan
+
+    def recorded(*a):
+        out = kernel(*a)
+        calls.append((a, out))
+        return out
+
+    with tempfile.TemporaryDirectory() as td:
+        wav = os.path.join(td, "in.wav")
+        write_audio_wav(wav, AUDIO_SECONDS)
+        out = os.path.join(td, "dither.wav")
+        RD.shape_scan = recorded
+        kernels.reset_counts()
+        try:
+            drun = audio_run(dev, wav, out, codec="pcm_s16le",
+                             filters=f"aresample={AUDIO_OUT_RATE}:"
+                                     "dither_method=lipshitz")
+        finally:
+            RD.shape_scan = kernel
+        launches = kernels.counts()["shape_scan"]
+        rate, yd = read_wav(out)
+    n_packets = -(-AUDIO_SECONDS * AUDIO_IN_RATE // AUDIO_CHUNK)
+    check(launches == len(calls) == n_packets,
+          f"shape_scan launches {launches}, {len(calls)} calls, for "
+          f"{n_packets} WAV packets")
+    check(rate == AUDIO_OUT_RATE and yd.shape == rs.shape,
+          f"dithered WAV {rate} Hz {yd.shape}, undithered {rs.shape}")
+    # the plain version on the same inputs, the calls of one length
+    # stacked along the channels
+    replay_err = 0.0
+    for n in sorted({a[0].shape[1] for a, _ in calls}):
+        group = [(a, o) for a, o in calls if a[0].shape[1] == n]
+        want = RD.shape_scan_plain(torch.cat([a[0] for a, _ in group]),
+                                   torch.cat([a[1] for a, _ in group]),
+                                   group[0][0][2],
+                                   torch.cat([a[3] for a, _ in group], 1))
+        got = (torch.cat([o[0] for _, o in group], 0),
+               torch.cat([o[1] for _, o in group], 1))
+        sync(dev)
+        e = max_abs_err(got, want)
+        check(e == 0, f"shape_scan on the path ({len(group)} calls of "
+              f"{n} samples) differs from its plain version: {e}")
+        replay_err = max(replay_err, e)
+    d = yd.astype(np.float64) - rs
+    d_snr = float(10 * np.log10((rs.astype(np.float64) ** 2).sum()
+                                / (d ** 2).sum()))
+    check(d_snr > 55.0, f"dithered path: SNR {d_snr} dB against the "
+          f"undithered resampler")
+
+    # times on the inputs of one convert of the path
+    args = calls[len(calls) // 2][0]
+    n = args[0].shape[1]
+    k = args[2].shape[0]
+    chain_ops = k + 4
+    lat_ms = n * chain_ops * DEP_OP_CYCLES / sm_clock_hz() * 1e3
+    byte_ms = nbytes(*args, args[0], args[3]) / HBM_BYTES_S * 1e3
+    kern = {
+        "max_abs_err": max(err, replay_err), "launches": launches,
+        **timed(lambda: RD.shape_scan(*args)),
+        "plain_ms": median_ms(lambda: RD.shape_scan_plain(*args), runs=3,
+                              warm=1),
+        "bound_ms": max(lat_ms, byte_ms),
+        "bound_by": "operations" if lat_ms >= byte_ms else "bytes",
+        "bound_note": f"a serial chain: {n} steps of {chain_ops} dependent "
+                      f"operations at {DEP_OP_CYCLES} cycles each and the "
+                      f"highest SM clock; the bytes take {byte_ms:.6f} ms",
+        "library_ms": None,
+        "library_note": "no single PyTorch call computes an error-feedback "
+                        "quantiser",
+        "shape": f"2 channels x {n} samples (a convert of the path), "
+                 f"K={k}; bit-exact on all {launches} launches of the path "
+                 f"and at 2 x {SCAN_N} in two chunks, both shapers"}
+    w = torch.randn(2, 2048, device=dev)
+    mdct_ms = device_ms(lambda: tx.mdct(w))
+    split = res["split_s"]
+    n_frames = res["packets"]
+    res.update({
+        "kernel": kern, "dither_path_s": drun["wall_s"], "dither_snr_db": d_snr,
+        "realtime_factor": AUDIO_SECONDS / res["wall_s"],
+        "mdct_device_ms": mdct_ms,
+        "mdct_stage_ms_per_frame": split.get("aac.mdct", 0) / n_frames * 1e3,
+        "quant_ms_per_frame": split.get("aac.quant", 0) / n_frames * 1e3,
+        "phase_s": time.perf_counter() - t_phase})
+    return res
+
+
 def main(argv: list[str]) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch "
                                  "port on one NVIDIA card.")
@@ -1217,6 +1603,31 @@ def main(argv: list[str]) -> int:
         f"{o['decode_check_s']:.2f} s")
     log("options split: " + json.dumps(o["split_s"]))
 
+    a = audio_phase(dev)
+    kres["shape_scan"] = a["kernel"]
+    kr = a["kernel"]
+    log(f"audio: {a['packets']} AAC packets, pts and ADTS headers ok, "
+        f"{a['aac_bytes']} bytes (JAX {a['golden_aac_bytes']}), decoded SNR "
+        f"{a['snr_db']:.4f} dB (JAX {a['golden_snr_db']:.4f}); resampler "
+        f"alone: {a['rs_share_differ']:.6f} of the sampled s16 windows "
+        f"differ from the JAX package's; -ac 1 within "
+        f"{a['ac_max_err_lsb']:.3f} LSB")
+    log(f"audio: transcode {a['wall_s']:.3f} s for {AUDIO_SECONDS} s, "
+        f"realtime factor {a['realtime_factor']:.2f}; resampler alone "
+        f"{a['rs_wall_s']:.3f} s; decode check {a['decode_check_s']:.3f} s")
+    log("audio split: " + json.dumps(a["split_s"]))
+    log(f"audio: MDCT [2, 2048] device {a['mdct_device_ms']:.4f} ms; per "
+        f"frame aac.mdct stage (launch and fetch) "
+        f"{a['mdct_stage_ms_per_frame']:.3f} ms, host quantiser "
+        f"{a['quant_ms_per_frame']:.3f} ms")
+    log(f"kernel shape_scan: bit-exact, device {kr['device_ms']:.4f} ms, "
+        f"wall {kr['ms']:.3f} ms vs plain {kr['plain_ms']:.3f} ms, bound "
+        f"{kr['bound_ms']:.4f} ms by {kr['bound_by']} ({kr['bound_note']}; "
+        f"{kr['shape']}); {kr['launches']} launches over the dithered "
+        f"path ({a['dither_path_s']:.3f} s, SNR {a['dither_snr_db']:.2f} dB "
+        f"against the undithered path)")
+    log(f"audio phase: {a['phase_s']:.1f} s")
+
     k = kernel_leg_phase(dev, leg, profile_dir)
     log(f"kernel leg: {LEG_BATCH}x{LEG_H}x{LEG_W} -> {LEG_DH}x{LEG_DW}, "
         f"{LEG_ITERS} chained steps; launches {k['launches']}; MVs equal "
@@ -1231,7 +1642,7 @@ def main(argv: list[str]) -> int:
 
     launches = {n: s["launches"][n] for n in E2E_KERNELS}
     launches["fsearch"] = k["launches"]["fsearch"]
-    for n in ("hpel_luma", "hpel_chroma", "residual"):
+    for n in ("hpel_luma", "hpel_chroma", "residual", "shape_scan"):
         launches[n] = kres[n]["launches"]
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0],

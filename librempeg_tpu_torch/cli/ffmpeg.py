@@ -1,16 +1,32 @@
-"""ffmpeg-style command line for the port's transcode slice.
+"""ffmpeg-style command line for the port's transcode slices.
 
 A thin wrapper over sched.pipeline.Transcoder that accepts only the
-options the slice implements:
+options the slices implement:
 
-    python -m librempeg_tpu_torch.cli.ffmpeg -i IN.264
-        [-s WxH | -vf scale=W:H[,format=F]] [-pix_fmt F] -c:v mpeg4
-        [-b:v N | -q:v N] [-g N] [-bf N] [-trellis N]
-        [-frames:v N] [-device cuda|cpu] [-y] OUT.avi
+    python -m librempeg_tpu_torch.cli.ffmpeg -i IN
+        [-s WxH | -vf scale=W:H[,format=F]] [-pix_fmt F] [-c:v mpeg4]
+        [-b:v N | -q:v N] [-g N] [-bf N] [-trellis N] [-frames:v N]
+        [-c:a aac|pcm_s16le] [-b:a N] [-ar RATE] [-ac N] [-af CHAIN]
+        [-frames:a N] [-vn] [-an] [-device cuda|cpu] [-y] OUT
 
--pix_fmt appends format=F after the scale (e.g. yuvj420p, a range
-change); -bf sets the B-VOPs between anchors (0-4) and -trellis the RD
-quantisation of I/P-VOPs (0-2).
+Video (H.264 in, MPEG-4 in AVI out): -pix_fmt appends format=F after the
+scale (e.g. yuvj420p, a range change); -bf sets the B-VOPs between
+anchors (0-4) and -trellis the RD quantisation of I/P-VOPs (0-2).
+
+Audio (PCM WAV or ADTS AAC in; AAC in ADTS, or s16 PCM in WAV or AVI,
+out): -ar appends aresample=RATE to the -af chain, -ac appends
+aformat=channel_layouts=<the default layout of N channels> when N
+differs from the input; -b:a is the AAC bit rate (0 or absent: constant
+quality). The audio codec defaults to pcm_s16le. -vn and -an drop the
+video or audio streams. -af aresample=RATE:dither_method=M (rectangular,
+triangular, triangular_hp, or the noise shapers lipshitz and f_weighted)
+dithers where the resampled samples return to an integer format, as
+from a 16-bit WAV to pcm_s16le. For example
+
+    python -m librempeg_tpu_torch.cli.ffmpeg -i in.wav -ar 48000 \
+        -c:a aac -b:a 128k -y out.aac
+    python -m librempeg_tpu_torch.cli.ffmpeg -i in.wav \
+        -af aresample=48000:dither_method=lipshitz -c:a pcm_s16le -y out.wav
 
 -device defaults to cuda; without a card the run fails rather than
 moving to the CPU.
@@ -42,6 +58,7 @@ def _int(s: str) -> int:
 
 def parse_args(argv: list[str]) -> tuple[TranscodeSpec, bool]:
     smap = StreamMap(codec="mpeg4")
+    audio = StreamMap(codec="pcm_s16le")
     kw: dict = {"input_url": None, "output_url": None}
     overwrite = False
     i = 0
@@ -49,6 +66,10 @@ def parse_args(argv: list[str]) -> tuple[TranscodeSpec, bool]:
         a = argv[i]
         if a in ("-y", "-n"):
             overwrite = a == "-y"
+            i += 1
+            continue
+        if a in ("-vn", "-an"):
+            kw["no_video" if a == "-vn" else "no_audio"] = True
             i += 1
             continue
         if not a.startswith("-") or a == "-":
@@ -84,15 +105,27 @@ def parse_args(argv: list[str]) -> tuple[TranscodeSpec, bool]:
             smap.codec_opts["qscale"] = int(v)
         elif a in ("-frames:v", "-vframes"):
             smap.frames_limit = int(v)
+        elif a in ("-c:a", "-acodec", "-codec:a"):
+            audio.codec = v
+        elif a == "-b:a":
+            audio.codec_opts["bit_rate"] = _int(v)
+        elif a == "-ar":
+            audio.sample_rate = int(v)
+        elif a in ("-ac", "-channels"):
+            audio.channels = int(v)
+        elif a in ("-af", "-filter:a"):
+            audio.filters = v
+        elif a in ("-frames:a", "-aframes"):
+            audio.frames_limit = int(v)
         elif a == "-device":
             kw["device"] = v
         else:
             raise CliError(f"option {a} is not supported by the port")
     if not kw["input_url"] or not kw["output_url"]:
-        raise CliError("usage: -i INPUT [options] OUTPUT.avi")
+        raise CliError("usage: -i INPUT [options] OUTPUT")
     if smap.codec != "mpeg4":
         raise CliError(f"-c:v {smap.codec}: the port encodes mpeg4 only")
-    return TranscodeSpec(video=smap, **kw), overwrite
+    return TranscodeSpec(video=smap, audio=audio, **kw), overwrite
 
 
 def main(argv: list[str] | None = None) -> int:

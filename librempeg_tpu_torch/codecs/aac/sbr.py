@@ -1,0 +1,1136 @@
+"""HE-AAC v1 Spectral Band Replication decoder.
+
+Copy of the decoder half of librempeg_tpu/codecs/aac/sbr.py (no
+framework code), so the port's AAC decoder imports whole; the payload
+writer and the HE-AAC stream generator, which drive the JAX package's
+AAC encoder, are not carried.
+
+Implements ISO/IEC 14496-3 §4.6.18: QMF analysis/synthesis banks,
+master/derived frequency band tables, HF generation with LPC inverse
+filtering and chirp factors, envelope/noise dequantization, gain
+calculation with limiter, and HF assembly with noise/sinusoid
+injection.  The float pipeline mirrors the reference float decoder
+(libavcodec/aacsbr.c, aacsbr_template.c, sbrdsp_template.c) so output
+matches it to float precision.
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+
+from librempeg_tpu_torch.codecs.aac import sbr_tables as ST
+from librempeg_tpu_torch.codecs.flac.bitio import BitReaderMSB
+from librempeg_tpu_torch.core.errors import InvalidData
+
+# VLC ids (aacsbr.h:44 order)
+T_ENV_15, F_ENV_15, T_BAL_15, F_BAL_15, T_ENV_30, F_ENV_30, \
+    T_BAL_30, F_BAL_30, T_NOISE_30, T_NOISE_BAL_30 = range(10)
+
+FIXFIX, FIXVAR, VARFIX, VARVAR = range(4)
+_CEIL_LOG2 = (0, 1, 2, 2, 3, 3)
+
+
+def _build_vlcs():
+    """Canonical code assignment identical to vlc.c
+    ff_vlc_init_from_lengths (left-aligned incrementing code)."""
+    dec = []
+    pos = 0
+    for i, n in enumerate(ST.HUFFMAN_NB_CODES):
+        off = ST.HUFFMAN_OFFSETS[i]
+        d = {}
+        code = 0                      # 32-bit left-aligned accumulator
+        for sym, length in ST.HUFFMAN_PAIRS[pos:pos + n]:
+            c = code >> (32 - length)
+            d[(length, c)] = sym + off
+            code += 1 << (32 - length)
+        dec.append(d)
+        pos += n
+    return dec
+
+
+_VLC_DEC = _build_vlcs()
+
+
+def _read_vlc(br: BitReaderMSB, table: int) -> int:
+    d = _VLC_DEC[table]
+    code = 0
+    for length in range(1, 21):
+        code = (code << 1) | br.read(1)
+        v = d.get((length, code))
+        if v is not None:
+            return v
+    raise InvalidData("sbr: bad huffman code")
+
+
+# ---------------------------------------------------------------------------
+# QMF banks: exact replicas of the reference's av_tx naive MDCT path
+# (tx_template.c:3768) + sbrdsp shuffles, as real [64,64] matrices.
+# ---------------------------------------------------------------------------
+
+def _imdct64_matrices():
+    j = np.arange(64)[None, :]
+    i = np.arange(32)[:, None]
+    ph = math.pi / 256.0
+    d = np.cos((2 * j + 1) * (127 - 2 * i) * ph)
+    u = np.cos((2 * j + 1) * (193 + 2 * i) * ph)
+    return d, u
+
+
+_MD, _MU = _imdct64_matrices()
+_WIN_DS = np.array(ST.QMF_WINDOW_DS)
+_WIN_US = np.array(ST.QMF_WINDOW_US)
+_NOISE = np.array([complex(r, im) for r, im in ST.NOISE_TABLE])
+_V_OFFS = (0, 192, 256, 448, 512, 704, 768, 960, 1024, 1216)
+
+
+def _imdct64(src: np.ndarray, scale: float) -> np.ndarray:
+    lo = scale * (_MD @ src)
+    hi = -scale * (_MU @ src)
+    return np.concatenate([lo, hi])
+
+
+def qmf_analysis(xbuf: np.ndarray, samples: np.ndarray) -> np.ndarray:
+    """32-band analysis of 1024 core samples -> W[32 slots][32] cplx.
+    xbuf is the persistent 1312-sample window (mutated)."""
+    xbuf[:288] = xbuf[1024:1312]
+    xbuf[288:] = samples
+    W = np.zeros((32, 32), np.complex128)
+    for sl in range(32):
+        # vector_fmul_reverse: z[i] = win[i] * x[pos + 319 - i]
+        z = _WIN_DS * xbuf[32 * sl:32 * sl + 320][::-1]
+        u = z.reshape(5, 64).sum(axis=0)
+        q = np.empty(64)
+        q[0] = u[0]
+        q[2:64:2] = -u[63:32:-1]
+        q[1::2] = u[1:33]
+        o = _imdct64(q, -2.0 * 32768.0)
+        k = np.arange(32)
+        W[sl] = -o[63 - k] + 1j * o[k]
+    return W
+
+
+def qmf_synthesis(state, X: np.ndarray) -> np.ndarray:
+    """64-band synthesis of X[32 slots][64] complex -> 2048 samples.
+    state carries the 2304-float v ring buffer + offset."""
+    v0, = (state.v,)
+    out = np.empty(2048)
+    for sl in range(32):
+        if state.v_off < 128:
+            saved = 1280 - 128
+            v0[2304 - saved:] = v0[:saved]
+            state.v_off = 2304 - saved - 128
+        else:
+            state.v_off -= 128
+        off = state.v_off
+        re = X[sl].real.copy()
+        im = X[sl].imag.copy()
+        im[1::2] = -im[1::2]          # neg_odd_64
+        b0 = _imdct64(re, 1.0 / (64 * 32768.0))
+        b1 = _imdct64(im, 1.0 / (64 * 32768.0))
+        i = np.arange(64)
+        v0[off + i] = b1 - b0[::-1]           # qmf_deint_bfly
+        v0[off + 127 - i] = b1 + b0[::-1]
+        acc = np.zeros(64)
+        for t, vo in enumerate(_V_OFFS):
+            acc += v0[off + vo:off + vo + 64] * \
+                _WIN_US[64 * t:64 * t + 64]
+        out[64 * sl:64 * sl + 64] = acc
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Frequency band tables (§4.6.18.3; aacsbr_template.c:274)
+# ---------------------------------------------------------------------------
+
+def _make_bands(start: int, stop: int, num: int) -> list[int]:
+    base = (stop / start) ** (1.0 / num)
+    prod = float(start)
+    prev = start
+    out = []
+    for _ in range(num - 1):
+        prod *= base
+        cur = int(np.rint(np.float32(prod)))
+        out.append(cur - prev)
+        prev = cur
+    out.append(stop - prev)
+    return out
+
+
+class SbrParams:
+    """Header spectrum parameters + derived tables."""
+
+    def __init__(self):
+        self.start_freq = -1
+        self.stop_freq = -1
+        self.xover_band = -1
+        self.freq_scale = -1
+        self.alter_scale = -1
+        self.noise_bands = -1
+
+
+def make_f_master(sample_rate: int, p: SbrParams):
+    """-> (k0, k1, k2, f_master list) or raises InvalidData."""
+    if sample_rate >= 64001:
+        idx = 5
+    elif sample_rate >= 44100:
+        idx = 4
+    elif sample_rate == 32000:
+        idx = 3
+    elif sample_rate == 24000:
+        idx = 2
+    elif sample_rate == 22050:
+        idx = 1
+    elif sample_rate == 16000:
+        idx = 0
+    else:
+        raise InvalidData(f"sbr: unsupported rate {sample_rate}")
+    temp = 3000 if sample_rate < 32000 else (
+        4000 if sample_rate < 64000 else 5000)
+    start_min = ((temp << 7) + (sample_rate >> 1)) // sample_rate
+    stop_min = ((temp << 8) + (sample_rate >> 1)) // sample_rate
+    k0 = start_min + ST.SBR_OFFSET[idx][p.start_freq]
+    if p.stop_freq < 14:
+        k2 = stop_min
+        stop_dk = sorted(_make_bands(stop_min, 64, 13))
+        for k in range(p.stop_freq):
+            k2 += stop_dk[k]
+    elif p.stop_freq == 14:
+        k2 = 2 * k0
+    else:
+        k2 = 3 * k0
+    k2 = min(64, k2)
+    max_sub = 48 if sample_rate <= 32000 else (
+        35 if sample_rate == 44100 else 32)
+    if k0 < 1 or k2 - k0 > max_sub or k2 <= k0:
+        raise InvalidData("sbr: invalid qmf subband range")
+    if not p.freq_scale:
+        dk = p.alter_scale + 1
+        n_master = ((k2 - k0 + (dk & 2)) >> dk) << 1
+        if n_master <= 0 or p.xover_band >= n_master:
+            raise InvalidData("sbr: invalid n_master")
+        f = [dk] * (n_master + 1)
+        k2diff = k2 - k0 - n_master * dk
+        if k2diff < 0:
+            f[1] -= 1
+            f[2] -= int(k2diff < -1)
+        elif k2diff:
+            f[n_master] += 1
+        f[0] = k0
+        for k in range(1, n_master + 1):
+            f[k] += f[k - 1]
+        k1 = k2
+        return k0, k1, k2, f
+    half_bands = 7 - p.freq_scale
+    if 49 * k2 > 110 * k0:
+        two_regions = True
+        k1 = 2 * k0
+    else:
+        two_regions = False
+        k1 = k2
+    num0 = int(np.rint(np.float32(
+        half_bands * math.log2(k1 / k0)))) * 2
+    if num0 <= 0:
+        raise InvalidData("sbr: invalid num_bands_0")
+    vk0 = [0] + sorted(_make_bands(k0, k1, num0))
+    if vk0[1] <= 0:
+        raise InvalidData("sbr: invalid vDk0")
+    vdk0_max = vk0[num0]
+    vk0[0] = k0
+    for k in range(1, num0 + 1):
+        if vk0[k] <= 0:
+            raise InvalidData("sbr: invalid vDk0")
+        vk0[k] += vk0[k - 1]
+    if two_regions:
+        invwarp = 0.76923076923076923077 if p.alter_scale else 1.0
+        num1 = int(np.rint(np.float32(
+            half_bands * invwarp * math.log2(k2 / k1)))) * 2
+        vk1 = [0] + _make_bands(k1, k2, num1)
+        if min(vk1[1:]) < vdk0_max:
+            vk1[1:] = sorted(vk1[1:])
+            change = min(vdk0_max - vk1[1], (vk1[num1] - vk1[1]) >> 1)
+            vk1[1] += change
+            vk1[num1] -= change
+        vk1[1:] = sorted(vk1[1:])
+        vk1[0] = k1
+        for k in range(1, num1 + 1):
+            if vk1[k] <= 0:
+                raise InvalidData("sbr: invalid vDk1")
+            vk1[k] += vk1[k - 1]
+        n_master = num0 + num1
+        if p.xover_band >= n_master:
+            raise InvalidData("sbr: xover out of range")
+        f = vk0 + vk1[1:]
+    else:
+        n_master = num0
+        if p.xover_band >= n_master:
+            raise InvalidData("sbr: xover out of range")
+        f = vk0
+    return k0, k1, k2, f
+
+
+def calc_patches(sample_rate, k0, kx, m, f_master):
+    """Patch construction (aacsbr_template.c:494)."""
+    n_master = len(f_master) - 1
+    goal_sb = ((1000 << 11) + (sample_rate >> 1)) // sample_rate
+    msb = k0
+    usb = kx
+    num_patches = 0
+    patch_num = []
+    patch_start = []
+    if goal_sb < kx + m:
+        k = 0
+        while f_master[k] < goal_sb:
+            k += 1
+    else:
+        k = n_master
+    last_k = last_msb = -1
+    sb = 0
+    while True:
+        if k == last_k and msb == last_msb:
+            raise InvalidData("sbr: patch construction failed")
+        last_k, last_msb = k, msb
+        odd = 0
+        i = k
+        while i == k or sb > (k0 - 1 + msb - odd):
+            sb = f_master[i]
+            odd = (sb + k0) & 1
+            i -= 1
+        if num_patches > 5:
+            raise InvalidData("sbr: too many patches")
+        pn = max(sb - usb, 0)
+        patch_num.append(pn)
+        patch_start.append(k0 - odd - pn)
+        if pn > 0:
+            usb = sb
+            msb = sb
+            num_patches += 1
+        else:
+            msb = kx
+            patch_num.pop()
+            patch_start.pop()
+        if f_master[k] - sb < 3:
+            k = n_master
+        if sb == kx + m:
+            break
+    if num_patches > 1 and patch_num[-1] < 3:
+        num_patches -= 1
+        patch_num.pop()
+        patch_start.pop()
+    return patch_num, patch_start
+
+
+class SbrFreqTables:
+    """f_master + derived tables (high/low/noise/lim, patches)."""
+
+    def __init__(self, sample_rate: int, p: SbrParams,
+                 limiter_bands: int):
+        self.k0, self.k1, self.k2, self.f_master = \
+            make_f_master(sample_rate, p)
+        n_master = len(self.f_master) - 1
+        self.n1 = n_master - p.xover_band
+        self.n0 = (self.n1 + 1) >> 1
+        self.f_high = self.f_master[p.xover_band:]
+        self.m = self.f_high[self.n1] - self.f_high[0]
+        self.kx = self.f_high[0]
+        if self.kx + self.m > 64 or self.kx > 32:
+            raise InvalidData("sbr: frequency borders too high")
+        odd = self.n1 & 1
+        self.f_low = [self.f_high[0]] + \
+            [self.f_high[2 * k - odd] for k in range(1, self.n0 + 1)]
+        self.n_q = max(1, int(np.rint(np.float32(
+            p.noise_bands * math.log2(self.k2 / self.kx)))))
+        if self.n_q > 5:
+            raise InvalidData("sbr: too many noise bands")
+        self.f_noise = [self.f_low[0]]
+        temp = 0
+        for k in range(1, self.n_q + 1):
+            temp += (self.n0 - temp) // (self.n_q + 1 - k)
+            self.f_noise.append(self.f_low[temp])
+        self.patch_num, self.patch_start = calc_patches(
+            sample_rate, self.k0, self.kx, self.m, self.f_master)
+        self.num_patches = len(self.patch_num)
+        self.make_f_tablelim(limiter_bands)
+
+    def make_f_tablelim(self, limiter_bands: int):
+        """aacsbr_template.c:137 merge loop, kept verbatim."""
+        if limiter_bands <= 0:
+            self.f_lim = [self.f_low[0], self.f_low[self.n0]]
+            self.n_lim = 1
+            return
+        warped = (1.32715174233856803909,
+                  1.18509277094158210129,
+                  1.11987160404675912501)[limiter_bands - 1]
+        borders = [self.kx]
+        for k in range(self.num_patches):
+            borders.append(borders[-1] + self.patch_num[k])
+        tbl = list(self.f_low)
+        if self.num_patches > 1:
+            tbl += borders[1:self.num_patches]
+        tbl.sort()
+        n_lim = self.n0 + self.num_patches - 1
+        out = 0
+        inp = 1
+        while out < n_lim:
+            if tbl[inp] >= tbl[out] * warped:
+                out += 1
+                tbl[out] = tbl[inp]
+                inp += 1
+            elif tbl[inp] == tbl[out] or tbl[inp] not in borders:
+                inp += 1
+                n_lim -= 1
+            elif tbl[out] not in borders:
+                tbl[out] = tbl[inp]
+                inp += 1
+                n_lim -= 1
+            else:
+                out += 1
+                tbl[out] = tbl[inp]
+                inp += 1
+        self.f_lim = tbl[:n_lim + 1]
+        self.n_lim = n_lim
+
+
+# ---------------------------------------------------------------------------
+# Per-channel state + bitstream data
+# ---------------------------------------------------------------------------
+
+class SbrChannel:
+    def __init__(self):
+        self.xbuf = np.zeros(1312)
+        self.v = np.zeros(2304)
+        self.v_off = 2304 - (1280 - 128)
+        self.W = np.zeros((2, 32, 32), np.complex128)
+        self.Y = np.zeros((2, 38, 64), np.complex128)
+        self.Ypos = 0
+        self.g_temp = np.zeros((42, 48))
+        self.q_temp = np.zeros((42, 48))
+        self.bw_array = np.zeros(5)
+        self.f_indexnoise = 0
+        self.f_indexsine = 0
+        # grid / coded data
+        self.bs_num_env = 0
+        self.bs_num_noise = 0
+        self.bs_freq_res = [0] * 9
+        self.bs_amp_res = 0
+        self.bs_frame_class = FIXFIX
+        self.t_env = [0] * 9
+        self.t_env_num_env_old = 0
+        self.t_q = [0] * 3
+        self.e_a = [0, -1]
+        self.bs_df_env = [0] * 9
+        self.bs_df_noise = [0] * 2
+        self.bs_invf_mode = np.zeros((2, 5), np.int32)
+        self.bs_add_harmonic_flag = 0
+        self.bs_add_harmonic = [0] * 48
+        self.env_facs_q = np.zeros((9, 48), np.int64)
+        self.noise_facs_q = np.zeros((3, 5), np.int64)
+        self.env_facs = np.zeros((9, 48))
+        self.noise_facs = np.zeros((3, 5))
+        self.s_indexmapped = np.zeros((9, 48), np.int32)
+
+
+class Sbr:
+    """One SBR element (SCE or CPE pair)."""
+
+    def __init__(self):
+        self.sample_rate = 0
+        self.id_aac = None
+        self.data = [SbrChannel(), SbrChannel()]
+        self.start = 0
+        self.ready_for_dequant = 0
+        self.reset = 0
+        self.bs_coupling = 0
+        self.bs_amp_res_header = 0
+        self.kx = [0, 32]
+        self.m = [0, 0]
+        self.kx_and_m_pushed = 0
+        self.params = SbrParams()
+        self.bs_limiter_bands = 2
+        self.bs_limiter_gains = 2
+        self.bs_interpol_freq = 1
+        self.bs_smoothing_mode = 1
+        self.ft = None                  # SbrFreqTables
+
+    def _turnoff(self):
+        self.start = 0
+        self.ready_for_dequant = 0
+        self.kx[1] = 32
+        self.m[1] = 0
+        self.data[0].e_a[1] = -1
+        self.data[1].e_a[1] = -1
+        self.params = SbrParams()
+
+    # ----------------------------------------------------- bitstream
+    def _read_header(self, br: BitReaderMSB):
+        old_lim = self.bs_limiter_bands
+        old = (self.params.start_freq, self.params.stop_freq,
+               self.params.xover_band, self.params.freq_scale,
+               self.params.alter_scale, self.params.noise_bands)
+        self.start = 1
+        self.ready_for_dequant = 0
+        self.bs_amp_res_header = br.read(1)
+        self.params.start_freq = br.read(4)
+        self.params.stop_freq = br.read(4)
+        self.params.xover_band = br.read(3)
+        br.read(2)
+        extra1 = br.read(1)
+        extra2 = br.read(1)
+        if extra1:
+            self.params.freq_scale = br.read(2)
+            self.params.alter_scale = br.read(1)
+            self.params.noise_bands = br.read(2)
+        else:
+            self.params.freq_scale = 2
+            self.params.alter_scale = 1
+            self.params.noise_bands = 2
+        new = (self.params.start_freq, self.params.stop_freq,
+               self.params.xover_band, self.params.freq_scale,
+               self.params.alter_scale, self.params.noise_bands)
+        if old != new:
+            self.reset = 1
+        if extra2:
+            self.bs_limiter_bands = br.read(2)
+            self.bs_limiter_gains = br.read(2)
+            self.bs_interpol_freq = br.read(1)
+            self.bs_smoothing_mode = br.read(1)
+        else:
+            self.bs_limiter_bands = 2
+            self.bs_limiter_gains = 2
+            self.bs_interpol_freq = 1
+            self.bs_smoothing_mode = 1
+        if self.bs_limiter_bands != old_lim and not self.reset \
+                and self.ft is not None:
+            self.ft.make_f_tablelim(self.bs_limiter_bands)
+
+    def _read_grid(self, br, ch: SbrChannel):
+        abs_bord_trail = 16
+        ch.bs_freq_res[0] = ch.bs_freq_res[ch.bs_num_env]
+        ch.bs_amp_res = self.bs_amp_res_header
+        ch.t_env_num_env_old = ch.t_env[ch.bs_num_env]
+        bs_num_env_old = ch.bs_num_env
+        cls = br.read(2)
+        bs_pointer = 0
+        if cls == FIXFIX:
+            n = 1 << br.read(2)
+            if n > 5:
+                raise InvalidData("sbr: too many envelopes")
+            ch.bs_num_env = n
+            if n == 1:
+                ch.bs_amp_res = 0
+            ch.t_env[0] = 0
+            ch.t_env[n] = abs_bord_trail
+            step = (abs_bord_trail + (n >> 1)) // n
+            for i in range(n - 1):
+                ch.t_env[i + 1] = ch.t_env[i] + step
+            ch.bs_freq_res[1] = br.read(1)
+            for i in range(1, n):
+                ch.bs_freq_res[i + 1] = ch.bs_freq_res[1]
+        elif cls == FIXVAR:
+            abs_bord_trail += br.read(2)
+            n_rel = br.read(2)
+            ch.bs_num_env = n_rel + 1
+            ch.t_env[0] = 0
+            ch.t_env[ch.bs_num_env] = abs_bord_trail
+            for i in range(n_rel):
+                ch.t_env[ch.bs_num_env - 1 - i] = \
+                    ch.t_env[ch.bs_num_env - i] - 2 * br.read(2) - 2
+            bs_pointer = br.read(_CEIL_LOG2[ch.bs_num_env])
+            for i in range(ch.bs_num_env):
+                ch.bs_freq_res[ch.bs_num_env - i] = br.read(1)
+        elif cls == VARFIX:
+            ch.t_env[0] = br.read(2)
+            n_rel = br.read(2)
+            ch.bs_num_env = n_rel + 1
+            ch.t_env[ch.bs_num_env] = abs_bord_trail
+            for i in range(n_rel):
+                ch.t_env[i + 1] = ch.t_env[i] + 2 * br.read(2) + 2
+            bs_pointer = br.read(_CEIL_LOG2[ch.bs_num_env])
+            for i in range(ch.bs_num_env):
+                ch.bs_freq_res[i + 1] = br.read(1)
+        else:
+            ch.t_env[0] = br.read(2)
+            abs_bord_trail += br.read(2)
+            n_lead = br.read(2)
+            n_trail = br.read(2)
+            n = n_lead + n_trail + 1
+            if n > 5:
+                raise InvalidData("sbr: too many envelopes")
+            ch.bs_num_env = n
+            ch.t_env[n] = abs_bord_trail
+            for i in range(n_lead):
+                ch.t_env[i + 1] = ch.t_env[i] + 2 * br.read(2) + 2
+            for i in range(n_trail):
+                ch.t_env[n - 1 - i] = ch.t_env[n - i] - 2 * br.read(2) - 2
+            bs_pointer = br.read(_CEIL_LOG2[n])
+            for i in range(n):
+                ch.bs_freq_res[i + 1] = br.read(1)
+        ch.bs_frame_class = cls
+        if bs_pointer > ch.bs_num_env + 1:
+            raise InvalidData("sbr: bad bs_pointer")
+        for i in range(1, ch.bs_num_env + 1):
+            if ch.t_env[i - 1] >= ch.t_env[i]:
+                raise InvalidData("sbr: non-monotone time borders")
+        ch.bs_num_noise = (1 if ch.bs_num_env > 1 else 0) + 1
+        ch.t_q[0] = ch.t_env[0]
+        ch.t_q[ch.bs_num_noise] = ch.t_env[ch.bs_num_env]
+        if ch.bs_num_noise > 1:
+            if cls == FIXFIX:
+                idx = ch.bs_num_env >> 1
+            elif cls & 1:
+                idx = ch.bs_num_env - max(bs_pointer - 1, 1)
+            else:
+                if not bs_pointer:
+                    idx = 1
+                elif bs_pointer == 1:
+                    idx = ch.bs_num_env - 1
+                else:
+                    idx = bs_pointer - 1
+            ch.t_q[1] = ch.t_env[idx]
+        ch.e_a[0] = -(1 if ch.e_a[1] != bs_num_env_old else 0)
+        ch.e_a[1] = -1
+        if (cls & 1) and bs_pointer:
+            ch.e_a[1] = ch.bs_num_env + 1 - bs_pointer
+        elif cls == VARFIX and bs_pointer > 1:
+            ch.e_a[1] = bs_pointer - 1
+        return bs_pointer
+
+    def _read_dtdf(self, br, ch):
+        ch.bs_df_env = [br.read(1) for _ in range(ch.bs_num_env)]
+        ch.bs_df_noise = [br.read(1) for _ in range(ch.bs_num_noise)]
+
+    def _read_invf(self, br, ch):
+        ch.bs_invf_mode[1] = ch.bs_invf_mode[0]
+        for i in range(self.ft.n_q):
+            ch.bs_invf_mode[0][i] = br.read(2)
+
+    def _env_tables(self, ch: SbrChannel, chan: int):
+        if self.bs_coupling and chan:
+            if ch.bs_amp_res:
+                return 5, T_BAL_30, F_BAL_30
+            return 6, T_BAL_15, F_BAL_15
+        if ch.bs_amp_res:
+            return 6, T_ENV_30, F_ENV_30
+        return 7, T_ENV_15, F_ENV_15
+
+    def _read_envelope(self, br, ch: SbrChannel, chan: int):
+        delta = 2 if (chan == 1 and self.bs_coupling == 1) else 1
+        odd = self.ft.n1 & 1
+        bits, t_huff, f_huff = self._env_tables(ch, chan)
+        nn = (self.ft.n0, self.ft.n1)
+        for i in range(ch.bs_num_env):
+            fr = ch.bs_freq_res[i + 1]
+            if ch.bs_df_env[i]:
+                fr_prev = ch.bs_freq_res[i]
+                for j in range(nn[fr]):
+                    if fr == fr_prev:
+                        k = j
+                    elif fr:
+                        k = (j + odd) >> 1
+                    else:
+                        k = 2 * j - odd if j else 0
+                    v = ch.env_facs_q[i][k] + \
+                        delta * _read_vlc(br, t_huff)
+                    if not 0 <= v <= 127:
+                        raise InvalidData("sbr: env_facs_q invalid")
+                    ch.env_facs_q[i + 1][j] = v
+            else:
+                ch.env_facs_q[i + 1][0] = delta * br.read(bits)
+                for j in range(1, nn[fr]):
+                    v = ch.env_facs_q[i + 1][j - 1] + \
+                        delta * _read_vlc(br, f_huff)
+                    if not 0 <= v <= 127:
+                        raise InvalidData("sbr: env_facs_q invalid")
+                    ch.env_facs_q[i + 1][j] = v
+        ch.env_facs_q[0] = ch.env_facs_q[ch.bs_num_env]
+
+    def _read_noise(self, br, ch: SbrChannel, chan: int):
+        delta = 2 if (chan == 1 and self.bs_coupling == 1) else 1
+        if self.bs_coupling and chan:
+            t_huff, f_huff = T_NOISE_BAL_30, F_BAL_30
+        else:
+            t_huff, f_huff = T_NOISE_30, F_ENV_30
+        for i in range(ch.bs_num_noise):
+            if ch.bs_df_noise[i]:
+                for j in range(self.ft.n_q):
+                    v = ch.noise_facs_q[i][j] + \
+                        delta * _read_vlc(br, t_huff)
+                    if not 0 <= v <= 30:
+                        raise InvalidData("sbr: noise_facs_q invalid")
+                    ch.noise_facs_q[i + 1][j] = v
+            else:
+                ch.noise_facs_q[i + 1][0] = delta * br.read(5)
+                for j in range(1, self.ft.n_q):
+                    v = ch.noise_facs_q[i + 1][j - 1] + \
+                        delta * _read_vlc(br, f_huff)
+                    if not 0 <= v <= 30:
+                        raise InvalidData("sbr: noise_facs_q invalid")
+                    ch.noise_facs_q[i + 1][j] = v
+        ch.noise_facs_q[0] = ch.noise_facs_q[ch.bs_num_noise]
+
+    def decode_extension(self, br: BitReaderMSB, id_aac: str,
+                         crc: bool, core_rate: int):
+        """sbr_extension_data (table 4.55)."""
+        if not self.sample_rate:
+            self.sample_rate = 2 * core_rate
+        self.reset = 0
+        if crc:
+            br.read(10)
+        self.kx[0] = self.kx[1]
+        self.m[0] = self.m[1]
+        self.kx_and_m_pushed = 1
+        if br.read(1):
+            self._read_header(br)
+        if self.reset:
+            try:
+                self.ft = SbrFreqTables(self.sample_rate, self.params,
+                                        self.bs_limiter_bands)
+                self.kx[1] = self.ft.kx
+                self.m[1] = self.ft.m
+                self.data[0].f_indexnoise = 0
+                self.data[1].f_indexnoise = 0
+            except InvalidData:
+                self._turnoff()
+                return
+        if self.start:
+            self._read_data(br, id_aac)
+
+    def _read_data(self, br, id_aac: str):
+        self.id_aac = id_aac
+        self.ready_for_dequant = 1
+        try:
+            if id_aac == "SCE":
+                if br.read(1):
+                    br.read(4)
+                self._read_grid(br, self.data[0])
+                self._read_dtdf(br, self.data[0])
+                self._read_invf(br, self.data[0])
+                self._read_envelope(br, self.data[0], 0)
+                self._read_noise(br, self.data[0], 0)
+                if br.read(1):
+                    self.data[0].bs_add_harmonic = \
+                        [br.read(1) for _ in range(self.ft.n1)] + \
+                        [0] * (48 - self.ft.n1)
+                    self.data[0].bs_add_harmonic_flag = 1
+                else:
+                    self.data[0].bs_add_harmonic_flag = 0
+            else:                       # CPE
+                if br.read(1):
+                    br.read(8)
+                self.bs_coupling = br.read(1)
+                if self.bs_coupling:
+                    self._read_grid(br, self.data[0])
+                    self._copy_grid(self.data[1], self.data[0])
+                    self._read_dtdf(br, self.data[0])
+                    self._read_dtdf(br, self.data[1])
+                    self._read_invf(br, self.data[0])
+                    self.data[1].bs_invf_mode[1] = \
+                        self.data[1].bs_invf_mode[0]
+                    self.data[1].bs_invf_mode[0] = \
+                        self.data[0].bs_invf_mode[0]
+                    self._read_envelope(br, self.data[0], 0)
+                    self._read_noise(br, self.data[0], 0)
+                    self._read_envelope(br, self.data[1], 1)
+                    self._read_noise(br, self.data[1], 1)
+                else:
+                    self._read_grid(br, self.data[0])
+                    self._read_grid(br, self.data[1])
+                    self._read_dtdf(br, self.data[0])
+                    self._read_dtdf(br, self.data[1])
+                    self._read_invf(br, self.data[0])
+                    self._read_invf(br, self.data[1])
+                    self._read_envelope(br, self.data[0], 0)
+                    self._read_envelope(br, self.data[1], 1)
+                    self._read_noise(br, self.data[0], 0)
+                    self._read_noise(br, self.data[1], 1)
+                for d in (self.data[0], self.data[1]):
+                    if br.read(1):
+                        d.bs_add_harmonic = \
+                            [br.read(1) for _ in range(self.ft.n1)] + \
+                            [0] * (48 - self.ft.n1)
+                        d.bs_add_harmonic_flag = 1
+                    else:
+                        d.bs_add_harmonic_flag = 0
+        except InvalidData:
+            self._turnoff()
+            return
+        if br.read(1):                  # bs_extended_data
+            n = br.read(4)
+            if n == 15:
+                n += br.read(8)
+            br.read(8 * n)
+
+    def _copy_grid(self, dst: SbrChannel, src: SbrChannel):
+        dst.bs_freq_res[0] = dst.bs_freq_res[dst.bs_num_env]
+        dst.t_env_num_env_old = dst.t_env[dst.bs_num_env]
+        dst.e_a[0] = -(1 if dst.e_a[1] != dst.bs_num_env else 0)
+        dst.bs_freq_res[1:] = src.bs_freq_res[1:]
+        dst.t_env = list(src.t_env)
+        dst.t_q = list(src.t_q)
+        dst.bs_num_env = src.bs_num_env
+        dst.bs_amp_res = src.bs_amp_res
+        dst.bs_num_noise = src.bs_num_noise
+        dst.bs_frame_class = src.bs_frame_class
+        dst.e_a[1] = src.e_a[1]
+
+    # ------------------------------------------------------- dequant
+    def _dequant(self):
+        sq2 = (1.0, math.sqrt(2.0))
+        if self.id_aac == "CPE" and self.bs_coupling:
+            pan = 12 if self.data[0].bs_amp_res else 24
+            d0, d1 = self.data
+            for e in range(1, d0.bs_num_env + 1):
+                n = (self.ft.n0, self.ft.n1)[d0.bs_freq_res[e]]
+                for k in range(n):
+                    if d0.bs_amp_res:
+                        t1 = 2.0 ** (d0.env_facs_q[e][k] + 7)
+                        t2 = 2.0 ** (pan - d1.env_facs_q[e][k])
+                    else:
+                        t1 = 2.0 ** ((d0.env_facs_q[e][k] >> 1) + 7) \
+                            * sq2[d0.env_facs_q[e][k] & 1]
+                        t2 = 2.0 ** (
+                            (pan - d1.env_facs_q[e][k]) >> 1) * \
+                            sq2[(pan - d1.env_facs_q[e][k]) & 1]
+                    if t1 > 1e20:
+                        t1 = 1.0
+                    fac = t1 / (1.0 + t2)
+                    d0.env_facs[e][k] = fac
+                    d1.env_facs[e][k] = fac * t2
+            for e in range(1, d0.bs_num_noise + 1):
+                for k in range(self.ft.n_q):
+                    t1 = 2.0 ** (6 - d0.noise_facs_q[e][k] + 1)
+                    t2 = 2.0 ** (12 - d1.noise_facs_q[e][k])
+                    fac = t1 / (1.0 + t2)
+                    d0.noise_facs[e][k] = fac
+                    d1.noise_facs[e][k] = fac * t2
+        else:
+            nch = 2 if self.id_aac == "CPE" else 1
+            for c in range(nch):
+                d = self.data[c]
+                for e in range(1, d.bs_num_env + 1):
+                    n = (self.ft.n0, self.ft.n1)[d.bs_freq_res[e]]
+                    for k in range(n):
+                        if d.bs_amp_res:
+                            v = 2.0 ** (d.env_facs_q[e][k] + 6)
+                        else:
+                            v = 2.0 ** ((d.env_facs_q[e][k] >> 1) + 6) \
+                                * sq2[d.env_facs_q[e][k] & 1]
+                        d.env_facs[e][k] = 1.0 if v > 1e20 else v
+                for e in range(1, d.bs_num_noise + 1):
+                    for k in range(self.ft.n_q):
+                        d.noise_facs[e][k] = \
+                            2.0 ** (6 - d.noise_facs_q[e][k])
+
+    # ----------------------------------------------------------- dsp
+    def _hf_inverse_filter(self, X_low):
+        """alpha0/alpha1 per subband (aacsbr.c:153)."""
+        k0 = self.ft.k0
+        alpha0 = np.zeros((32, ), np.complex128)
+        alpha1 = np.zeros((32, ), np.complex128)
+        for k in range(k0):
+            x = X_low[k]
+            # autocorrelation sums (sbrdsp.c:134): lag0 over two
+            # windows, lag1 over [0..37] (B) and [1..38] (A), lag2 (C)
+            lag0_a = float(
+                (x[0:38].real ** 2 + x[0:38].imag ** 2).sum())
+            lag0_b = float(
+                (x[1:39].real ** 2 + x[1:39].imag ** 2).sum())
+            B = complex((np.conj(x[0:38]) * x[1:39]).sum())
+            A = complex((np.conj(x[1:39]) * x[2:40]).sum())
+            C = complex((np.conj(x[0:38]) * x[2:40]).sum())
+            dk = lag0_a * lag0_b - \
+                (B.real ** 2 + B.imag ** 2) / 1.000001
+            a1 = (A * B - C * lag0_b) / dk if dk else 0j
+            a0 = -(A + a1 * B.conjugate()) / lag0_b \
+                if lag0_b else 0j
+            if abs(a1) ** 2 >= 16.0 or abs(a0) ** 2 >= 16.0:
+                a0 = a1 = 0j
+            alpha0[k] = a0
+            alpha1[k] = a1
+        return alpha0, alpha1
+
+    def _chirp(self, ch: SbrChannel):
+        bw_tab = (0.0, 0.75, 0.9, 0.98)
+        for i in range(self.ft.n_q):
+            if ch.bs_invf_mode[0][i] + ch.bs_invf_mode[1][i] == 1:
+                nbw = 0.6
+            else:
+                nbw = bw_tab[ch.bs_invf_mode[0][i]]
+            if nbw < ch.bw_array[i]:
+                nbw = 0.75 * nbw + 0.25 * ch.bw_array[i]
+            else:
+                nbw = 0.90625 * nbw + 0.09375 * ch.bw_array[i]
+            ch.bw_array[i] = 0.0 if nbw < 0.015625 else nbw
+
+    def _hf_gen(self, X_high, X_low, alpha0, alpha1, ch: SbrChannel):
+        ft = self.ft
+        g = 0
+        k = ft.kx
+        start = 2 * ch.t_env[0]
+        end = 2 * ch.t_env[ch.bs_num_env]
+        for j in range(ft.num_patches):
+            for x in range(ft.patch_num[j]):
+                p = ft.patch_start[j] + x
+                while g <= ft.n_q and k >= ft.f_noise[g]:
+                    g += 1
+                g -= 1
+                if g < 0:
+                    raise InvalidData("sbr: no noise band for subband")
+                bw = ch.bw_array[g]
+                a0 = alpha0[p] * bw
+                a1 = alpha1[p] * bw * bw
+                base = 2                # ENVELOPE_ADJUSTMENT_OFFSET
+                i = np.arange(base + start, base + end)
+                X_high[k][i] = (X_low[p][i - 2] * a1
+                                + X_low[p][i - 1] * a0 + X_low[p][i])
+                k += 1
+        if k < ft.m + ft.kx:
+            X_high[k:ft.m + ft.kx] = 0
+
+    def _mapping(self, ch: SbrChannel):
+        ft = self.ft
+        e_orig = np.zeros((5, 48))
+        q_mapped = np.zeros((5, 48))
+        s_mapped = np.zeros((5, 48), np.int32)
+        ch.s_indexmapped[1:8] = 0
+        for e in range(ch.bs_num_env):
+            fr = ch.bs_freq_res[e + 1]
+            table = ft.f_high if fr else ft.f_low
+            ilim = (ft.n0, ft.n1)[fr]
+            if ft.kx != table[0]:
+                raise InvalidData("sbr: stale frequency tables")
+            for i in range(ilim):
+                e_orig[e][table[i] - ft.kx:table[i + 1] - ft.kx] = \
+                    ch.env_facs[e + 1][i]
+            k = 1 if (ch.bs_num_noise > 1
+                      and ch.t_env[e] >= ch.t_q[1]) else 0
+            for i in range(ft.n_q):
+                q_mapped[e][ft.f_noise[i] - ft.kx:
+                            ft.f_noise[i + 1] - ft.kx] = \
+                    ch.noise_facs[k + 1][i]
+            for i in range(ft.n1):
+                if ch.bs_add_harmonic_flag:
+                    mid = (ft.f_high[i] + ft.f_high[i + 1]) >> 1
+                    ch.s_indexmapped[e + 1][mid - ft.kx] = \
+                        ch.bs_add_harmonic[i] * (
+                            1 if (e >= ch.e_a[1]
+                                  or ch.s_indexmapped[0][mid - ft.kx]
+                                  == 1) else 0)
+            for i in range(ilim):
+                present = int(np.any(
+                    ch.s_indexmapped[e + 1]
+                    [table[i] - ft.kx:table[i + 1] - ft.kx]))
+                s_mapped[e][table[i] - ft.kx:table[i + 1] - ft.kx] = \
+                    present
+        ch.s_indexmapped[0] = ch.s_indexmapped[ch.bs_num_env]
+        return e_orig, q_mapped, s_mapped
+
+    def _env_estimate(self, X_high, ch: SbrChannel):
+        ft = self.ft
+        e_curr = np.zeros((5, 48))
+        kx1 = ft.kx
+        if self.bs_interpol_freq:
+            for e in range(ch.bs_num_env):
+                recip = 0.5 / (ch.t_env[e + 1] - ch.t_env[e])
+                ilb = ch.t_env[e] * 2 + 2
+                iub = ch.t_env[e + 1] * 2 + 2
+                if ilb >= 40:
+                    return e_curr
+                seg = X_high[kx1:kx1 + ft.m, ilb:iub]
+                e_curr[e][:ft.m] = \
+                    (seg.real ** 2 + seg.imag ** 2).sum(axis=1) * recip
+        else:
+            for e in range(ch.bs_num_env):
+                env_size = 2 * (ch.t_env[e + 1] - ch.t_env[e])
+                ilb = ch.t_env[e] * 2 + 2
+                iub = ch.t_env[e + 1] * 2 + 2
+                if ilb >= 40:
+                    return e_curr
+                fr = ch.bs_freq_res[e + 1]
+                table = ft.f_high if fr else ft.f_low
+                for p in range((ft.n0, ft.n1)[fr]):
+                    den = env_size * (table[p + 1] - table[p])
+                    seg = X_high[table[p]:table[p + 1], ilb:iub]
+                    s = (seg.real ** 2 + seg.imag ** 2).sum() / den
+                    e_curr[e][table[p] - kx1:table[p + 1] - kx1] = s
+        return e_curr
+
+    def _gain_calc(self, ch, e_orig, q_mapped, s_mapped, e_curr):
+        ft = self.ft
+        limgain = (0.70795, 1.0, 1.41254, 1e10)[self.bs_limiter_gains]
+        eps = np.finfo(np.float32).eps
+        tiny = np.finfo(np.float32).tiny
+        gain = np.zeros((5, 48))
+        q_m = np.zeros((5, 48))
+        s_m = np.zeros((5, 48))
+        for e in range(ch.bs_num_env):
+            delta = 0 if (e == ch.e_a[1] or e == ch.e_a[0]) else 1
+            for k in range(ft.n_lim):
+                lo = ft.f_lim[k] - ft.kx
+                hi = ft.f_lim[k + 1] - ft.kx
+                for m in range(lo, hi):
+                    temp = e_orig[e][m] / (1.0 + q_mapped[e][m])
+                    q_m[e][m] = math.sqrt(temp * q_mapped[e][m])
+                    s_m[e][m] = math.sqrt(
+                        temp * ch.s_indexmapped[e + 1][m])
+                    if not s_mapped[e][m]:
+                        gain[e][m] = math.sqrt(
+                            e_orig[e][m] /
+                            ((1.0 + e_curr[e][m]) *
+                             (1.0 + q_mapped[e][m] * delta)))
+                    else:
+                        gain[e][m] = math.sqrt(
+                            e_orig[e][m] * q_mapped[e][m] /
+                            ((1.0 + e_curr[e][m]) *
+                             (1.0 + q_mapped[e][m])))
+                    gain[e][m] += tiny
+                s0 = e_orig[e][lo:hi].sum()
+                s1 = e_curr[e][lo:hi].sum()
+                gain_max = min(100000.0,
+                               limgain * math.sqrt(
+                                   (eps + s0) / (eps + s1)))
+                for m in range(lo, hi):
+                    qmax = q_m[e][m] * gain_max / gain[e][m]
+                    q_m[e][m] = min(q_m[e][m], qmax)
+                    gain[e][m] = min(gain[e][m], gain_max)
+                s0 = e_orig[e][lo:hi].sum()
+                s1 = (e_curr[e][lo:hi] * gain[e][lo:hi] ** 2
+                      + s_m[e][lo:hi] ** 2
+                      + (delta * (s_m[e][lo:hi] == 0.0))
+                      * q_m[e][lo:hi] ** 2).sum()
+                boost = min(1.584893192,
+                            math.sqrt((eps + s0) / (eps + s1)))
+                gain[e][lo:hi] *= boost
+                q_m[e][lo:hi] *= boost
+                s_m[e][lo:hi] *= boost
+        return gain, q_m, s_m
+
+    def _hf_assemble(self, Y1, X_high, ch, gain, q_m, s_m):
+        ft = self.ft
+        h_sl = 4 if not self.bs_smoothing_mode else 0
+        kx = ft.kx
+        m_max = ft.m
+        h_smooth = (0.33333333333333, 0.30150283239582,
+                    0.21816949906249, 0.11516383427084,
+                    0.03183050093751)
+        g_temp, q_temp = ch.g_temp, ch.q_temp
+        indexnoise = ch.f_indexnoise
+        indexsine = ch.f_indexsine
+        if self.reset:
+            for i in range(h_sl):
+                g_temp[i + 2 * ch.t_env[0]][:m_max] = gain[0][:m_max]
+                q_temp[i + 2 * ch.t_env[0]][:m_max] = q_m[0][:m_max]
+        elif h_sl:
+            for i in range(4):
+                g_temp[i + 2 * ch.t_env[0]] = \
+                    g_temp[i + 2 * ch.t_env_num_env_old].copy()
+                q_temp[i + 2 * ch.t_env[0]] = \
+                    q_temp[i + 2 * ch.t_env_num_env_old].copy()
+        for e in range(ch.bs_num_env):
+            for i in range(2 * ch.t_env[e], 2 * ch.t_env[e + 1]):
+                g_temp[h_sl + i][:m_max] = gain[e][:m_max]
+                q_temp[h_sl + i][:m_max] = q_m[e][:m_max]
+        for e in range(ch.bs_num_env):
+            for i in range(2 * ch.t_env[e], 2 * ch.t_env[e + 1]):
+                if h_sl and e != ch.e_a[0] and e != ch.e_a[1]:
+                    g_filt = np.zeros(m_max)
+                    q_filt = np.zeros(m_max)
+                    for j in range(h_sl + 1):
+                        g_filt += g_temp[i + h_sl - j][:m_max] * \
+                            h_smooth[j]
+                        q_filt += q_temp[i + h_sl - j][:m_max] * \
+                            h_smooth[j]
+                else:
+                    g_filt = g_temp[i + h_sl][:m_max]
+                    q_filt = q_temp[i][:m_max]
+                Y1[i][kx:kx + m_max] = \
+                    X_high[kx:kx + m_max, i + 2] * g_filt
+                if e != ch.e_a[0] and e != ch.e_a[1]:
+                    # hf_apply_noise[indexsine] (sbrdsp.c:197):
+                    # phi_sign1 alternates sign every m
+                    s = 1 - 2 * (kx & 1)
+                    phi0, phi1 = ((1.0, 0.0), (0.0, s),
+                                  (-1.0, 0.0), (0.0, -s))[indexsine]
+                    m = np.arange(m_max)
+                    alt = np.where((m & 1) == 0, 1.0, -1.0)
+                    noise = _NOISE[(indexnoise + m + 1) & 0x1ff]
+                    sm = s_m[e][:m_max]
+                    add = np.where(
+                        sm != 0.0,
+                        sm * (phi0 + 1j * phi1 * alt),
+                        q_filt * noise)
+                    Y1[i][kx:kx + m_max] += add
+                else:
+                    idx = indexsine & 1
+                    a = 1 - ((indexsine + (kx & 1)) & 2)
+                    b = (a ^ (-idx)) + idx
+                    m = np.arange(m_max)
+                    sgn = np.where((m & 1) == 0, a, b)
+                    vals = s_m[e][:m_max] * sgn
+                    if idx:
+                        Y1[i][kx:kx + m_max] += 1j * vals
+                    else:
+                        Y1[i][kx:kx + m_max] += vals
+                indexnoise = (indexnoise + m_max) & 0x1ff
+                indexsine = (indexsine + 1) & 3
+        ch.f_indexnoise = indexnoise
+        ch.f_indexsine = indexsine
+
+    # ----------------------------------------------------------- apply
+    def apply(self, id_aac: str, channels: list[np.ndarray]):
+        """channels: core samples scaled +/-32768 -> 2048-sample list."""
+        if self.id_aac is not None and id_aac != self.id_aac:
+            self._turnoff()
+        if self.start and not self.ready_for_dequant:
+            self._turnoff()
+        if not self.kx_and_m_pushed:
+            self.kx[0] = self.kx[1]
+            self.m[0] = self.m[1]
+        else:
+            self.kx_and_m_pushed = 0
+        if self.start:
+            self._dequant()
+            self.ready_for_dequant = 0
+        out = []
+        X_per_ch = []
+        for c, samples in enumerate(channels):
+            ch = self.data[c]
+            W_new = qmf_analysis(ch.xbuf, samples)
+            ch.W[ch.Ypos] = W_new
+            # lf_gen
+            X_low = np.zeros((32, 40), np.complex128)
+            for k in range(self.kx[1]):
+                X_low[k, 8:40] = ch.W[ch.Ypos][:, k]
+            for k in range(self.kx[0]):
+                X_low[k, 0:8] = ch.W[1 - ch.Ypos][24:32, k]
+            ch.Ypos ^= 1
+            if self.start:
+                alpha0, alpha1 = self._hf_inverse_filter(X_low)
+                self._chirp(ch)
+                X_high = np.zeros((64, 40), np.complex128)
+                self._hf_gen(X_high, X_low, alpha0, alpha1, ch)
+                e_orig, q_mapped, s_mapped = self._mapping(ch)
+                e_curr = self._env_estimate(X_high, ch)
+                gain, q_m, s_m = self._gain_calc(
+                    ch, e_orig, q_mapped, s_mapped, e_curr)
+                # Y persists across frames (rows outside the envelope
+                # range keep old content, as in the reference)
+                self._hf_assemble(ch.Y[ch.Ypos], X_high, ch,
+                                  gain, q_m, s_m)
+            # x_gen
+            X = np.zeros((38, 64), np.complex128)
+            i_temp = max(2 * ch.t_env_num_env_old - 32, 0)
+            Y0 = ch.Y[1 - ch.Ypos]
+            Y1 = ch.Y[ch.Ypos]
+            for k in range(self.kx[0]):
+                X[:i_temp, k] = X_low[k, 2:2 + i_temp]
+            for k in range(self.kx[0], self.kx[0] + self.m[0]):
+                X[:i_temp, k] = Y0[32:32 + i_temp, k]
+            for k in range(self.kx[1]):
+                X[i_temp:38, k] = X_low[k, 2 + i_temp:40]
+            for k in range(self.kx[1], self.kx[1] + self.m[1]):
+                X[i_temp:32, k] = Y1[i_temp:32, k]
+            X_per_ch.append(X)
+        for c, X in enumerate(X_per_ch):
+            out.append(qmf_synthesis(self.data[c], X[:32]))
+        return out

@@ -2,10 +2,12 @@
 
 For this system the "weights" are the codec state: the decoder's
 reference pictures and parameter sets, the encoder's reference recon
-planes and rate-control fields. These functions build the port's
-objects from plain numpy arrays and values, so a run (or a test) can
-start the port mid-GOP from state another implementation reached,
-e.g. the JAX package's decoder and encoder.
+planes and rate-control fields, and on the audio path the resampler's
+history and stream position, the AAC encoder's overlap and rate
+control, and the ditherer's noise position and error history. These
+functions build the port's objects from plain numpy arrays and values,
+so a run (or a test) can start the port mid-stream from state another
+implementation reached, e.g. the JAX package's objects.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from librempeg_tpu_torch.codecs.aac.codec import AacEncoder
 from librempeg_tpu_torch.codecs.h264 import device_recon as DR
 from librempeg_tpu_torch.codecs.h264 import parse as P
 from librempeg_tpu_torch.codecs.h264.codec import H264Decoder
@@ -24,6 +27,9 @@ from librempeg_tpu_torch.codecs.mpeg4.encoder import (
 )
 from librempeg_tpu_torch.core.frame import VideoFrame
 from librempeg_tpu_torch.core.rational import Rational
+from librempeg_tpu_torch.device import resolve
+from librempeg_tpu_torch.resample.dither import Ditherer
+from librempeg_tpu_torch.resample.resampler import Resampler, _bank_matrix
 
 
 def _as(cls, obj):
@@ -121,3 +127,69 @@ def encoder_state_from_numpy(width: int, height: int, ref, frame_idx: int,
                   "cur_anchor_disp"):
             setattr(enc, "_" + k, int(b[k]))
     return enc
+
+
+def _f32_on(a, device) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
+
+
+def resampler_state_from_numpy(in_rate: int, out_rate: int, channels: int,
+                               buf, buf_start: int, next_origin: int,
+                               out_count: int, total_in: int, keep: int,
+                               comp: dict | None = None, device="cuda",
+                               **opts) -> Resampler:
+    """A Resampler positioned mid-stream.
+
+    buf: the retained input [channels, n] float32, whose first column
+    is absolute input sample buf_start; next_origin, out_count,
+    total_in and keep (the history retained, which a compensation bank
+    can deepen) as the JAX package's fields of those names. comp: the
+    active compensation, {"p", "q", "remaining"} (its bank is rebuilt
+    from p and q), or None."""
+    r = Resampler(in_rate, out_rate, channels, device=device, **opts)
+    r._buf = _f32_on(buf, r.device)
+    r._buf_start = int(buf_start)
+    r._next_origin = int(next_origin)
+    r._out_count = int(out_count)
+    r._total_in = int(total_in)
+    r._keep = int(keep)
+    if comp is not None:
+        p2, q2 = int(comp["p"]), int(comp["q"])
+        m2, L2, lp2 = _bank_matrix(
+            p2, q2, r.taps, int(r._cutoff * 1e6),
+            int(r.opts["kaiser_beta"] * 10), r.opts["window"])
+        r._comp = {"m": torch.from_numpy(m2).to(r.device), "p": p2, "q": q2,
+                   "L": L2, "lp": lp2, "remaining": int(comp["remaining"])}
+    return r
+
+
+def aac_encoder_state_from_numpy(sample_rate: int, channels: int, hist,
+                                 pend, frame_no: int, rc_q: float,
+                                 rc_buffer: float, device="cuda",
+                                 **opts) -> AacEncoder:
+    """An AacEncoder positioned after `frame_no` coded frames: hist the
+    last coded block [channels, 1024] (the MDCT overlap), pend the
+    samples not yet coded [channels, n] (float32 in [-1, 1)), rc_q and
+    rc_buffer the rate control's quality knob and bit balance."""
+    enc = AacEncoder(sample_rate=sample_rate, channels=channels,
+                     device=device, **opts)
+    enc._hist = _f32_on(hist, enc.device)
+    enc._pend = _f32_on(pend, enc.device).reshape(channels, -1)
+    enc._frame_no = int(frame_no)
+    enc._rc_q = float(rc_q)
+    enc._rc_buffer = float(rc_buffer)
+    return enc
+
+
+def ditherer_state_from_numpy(method: str, pos: int, hp_last=None,
+                              err=None, seed: int = 0,
+                              device="cuda") -> Ditherer:
+    """A Ditherer positioned after `pos` samples: hp_last the high-pass
+    noise carry [channels] (triangular_hp), err the shaper's error
+    history [K, channels], newest first (lipshitz, f_weighted); None
+    where the method has none yet."""
+    d = Ditherer(method, seed=seed)
+    d._pos = int(pos)
+    d._hp_last = None if hp_last is None else np.array(hp_last, np.float64)
+    d._err = None if err is None else _f32_on(err, resolve(device))
+    return d

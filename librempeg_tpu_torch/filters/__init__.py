@@ -1,4 +1,6 @@
-"""Filter layer of the port (libavfilter analog): null/scale chains."""
+"""Filter layer of the port (libavfilter analog): linear video chains
+(null, scale, format) and audio chains (anull, aformat, aresample,
+volume, atrim)."""
 from librempeg_tpu_torch.filters.filter import (  # noqa: F401
     Filter,
     StreamProps,

@@ -141,7 +141,7 @@ def register_filter(cls: type[Filter]) -> type[Filter]:
 
 
 def _ensure_registered():
-    from librempeg_tpu_torch.filters import video  # noqa: F401
+    from librempeg_tpu_torch.filters import audio, video  # noqa: F401
 
 
 def find_filter(name: str) -> type[Filter]:

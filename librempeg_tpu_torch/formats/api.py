@@ -209,6 +209,11 @@ class Muxer:
         self.streams.append(st)
         return st
 
+    @property
+    def header_written(self) -> bool:
+        """True once the header is out (a stream can no longer change)."""
+        return self._header_written
+
     # subclass interface ----------------------------------------------
     def write_header(self) -> None:
         self._header_written = True
@@ -302,8 +307,9 @@ def muxers() -> dict[str, type[Muxer]]:
 
 
 def _ensure_registered() -> None:
-    """Import the port's container modules (H.264 ES in, AVI out)."""
-    from librempeg_tpu_torch.formats import avi, rawes  # noqa: F401
+    """Import the port's container modules (H.264 ES in, AVI out; WAV
+    and ADTS in and out)."""
+    from librempeg_tpu_torch.formats import adts, avi, rawes, wav  # noqa: F401
 
 
 def probe_format(buf: bytes, filename: str = "") -> tuple[type[Demuxer] | None, int]:

@@ -1,6 +1,32 @@
-"""RIFF/WAVE format tags (the tables the AVI muxer maps audio codecs
-through; the WAV container itself is not part of the port)."""
+"""RIFF/WAVE container: format tags, demuxer and muxer.
+
+Port of librempeg_tpu/formats/wav.py (libavformat/wavdec.c + wavenc.c
+analog: fmt/data chunk parsing, WAVE_FORMAT_PCM/IEEE_FLOAT/EXTENSIBLE,
+packets of about 4096 bytes, LIST/INFO metadata), a host copy. The tag
+tables also serve the AVI muxer. The ADPCM codecs are not ported: their
+tags are known, and a file that uses them is refused.
+"""
 from __future__ import annotations
+
+import struct
+
+from librempeg_tpu_torch.core.errors import (
+    EndOfStream,
+    InvalidData,
+    Unsupported,
+)
+from librempeg_tpu_torch.core.packet import Packet, PktFlags
+from librempeg_tpu_torch.core.rational import Rational
+from librempeg_tpu_torch.formats.api import (
+    PROBE_SCORE_MAX,
+    CodecParameters,
+    Demuxer,
+    Muxer,
+    Stream,
+    register_demuxer,
+    register_muxer,
+)
+from librempeg_tpu_torch.formats.io import IOContext
 
 WAVE_FORMAT_PCM = 0x0001
 WAVE_FORMAT_IEEE_FLOAT = 0x0003
@@ -40,3 +66,190 @@ _CODEC_TO_TAG = {
     "adpcm_ima_wav": (WAVE_FORMAT_ADPCM_IMA, 4),
     "adpcm_yamaha": (WAVE_FORMAT_ADPCM_YAMAHA, 4),
 }
+
+# packet size target (bytes); like the reference, demuxed PCM is chunked
+# into modest packets so downstream batching controls granularity
+_MAX_PKT = 4096
+
+
+@register_demuxer
+class WavDemuxer(Demuxer):
+    NAME = "wav"
+    LONG_NAME = "WAV / WAVE (Waveform Audio)"
+    EXTENSIONS = ("wav", "wave")
+
+    @classmethod
+    def probe(cls, buf: bytes, filename: str = "") -> int:
+        if len(buf) >= 12 and buf[:4] == b"RIFF" and buf[8:12] == b"WAVE":
+            return PROBE_SCORE_MAX
+        return 0
+
+    def read_header(self, io: IOContext) -> None:
+        if io.read_exact(4) != b"RIFF":
+            raise InvalidData("not a RIFF file")
+        io.rl32()  # riff size (unreliable; ignored)
+        if io.read_exact(4) != b"WAVE":
+            raise InvalidData("not a WAVE file")
+
+        fmt_seen = False
+        self._data_size = -1
+        self._data_start = -1
+        par = CodecParameters(codec_type="audio")
+        while True:
+            hdr = io.read(8)
+            if len(hdr) < 8:
+                break
+            tag, size = hdr[:4], struct.unpack("<I", hdr[4:])[0]
+            if tag == b"fmt ":
+                fmt = io.read_exact(size if size % 2 == 0 else size + 1)
+                (wtag, channels, rate, _brate, balign, bits) = struct.unpack(
+                    "<HHIIHH", fmt[:16])
+                if wtag == WAVE_FORMAT_EXTENSIBLE and size >= 40:
+                    wtag = struct.unpack("<H", fmt[24:26])[0]
+                codec = _TAG_TO_CODEC.get((wtag, bits))
+                if codec is None:
+                    raise InvalidData(f"unsupported WAV format tag={wtag} bits={bits}")
+                par.codec_id = codec
+                par.sample_rate = rate
+                par.nb_channels = channels
+                par.block_align = balign or channels * (bits // 8)
+                par.extra["bits_per_sample"] = bits
+                if codec in _ADPCM_CODECS:
+                    raise Unsupported(f"WAV: {codec} is not ported")
+                fmt_seen = True
+            elif tag == b"LIST" and size >= 4:
+                body = io.read_exact(size + (size & 1))[:size]
+                if body[:4] == b"INFO":
+                    pos = 4
+                    while pos + 8 <= len(body):
+                        k = body[pos:pos + 4]
+                        ln = struct.unpack("<I", body[pos + 4:pos + 8])[0]
+                        v = body[pos + 8:pos + 8 + ln].split(b"\x00")[0]
+                        key = _INFO_TO_KEY.get(k)
+                        if key:
+                            self.metadata[key] = v.decode("utf-8",
+                                                          "replace")
+                        pos += 8 + ln + (ln & 1)
+            elif tag == b"data":
+                self._data_start = io.tell()
+                self._data_size = size if size != 0xFFFFFFFF else -1
+                if not io.seekable or self._data_size < 0:
+                    break
+                io.skip(size + (size & 1))
+            else:
+                io.skip(size + (size & 1))
+        if not fmt_seen or self._data_start < 0:
+            raise InvalidData("WAV: missing fmt or data chunk")
+
+        st = Stream(index=0, codecpar=par,
+                    time_base=Rational(1, par.sample_rate))
+        if self._data_size > 0 and par.block_align:
+            st.duration = self._data_size // par.block_align
+        self.streams = [st]
+        if io.seekable:
+            io.seek(self._data_start)
+        self._pos = 0  # bytes consumed within data chunk
+        # packet size: whole blocks, close to _MAX_PKT
+        ba = par.block_align
+        self._pkt_bytes = max(ba, (_MAX_PKT // ba) * ba)
+
+    def read_packet(self) -> Packet:
+        par = self.streams[0].codecpar
+        remaining = (self._data_size - self._pos
+                     if self._data_size >= 0 else self._pkt_bytes)
+        n = min(self._pkt_bytes, remaining)
+        if n <= 0:
+            raise EndOfStream
+        data = self.io.read(n)
+        if not data:
+            raise EndOfStream
+        pts = self._pos // par.block_align
+        self._pos += len(data)
+        return Packet(
+            data=data,
+            pts=pts,
+            dts=pts,
+            duration=len(data) // par.block_align,
+            stream_index=0,
+            flags=PktFlags.KEY,
+            time_base=self.streams[0].time_base,
+        )
+
+    def read_seek(self, stream_index: int, ts: int) -> None:
+        par = self.streams[0].codecpar
+        byte = ts * par.block_align
+        if self._data_size >= 0:
+            byte = min(byte, self._data_size)
+        self.io.seek(self._data_start + byte)
+        self._pos = byte
+
+
+#: RIFF LIST/INFO tag <-> metadata key (libavformat/riff.c ff_riff_info_conv)
+_INFO_TO_KEY = {b"INAM": "title", b"IART": "artist", b"ICMT": "comment",
+                b"ICRD": "date", b"IGNR": "genre", b"ISFT": "encoder",
+                b"IPRD": "album", b"ITRK": "track"}
+_KEY_TO_INFO = {v: k for k, v in _INFO_TO_KEY.items()}
+
+
+@register_muxer
+class WavMuxer(Muxer):
+    NAME = "wav"
+    LONG_NAME = "WAV / WAVE (Waveform Audio)"
+    EXTENSIONS = ("wav", "wave")
+    INTERLEAVE = False
+
+    def write_header(self) -> None:
+        super().write_header()
+        if len(self.streams) != 1 or self.streams[0].codecpar.codec_type != "audio":
+            raise InvalidData("wav muxer needs exactly one audio stream")
+        par = self.streams[0].codecpar
+        tag_bits = _CODEC_TO_TAG.get(par.codec_id)
+        if tag_bits is None:
+            raise InvalidData(f"wav: unsupported codec {par.codec_id}")
+        wtag, bits = tag_bits
+        io = self.io
+        io.write(b"RIFF")
+        self._riff_size_pos = io.tell()
+        io.wl32(0)  # patched in trailer
+        io.write(b"WAVE")
+        io.write(b"fmt ")
+        if par.codec_id in _ADPCM_CODECS:
+            raise Unsupported(f"wav: {par.codec_id} is not ported")
+        io.wl32(16)
+        balign = par.nb_channels * (bits // 8)
+        io.wl16(wtag)
+        io.wl16(par.nb_channels)
+        io.wl32(par.sample_rate)
+        io.wl32(par.sample_rate * balign)  # byte rate
+        io.wl16(balign)
+        io.wl16(bits)
+        io.write(b"data")
+        self._data_size_pos = io.tell()
+        io.wl32(0)  # patched in trailer
+        self._data_bytes = 0
+
+    def write_packet(self, pkt: Packet) -> None:
+        self.io.write(pkt.data)
+        self._data_bytes += len(pkt.data)
+
+    def write_trailer(self) -> None:
+        io = self.io
+        if self.metadata:
+            body = b"INFO"
+            for key, val in self.metadata.items():
+                tag = _KEY_TO_INFO.get(key.lower())
+                if tag is None:
+                    continue
+                v = val.encode() + b"\x00"
+                if len(v) & 1:
+                    v += b"\x00"
+                body += tag + struct.pack("<I", len(v)) + v
+            if body != b"INFO":
+                io.write(b"LIST" + struct.pack("<I", len(body)) + body)
+        if io.seekable:
+            end = io.tell()
+            io.seek(self._riff_size_pos)
+            io.wl32(end - 8)
+            io.seek(self._data_size_pos)
+            io.wl32(self._data_bytes)
+            io.seek(end)

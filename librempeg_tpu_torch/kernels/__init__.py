@@ -12,10 +12,11 @@ from librempeg_tpu_torch.kernels import (
     intra,
     mc,
     residual,
+    shape_scan,
 )
 
 MODULES = (mc, deblock, intra, hpel, hpel_luma, hpel_chroma, fsearch,
-           residual)
+           residual, shape_scan)
 
 
 def sources() -> list[str]:

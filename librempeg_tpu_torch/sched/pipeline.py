@@ -1,11 +1,14 @@
-"""Transcode pipeline for one video stream.
+"""Transcode pipeline: one chain per selected video and audio stream.
 
-Port of librempeg_tpu/sched/pipeline.py, cut to the slice: one H.264
+Port of librempeg_tpu/sched/pipeline.py, cut to the slices: an H.264
 video stream is decoded, run through a linear filter chain (null, scale,
-format; -pix_fmt appends format=) and encoded to MPEG-4 into an AVI.
-There is no codec registry: the chain wires the decoder, graph, encoder
-and muxer directly. Every device stage runs on `device` (default
-"cuda"; a missing card raises).
+format; -pix_fmt appends format=) and encoded to MPEG-4; an audio
+stream (PCM or AAC) is decoded, run through a linear audio chain
+(anull, aformat, aresample, volume, atrim; -ar appends aresample=,
+-ac aformat=channel_layouts=) and encoded to AAC or s16 PCM. There is
+no codec registry: each chain wires the decoder, graph, encoder and
+muxer directly and refuses the codecs it does not know. Every device
+stage runs on `device` (default "cuda"; a missing card raises).
 
 As in the JAX package, a worker thread overlaps the fetch of frame i's
 compacted levels and its host VLC packing with the decode of frame
@@ -22,10 +25,14 @@ import threading
 from dataclasses import dataclass, field
 from typing import Any
 
+from librempeg_tpu_torch.codecs import pcm
+from librempeg_tpu_torch.codecs.aac.codec import AacEncoder
+from librempeg_tpu_torch.codecs.aac.decoder import AacDecoder
 from librempeg_tpu_torch.codecs.h264.codec import H264Decoder
 from librempeg_tpu_torch.codecs.mpeg4.encoder import Mpeg4Encoder
 from librempeg_tpu_torch.core.errors import InvalidData, Unsupported
 from librempeg_tpu_torch.core.rational import Rational
+from librempeg_tpu_torch.core.samplefmt import ChannelLayout
 from librempeg_tpu_torch.device import resolve
 from librempeg_tpu_torch.filters import GraphRunner, StreamProps
 from librempeg_tpu_torch.formats.api import open_input, open_output
@@ -42,7 +49,9 @@ class StreamMap:
     width: int = 0                   # output size overrides
     height: int = 0
     pix_fmt: str = ""                # output pixel format override
-    frames_limit: int = 0            # -frames:v analog; 0 = unlimited
+    sample_rate: int = 0             # -ar: output sample rate
+    channels: int = 0                # -ac: output channel count
+    frames_limit: int = 0            # -frames:v/-frames:a; 0 = unlimited
 
 
 @dataclass
@@ -52,6 +61,9 @@ class TranscodeSpec:
     input_format: str | None = None
     output_format: str | None = None
     video: StreamMap | None = None
+    audio: StreamMap | None = None
+    no_video: bool = False           # -vn
+    no_audio: bool = False           # -an
     device: str = "cuda"
 
 
@@ -178,22 +190,144 @@ class _StreamChain:
         self._write(self.encoder.flush(), mux)
 
 
+def _audio_decoder(par, device):
+    """The port's decoder for an audio stream's codec."""
+    if par.codec_id in pcm.DECODERS:
+        return pcm.PcmDecoder(par.codec_id, par, device=device)
+    if par.codec_id == "aac":
+        return AacDecoder(par, device=device)
+    raise Unsupported(f"audio decoder {par.codec_id!r} is not ported "
+                      f"(pcm_*, aac)")
+
+
+def _audio_encoder(name, rate, channels, device, opts):
+    """The port's encoder for an audio codec name (aac, pcm_s16le); the
+    PCM encoder converts on the device its frames lie on."""
+    if name == "aac":
+        return AacEncoder(sample_rate=rate, channels=channels, device=device,
+                          **opts)
+    if name == "pcm_s16le":
+        return pcm.PcmEncoder(name, sample_rate=rate, channels=channels,
+                              **opts)
+    raise Unsupported(f"audio encoder {name!r} is not ported "
+                      f"(aac, pcm_s16le)")
+
+
+class _AudioChain:
+    """decode -> filter -> encode for one audio stream, synchronous."""
+
+    def __init__(self, in_stream, smap: StreamMap, out_mux, device):
+        par = in_stream.codecpar
+        self.smap = smap
+        self.frames_done = 0
+        self.eof = False
+        self.decoder = _audio_decoder(par, device)
+        nch = par.nb_channels or 2
+        # the decoder's own sample format (the JAX package says s16p for
+        # every codec, which scales an AAC decoder's floats by 2^-15)
+        fmt = (pcm._SAMPLE_FMT[par.codec_id] + "p"
+               if par.codec_id in pcm.DECODERS else "fltp")
+        props = StreamProps(
+            media="audio", sample_rate=par.sample_rate, sample_fmt=fmt,
+            layout=ChannelLayout.default(nch),
+            time_base=in_stream.time_base)
+        desc = smap.filters or "anull"
+        if smap.channels and smap.channels != nch:
+            # -ac: the JAX package parses it and never applies it
+            desc += (",aformat=channel_layouts="
+                     f"{ChannelLayout.default(smap.channels).name}")
+        if smap.sample_rate:
+            desc += f",aresample={smap.sample_rate}"
+        self.graph = GraphRunner(desc, props)
+        self._make_encoder = lambda rate, ch: _audio_encoder(
+            smap.codec, rate, ch, device, smap.codec_opts)
+        out = self.graph.output_props
+        self.encoder = self._make_encoder(
+            out.sample_rate, out.layout.nb_channels if out.layout else 2)
+        self.out_stream = out_mux.add_stream(
+            self.encoder.codec_parameters(), Rational(1, out.sample_rate))
+        self._in_rate = par.sample_rate
+        self._rate_locked = False
+
+    def send_packet(self, pkt, mux) -> None:
+        if self.eof:
+            return
+        with stage("audio.decode"):
+            frames = self.decoder.decode(pkt)
+        for frame in frames:
+            self._through_graph(frame, mux)
+
+    def _lock_rate(self, frame, mux) -> None:
+        """Late format discovery (the ffmpeg.c decoder-reconfig path):
+        HE-AAC doubles the rate only once SBR is seen in-band, so the
+        first decoded frame's rate retunes the chain while nothing is
+        encoded and no -ar is set, where the graph passes the rate
+        through. (The JAX package compares the frame's rate with the
+        graph's output, so -af aresample=R without -ar writes R-rate
+        samples under the input's rate.)"""
+        self._rate_locked = True
+        out = self.graph.output_props
+        rate = frame.sample_rate
+        if (rate and rate != self._in_rate and out.sample_rate == self._in_rate
+                and not self.smap.sample_rate and not mux.header_written):
+            out.sample_rate = rate
+            self.encoder = self._make_encoder(rate, self.encoder.channels)
+            self.out_stream.codecpar = self.encoder.codec_parameters()
+            self.out_stream.time_base = Rational(1, rate)
+
+    def _through_graph(self, frame, mux, flush=False) -> None:
+        if frame is not None and not self._rate_locked:
+            self._lock_rate(frame, mux)
+        with stage("audio.graph"):
+            outs = self.graph.push(frame) if frame is not None else []
+            if flush:
+                outs += self.graph.finish()
+        for f in outs:
+            if self.smap.frames_limit and \
+                    self.frames_done >= self.smap.frames_limit:
+                self.eof = True
+                return
+            self.frames_done += 1
+            with stage("audio.enc"):
+                self._write(self.encoder.encode(f), mux)
+
+    def _write(self, pkts, mux) -> None:
+        for pkt in pkts:
+            mux.write(pkt.replace(stream_index=self.out_stream.index))
+
+    def finish(self, mux) -> None:
+        if not self.eof:
+            for frame in self.decoder.flush():
+                self._through_graph(frame, mux)
+            self._through_graph(None, mux, flush=True)
+        # flushed after -frames:a too (the JAX package drops the tail)
+        self._write(self.encoder.flush(), mux)
+
+
 class Transcoder:
-    """Single input -> single output transcoder of one video stream."""
+    """Single input -> single output transcoder: one chain per video
+    and audio stream the output format takes (-vn, -an drop them)."""
 
     def __init__(self, spec: TranscodeSpec):
         self.spec = spec
         device = resolve(spec.device)
         self.demux = open_input(spec.input_url, spec.input_format)
         self.mux = open_output(spec.output_url, spec.output_format)
-        self.chains: dict[int, _StreamChain] = {}
+        self.chains: dict[int, Any] = {}
         for st in self.demux.streams:
-            if st.codecpar.codec_type == "video" and not self.chains:
+            media = st.codecpar.codec_type
+            if media not in type(self.mux).SUPPORTED_TYPES:
+                continue
+            if media == "video" and not spec.no_video:
                 smap = spec.video or StreamMap(codec="mpeg4")
                 self.chains[st.index] = _StreamChain(st, smap, self.mux,
                                                      device)
+            elif media == "audio" and not spec.no_audio:
+                smap = spec.audio or StreamMap(codec="pcm_s16le")
+                self.chains[st.index] = _AudioChain(st, smap, self.mux,
+                                                    device)
         if not self.chains:
-            raise InvalidData("no video stream to transcode")
+            raise InvalidData("no streams selected for transcoding")
 
     def run(self) -> dict:
         n_packets = 0

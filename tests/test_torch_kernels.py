@@ -26,6 +26,7 @@ from librempeg_tpu_torch.codecs.h264 import mc_pallas as MC
 from librempeg_tpu_torch.codecs.h264 import residual_pallas as RP
 from librempeg_tpu_torch.codecs.mpeg4 import me_pallas as MEP
 from librempeg_tpu_torch.ops.pallas import mesearch as MS
+from librempeg_tpu_torch.resample import dither as RD
 
 MB_W, MB_H = 7, 4
 NMB = MB_W * MB_H
@@ -153,6 +154,22 @@ def _residual_case(seed, dev, mb_w=9, mb_h=15):
     return torch.from_numpy(packed).to(dev), nmb
 
 
+def _shape_scan_case(seed, k, c, n, dev):
+    """The shaper scan's inputs: samples in LSB units (a full-scale
+    range, some at the clip), TPDF noise, the method's taps and a
+    carried error history."""
+    rng = np.random.default_rng(seed)
+    coefs = {5: "lipshitz", 3: "f_weighted"}[k]
+    x = np.clip(rng.normal(0, 9000, (c, n)), -32768, 32767)
+    noise = rng.random((c, n)) - rng.random((c, n))
+    err0 = rng.uniform(-0.5, 0.5, (k, c))
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+
+    return t(x), t(noise), t(RD._SHAPER_COEFS[coefs]), t(err0)
+
+
 def _card():
     if not torch.cuda.is_available():
         pytest.skip("no CUDA card: the kernels build and run only there")
@@ -174,16 +191,18 @@ def test_cpu_tensors_take_the_plain_versions():
     MS.full_search_mc(*_fsearch_case(0, "cpu"), 4)
     packed, nmb = _residual_case(0, "cpu")
     RP.expand_residual(packed, None, nmb)
+    RD.shape_scan(*_shape_scan_case(0, 5, 2, 64, "cpu"))
     assert kernels.counts() == {"mc": 0, "deblock": 0, "intra": 0,
                                 "hpel": 0, "hpel_luma": 0,
                                 "hpel_chroma": 0, "fsearch": 0,
-                                "residual": 0}
+                                "residual": 0, "shape_scan": 0}
 
 
 @pytest.mark.parametrize("name,replaces", [
     ("mc.cu", "mc_pallas.py"), ("deblock.cu", "deblock_pallas.py"),
     ("intra.cu", "intra_pallas.py"), ("hpel.cu", "me_pallas.py"),
-    ("fsearch.cu", "mesearch.py"), ("residual.cu", "residual_pallas.py")])
+    ("fsearch.cu", "mesearch.py"), ("residual.cu", "residual_pallas.py"),
+    ("shape_scan.cu", "dither.py")])
 def test_kernel_sources_carry_their_notes(name, replaces):
     """Each source names the Pallas kernel it replaces and what bounds
     it on the card."""
@@ -520,3 +539,21 @@ def test_residual_kernel(seed):
     packed, nmb = _residual_case(seed, dev)
     _eq(RP.expand_residual(packed, None, nmb),
         RP.expand_residual_plain(packed, nmb), "residual")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [3, 5])
+@pytest.mark.parametrize("c,n", [(1, 1), (2, 4096), (6, 777), (40, 300)])
+def test_shape_scan_kernel(k, c, n):
+    """One thread per channel against the plain loop over samples, from
+    a carried history; then a second call carries the first's."""
+    dev = _card()
+    x, noise, coefs, err0 = _shape_scan_case(c * 7 + k, k, c, n, dev)
+    got = RD.shape_scan(x, noise, coefs, err0)
+    want = RD.shape_scan_plain(x, noise, coefs, err0)
+    torch.cuda.synchronize()
+    _eq(got[0], want[0], f"shape_scan y k={k} c={c} n={n}")
+    _eq(got[1], want[1], f"shape_scan hist k={k} c={c} n={n}")
+    got2 = RD.shape_scan(x, noise, coefs, got[1])
+    want2 = RD.shape_scan_plain(x, noise, coefs, want[1])
+    _eq(got2[0], want2[0], "shape_scan y, second call")

@@ -9,14 +9,19 @@ jax* and librempeg_tpu* module and installs an import hook that refuses
 them, then imports the port, runs the slice on the CPU, imports the
 kernel-leg modules and runs one transcode step, then converts a frame to
 yuvj420p and encodes one B group (trellis on) and decodes it with the
-port's own MPEG-4 decoder.
+port's own MPEG-4 decoder, then runs the audio slice (1 s of WAV ->
+-ar 48000 -c:a aac -b:a 128k -> ADTS), decodes it with the port's AAC
+decoder and imports every audio module.
 """
 import ast
 import os
 import subprocess
 import sys
 
+from test_torch_audio_slice import write_wav
 from test_torch_slice import make_clip
+
+from librempeg_tpu_torch.utils import testgen
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "librempeg_tpu_torch")
@@ -104,9 +109,27 @@ for i in range(3):
 pkts += enc.flush()
 dec = Mpeg4Decoder()
 decoded = [fr for p in pkts for fr in dec.decode(p)] + dec.flush()
+
+import librempeg_tpu_torch.compat
+import librempeg_tpu_torch.filters.audio
+import librempeg_tpu_torch.kernels.shape_scan
+from librempeg_tpu_torch.codecs.aac import sbr, sbr_tables
+from librempeg_tpu_torch.codecs.aac.decoder import AacDecoder
+from librempeg_tpu_torch.formats.api import open_input
+from librempeg_tpu_torch.ops import tx
+from librempeg_tpu_torch.resample import Swr
+
+astats = Transcoder(TranscodeSpec(
+    input_url=sys.argv[4], output_url=sys.argv[5], device="cpu",
+    audio=StreamMap(codec="aac", sample_rate=48000,
+                    codec_opts={"bit_rate": 128000}))).run()
+demux = open_input(sys.argv[5])
+adec = AacDecoder(demux.streams[0].codecpar, device="cpu")
+pcm = torch.cat([adec.decode(p)[0].data for p in demux.packets()], 1)
 leaked = sorted(m for m in sys.modules if banned(m))
 assert not leaked, leaked
 print("frames", stats["frames"][0])
+print("audio", demux.streams[0].codecpar.sample_rate, tuple(pcm.shape))
 print("step", tuple(out["y"].shape), tuple(out["mv"].shape))
 print("bgroup", "".join("IPBS"[bytes(p.data)[bytes(p.data).index(
     b"\x00\x00\x01\xb6") + 4] >> 6] for p in pkts), len(decoded))
@@ -116,10 +139,13 @@ print("bgroup", "".join("IPBS"[bytes(p.data)[bytes(p.data).index(
 def test_slice_runs_without_jax(tmp_path):
     src, out = tmp_path / "clip.264", tmp_path / "out.avi"
     make_clip(src)
+    wav, aac = tmp_path / "in.wav", tmp_path / "out.aac"
+    write_wav(wav, testgen.s16(testgen.audio_mix(44100, 44100)), 44100)
     env = dict(os.environ)
     env.pop("PYTHONPATH", None)
     proc = subprocess.run(
-        [sys.executable, "-c", _CHILD, REPO, str(src), str(out)],
+        [sys.executable, "-c", _CHILD, REPO, str(src), str(out), str(wav),
+         str(aac)],
         capture_output=True, text=True, env=env, cwd=str(tmp_path),
         timeout=600)
     assert proc.returncode == 0, proc.stderr[-3000:]
@@ -127,3 +153,6 @@ def test_slice_runs_without_jax(tmp_path):
     assert "step (1, 32, 64) (1, 2, 4, 2)" in proc.stdout
     assert "bgroup IPB 3" in proc.stdout
     assert out.stat().st_size > 1000
+    # 48000 resampled samples: 47 frames, the padded last and the flush
+    assert "audio 48000 (2, 49152)" in proc.stdout
+    assert aac.stat().st_size > 10000

@@ -1,21 +1,27 @@
 #!/usr/bin/env python3
-"""Time text variants of the intra, half-pel and MC kernels on the card.
+"""Time text variants of the intra, half-pel, MC and shaper kernels on
+the card.
 
     python3 tools/kernel_variants.py [--rounds N] [--parent DIR] [SOURCE ...]
 
 Each variant is csrc/<source>.cu with a few text replacements (VARIANTS
-below; SOURCE picks some of intra, hpel, mc, default all), built with
+below; SOURCE picks some of intra, hpel, mc, shape_scan, default all),
+built with
 the flags of kernels/_build.py into a temporary directory and put in
 place of the package's library, so the package's wrappers launch it. On
 the bench inputs chip_smoke.py uses (the intra and MC kernels on the
 first P frame of assets/bench_1080p.264, the half-pel kernels on the
-encoder's first P-VOP at 1280x720), every entry of a variant must equal
+encoder's first P-VOP at 1280x720, the shaper on one convert of the
+audio path: 2 x 1120 samples of testgen.audio_mix resampled to 48 kHz
+in LSB units, the lipshitz ditherer's noise, K = 5), every entry of a
+variant must equal
 its plain version bit for bit (the run fails otherwise); then the device
 time of each entry (the median of 25 calls, chip_smoke.device_ms) is
 taken in turns, base first and last, N rounds (default 2), with each
 kernel's SASS instruction count (tools/kernel_resources.py). The entries
 timed: intra (and intra1, the first list entry alone); hpel (the fused
-kernel), hpel_luma and hpel_chroma; mc. --parent DIR adds the variant
+kernel), hpel_luma and hpel_chroma; mc; shape_scan. --parent DIR adds
+the variant
 "parent": the source of the checkout at DIR (an earlier commit, unpacked
 with git archive), timed in the same turns; entries whose C function it
 lacks are left out. The first line after the card's name is the device
@@ -68,6 +74,9 @@ _CHROMA_NEEDED = """  for (int j = 0; j < 3; ++j) {
     su[j] = row ? bytes4(cu + j * wc, cix, n) : 0u;
     sv[j] = row ? bytes4(cv + j * wc, cix, n) : 0u;
   }"""
+_CHUNK = "constexpr int U = 32;"
+_WHOLE = "if (base + U <= N) {"
+_RINT = "rintf(__fadd_rn(want, di));"
 _QMPACK = "constexpr uint64_t kQMLo = qm_pack(0), kQMHi = qm_pack(1);"
 _QMREAD = ("const int q = (int)(((key & 8) ? kQMHi : kQMLo) >> "
            "(8 * (key & 7))) & 0xff;")
@@ -132,18 +141,32 @@ VARIANTS = {
         "needed_words": [(_BYTES4, _ROW_BYTES),
                          (_CHROMA_ROWS, _CHROMA_NEEDED)],
     },
+    "shape_scan": {
+        # every chunk checked sample by sample, as the last one is
+        "guarded": [(_WHOLE, "if (false) {")],
+        # rounding by adding and subtracting 1.5 * 2^23 (exact only
+        # below 2^22 in magnitude: s16 and u8 samples, not s32)
+        "magic_round": [(_RINT, "__fsub_rn(__fadd_rn(__fadd_rn(want, di), "
+                                "12582912.0f), 12582912.0f);")],
+        # samples loaded a chunk ahead of the chain
+        "u8": [(_CHUNK, "constexpr int U = 8;")],
+        "u16": [(_CHUNK, "constexpr int U = 16;")],
+        "u64": [(_CHUNK, "constexpr int U = 64;")],
+    },
 }
 # the kernels of each source whose SASS is counted (a part of the
 # mangled name)
 # the C function each entry calls
 ENTRY_FNS = {"intra": "intra_scan", "intra1": "intra_scan",
              "hpel": "hpel_refine_mc", "hpel_luma": "refine_mc_luma",
-             "hpel_chroma": "mc_chroma", "mc": "mc_predict"}
+             "hpel_chroma": "mc_chroma", "mc": "mc_predict",
+             "shape_scan": "shape_scan"}
 KERNEL_FNS = {"intra": {"intra": "intra_kernel"},
               "hpel": {"hpel": "hpel_kernelILb1E",
                        "hpel_luma": "hpel_kernelILb0E",
                        "hpel_chroma": "chroma_kernel"},
-              "mc": {"mc": "mc_kernel"}}
+              "mc": {"mc": "mc_kernel"},
+              "shape_scan": {"shape_scan": "shape_scan_kernelILi5E"}}
 
 
 def _constant_qm() -> str:
@@ -195,8 +218,29 @@ def sass_count(name: str, path: str, tmp: str) -> dict:
             for label, part in KERNEL_FNS[name].items()}
 
 
-def inputs():
-    """{source: the bench inputs of its kernels}."""
+def scan_inputs(n: int = 1120):
+    """One convert of the dithered audio path: [2, n] samples resampled
+    from 44.1 to 48 kHz in LSB units, the lipshitz noise, its taps and a
+    zero history."""
+    import torch
+
+    from librempeg_tpu_torch.resample import dither as RD
+    from librempeg_tpu_torch.resample.resampler import Resampler
+    from librempeg_tpu_torch.utils import testgen
+
+    x = torch.from_numpy(testgen.audio_mix(44100, 2 * n)).cuda()
+    r = Resampler(44100, 48000, 2, device="cuda")
+    xl = (r.process(x.float()) * 32768.0)[:, :n].contiguous()
+    noise = torch.from_numpy(RD.Ditherer("lipshitz")._noise((2, n))).cuda()
+    cs = RD._SHAPER_COEFS["lipshitz"]
+    return (xl, noise, torch.tensor(cs, dtype=torch.float32, device="cuda"),
+            torch.zeros((len(cs), 2), dtype=torch.float32, device="cuda"))
+
+
+def inputs(names):
+    """{source: the bench inputs of its kernels}, for the sources named."""
+    if names == ["shape_scan"]:
+        return {"shape_scan": scan_inputs()}
     import chip_smoke as CS
     from librempeg_tpu_torch.codecs.h264 import device_recon as DR
     from librempeg_tpu_torch.codecs.h264 import intra_pallas as IP
@@ -211,7 +255,8 @@ def inputs():
         *pred, idx, vals, qp, kind, mb_w, mb_h, cqo, fold_i16=True)
     scal = IP.build_intra_scalars(ilist, kind, info, i4m, mb_w, mb_h)
     return {"intra": ((y, u, v), scal, lres_t, cres_t, mb_w, mb_h),
-            "hpel": CS.hpel_inputs("cuda", frames), "mc": margs}
+            "hpel": CS.hpel_inputs("cuda", frames), "mc": margs,
+            "shape_scan": scan_inputs()}
 
 
 def _pure(fn, plain, args):
@@ -242,6 +287,11 @@ def runners(name, ins) -> dict:
 
     if name == "mc":
         return {"mc": _pure(MC.mc_predict, MC.mc_predict_plain, ins["mc"])}
+    if name == "shape_scan":
+        from librempeg_tpu_torch.resample import dither as RD
+
+        return {"shape_scan": _pure(RD.shape_scan, RD.shape_scan_plain,
+                                    ins["shape_scan"])}
     if name == "hpel":
         cur, ry, ru, rv, mv_i = ins["hpel"]
         mv_h = MEP.refine_mc_luma_plain(cur, ry, mv_i)[0]
@@ -299,7 +349,7 @@ def main(argv) -> int:
     print(f"device floor: {CS.floor_ms()} ms (an empty kernel)", flush=True)
     for name in names:
         _build.load(name)
-    ins = inputs()
+    ins = inputs(names)
     out = {"device": smi}
     with tempfile.TemporaryDirectory() as tmp:
         for name in names:

@@ -19,7 +19,15 @@ Runs the JAX package (the reference) on the CPU:
   the encoder's input, in display order, and rows OFF::RS of the three
   planes of the first yuvj420p frame the encoder takes.
 
-Usage: python tools/torch_port_goldens.py [--calibrate | --check-port]
+* with --audio, only the audio goldens: 10 s of testgen.audio_mix at
+  44.1 kHz stereo s16 as a WAV (its md5), through -ar 48000 -c:a
+  pcm_s16le (the resampled length and 16 windows of 1024 samples) and
+  -ar 48000 -c:a aac -b:a 128k (every packet's pts and size, the total
+  bytes, and the JAX package's decoder's SNR on its own stream against
+  its resampled input) into tests/data/torch_port/audio_aac.npz.
+
+Usage: python tools/torch_port_goldens.py [--audio] [--calibrate |
+       --check-port]
 
 --calibrate also runs the options transcode through the port on the CPU
 and prints its agreement with the JAX package's: the share of the first
@@ -35,6 +43,11 @@ bench_1080p_options.npz as chip_smoke.py's options phase does (the
 quantisers, and the decoded I/P and B PSNR means within
 OPTIONS_PSNR_TOL_DB). Run from a copy of the repo with a fault planted
 in the port, it reads how far that fault moves those numbers.
+
+With --audio, --calibrate also runs chip_smoke.py's audio checks on the
+port on the CPU with no limits and prints what they read (the numbers
+the audio phase's limits come from); --check-port runs them with
+chip_smoke.py's limits against the stored npz and writes nothing.
 """
 from __future__ import annotations
 
@@ -80,6 +93,7 @@ OPTIONS_PIX_FMT = "yuvj420p"
 OFF, RS = 3, 7
 # chip_smoke.py's limit on the decoded PSNR means of the options path
 OPTIONS_PSNR_TOL_DB = 0.02
+AUDIO_OUT = os.path.join(OUT, "audio_aac.npz")
 
 
 def frame_md5(planes) -> str:
@@ -320,6 +334,90 @@ def check_port() -> bool:
     return ok
 
 
+def audio_goldens() -> dict:
+    """The JAX package's audio transcodes of chip_smoke.py's clip."""
+    import chip_smoke as CS
+
+    from librempeg_tpu.codecs.aac.decoder import AacDecoder
+    from librempeg_tpu.core.packet import Packet
+    from librempeg_tpu.formats import api as FA
+    from librempeg_tpu.utils import testgen
+
+    x = testgen.s16(testgen.audio_mix(CS.AUDIO_IN_RATE,
+                                      CS.AUDIO_IN_RATE * CS.AUDIO_SECONDS))
+    with tempfile.TemporaryDirectory() as td:
+        wav = os.path.join(td, "in.wav")
+        mux = FA.open_output(wav)
+        mux.add_stream(FA.CodecParameters(
+            codec_type="audio", codec_id="pcm_s16le",
+            sample_rate=CS.AUDIO_IN_RATE, nb_channels=2))
+        mux.write(Packet(data=np.ascontiguousarray(x.T).tobytes(), pts=0))
+        mux.close()
+        md5 = hashlib.md5(open(wav, "rb").read()).hexdigest()
+
+        def run(out, **smap):
+            tc = Transcoder(TranscodeSpec(
+                input_url=wav, output_url=os.path.join(td, out),
+                audio=StreamMap(**smap)))
+            pk, write = [], tc.mux.write
+
+            def rec(p):
+                pk.append((p.pts, len(p.data)))
+                write(p)
+
+            tc.mux.write = rec
+            tc.run()
+            return os.path.join(td, out), pk
+
+        rs_path, _ = run("rs.wav", codec="pcm_s16le",
+                         sample_rate=CS.AUDIO_OUT_RATE)
+        d = FA.open_input(rs_path)
+        rs = np.frombuffer(b"".join(bytes(p.data) for p in d.packets()),
+                           "<i2").reshape(-1, 2).T
+        aac_path, pk = run("out.aac", codec="aac",
+                           sample_rate=CS.AUDIO_OUT_RATE,
+                           codec_opts={"bit_rate": CS.AUDIO_BIT_RATE})
+        data = open(aac_path, "rb").read()
+        d = FA.open_input(aac_path)
+        dec = AacDecoder(d.streams[0].codecpar)
+        decoded = np.concatenate([np.asarray(dec.decode(p)[0].data)
+                                  for p in d.packets()], 1)
+    starts = np.linspace(0, rs.shape[1] - CS.AUDIO_WIN, 16).astype(np.int64)
+    return {"wav_md5": md5, "rs_len": rs.shape[1], "rs_win_starts": starts,
+            "rs_windows": np.stack([rs[:, s:s + CS.AUDIO_WIN]
+                                    for s in starts]),
+            "aac_pts": np.array([p for p, _ in pk], np.int64),
+            "aac_sizes": np.array([n for _, n in pk], np.int32),
+            "aac_bytes": len(data), "aac_snr_db": CS.snr_db(rs, decoded)}
+
+
+def audio_port(limits: bool) -> bool:
+    """chip_smoke.py's audio checks on the port on the CPU against the
+    stored npz, with its limits (or none); prints what they read."""
+    import chip_smoke as CS
+
+    if not limits:
+        CS.AUDIO_RS_SHARE = CS.AUDIO_BYTES_TOL = CS.AUDIO_SNR_TOL_DB = \
+            float("inf")
+    gold = np.load(AUDIO_OUT)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as td:
+        try:
+            r = CS.audio_transcode_checks("cpu", td, gold)
+        except RuntimeError as e:
+            print(f"port audio checks on the CPU: FAIL: {e}")
+            return False
+    rel = r["aac_bytes"] / r["golden_aac_bytes"] - 1
+    print(f"port audio checks on the CPU ({time.perf_counter() - t0:.1f} s"
+          f"): resampled windows {r['rs_share_differ']:.6f} of samples "
+          f"differ; AAC {r['packets']} packets, {r['aac_bytes']} bytes (JAX "
+          f"{r['golden_aac_bytes']}, {rel:+.5f}), decoded SNR {r['snr_db']:.4f} dB (JAX "
+          f"{r['golden_snr_db']:.4f}, {r['snr_db'] - r['golden_snr_db']:+.4f})"
+          f"; -ac 1 max |d| {r['ac_max_err_lsb']:.3f} LSB; limits "
+          f"{'on' if limits else 'off'}: pass")
+    return True
+
+
 def main(argv) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--calibrate", action="store_true",
@@ -328,7 +426,23 @@ def main(argv) -> None:
     ap.add_argument("--check-port", action="store_true",
                     help="only run the port's options transcode on the "
                     "CPU against the stored goldens; write nothing")
+    ap.add_argument("--audio", action="store_true",
+                    help="only the audio goldens (audio_aac.npz)")
     args = ap.parse_args(argv)
+    if args.audio:
+        if args.check_port:
+            sys.exit(0 if audio_port(limits=True) else 1)
+        os.makedirs(OUT, exist_ok=True)
+        t0 = time.perf_counter()
+        gold = audio_goldens()
+        np.savez_compressed(AUDIO_OUT, **gold)
+        print(f"audio goldens (JAX, CPU, {time.perf_counter() - t0:.1f} s): "
+              f"{len(gold['aac_pts'])} packets, {gold['aac_bytes']} bytes, "
+              f"decoded SNR {gold['aac_snr_db']:.4f} dB, resampled length "
+              f"{gold['rs_len']}, WAV md5 {gold['wav_md5']}")
+        if args.calibrate:
+            audio_port(limits=False)
+        return
     if args.check_port:
         sys.exit(0 if check_port() else 1)
     os.makedirs(OUT, exist_ok=True)

@@ -12,12 +12,15 @@ raises and the script exits non-zero:
 3. one phase per kernel: the kernel against its plain PyTorch version on
    the card, on real inputs, with the median of 25 synchronised runs of
    each (host wall time, wrapper included: ms, plain_ms), the median
-   device time of 25 calls by CUDA events (device_ms), and the least
-   time the card could take for the same work (bound_ms, from the
-   call's shapes: the bytes moved at 3.35 TB/s or the operations at
-   67 TFLOP/s, whichever is longer). A torch.profiler window over one
-   intra, one deblock, one mc and one hpel call must show each as one
-   kernel launch and nothing else. The H.264 kernels (mc, intra,
+   device time of 25 calls by CUDA events, each behind a stream sleep
+   (device_ms, the launch floor included), the device time of one call
+   of 25 issued back to back between one event pair (device_ms_b2b, the
+   median of 3 such runs), and the least time the card could take for
+   the same work (bound_ms, from the call's shapes: the bytes moved at
+   3.35 TB/s or the operations at 67 TFLOP/s, whichever is longer). A
+   torch.profiler window over one intra, one deblock, one mc, one hpel
+   and one residual call must show each as one kernel launch and
+   nothing else. The H.264 kernels (mc, intra,
    deblock, residual) take the first P frame of assets/bench_1080p.264,
    the residual kernel through the windowless packer; the half-pel
    kernels (hpel, the fused form of the encoder's path, and its per-MB
@@ -57,14 +60,15 @@ raises and the script exits non-zero:
    golden's sampled windows), the AAC packets' pts exact, every ADTS
    header valid, the bytes and the port's decoded SNR within limits of
    the JAX package's, and -ac 1 on 2 s (mono, the rematrix within 1
-   LSB). The noise shaper's kernel (shape_scan) is held bit-exact to its
-   plain version on the resampled clip with both shapers, in two chunks,
-   then launches once per WAV packet of -af aresample=48000:
-   dither_method=lipshitz -c:a pcm_s16le over the whole clip, every
-   launch replayed bit-exact through the plain version; the phase
-   prints the stage split, the realtime factor,
-   the MDCT's device time apart from the host quantiser, and its wall
-   time;
+   LSB). The noise shaper's kernel (shape_scan) is held equal by value
+   (its fast rounding may give +0.0 where rint gives -0.0; see
+   csrc/shape_scan.cu) to its plain version on the resampled clip with
+   both shapers, in two chunks, then launches once per WAV packet of
+   -af aresample=48000:dither_method=lipshitz -c:a pcm_s16le over the
+   whole clip, every launch replayed through the plain version and
+   equal by value; the phase prints the stage split, the realtime
+   factor, the MDCT's device time apart from the host quantiser, and
+   its wall time;
 8. kernel leg: parallel.transcode_step as bench.py's kernel leg runs it
    (8 testgen frames 1920x1088 -> 1280x720, qscale 4, 4 chained steps),
    held to the JAX package's goldens (tests/data/torch_port/
@@ -100,6 +104,9 @@ F32_OPS_S = 67e12
 # the stream sleeps this long (about 1 ms) before each timed call, so
 # the host's enqueue of the call does not show in its device time
 SLEEP_CYCLES = 2_000_000
+# the sleep before a back-to-back run (about 25 ms): the host issues its
+# RUNS calls meanwhile (device_ms_b2b)
+B2B_SLEEP_CYCLES = 50_000_000
 NO_LIBRARY = ("no single PyTorch call computes this function (a search "
               "argmin, an order-dependent filter chain, a serial "
               "prediction walk, sub-pel MC at per-block MVs, an integer "
@@ -260,6 +267,39 @@ def device_ms(fn, restore=None, runs: int = RUNS, warm: int = 3) -> float:
     return statistics.median(a.elapsed_time(b) for a, b in pairs)
 
 
+def device_ms_b2b(fn, prepare=None, runs: int = RUNS, windows: int = 3,
+                  warm: int = 3) -> float:
+    """Device time of one call of fn() in ms without the launch floor:
+    the median over `windows` windows of `runs` calls issued back to
+    back between one event pair, behind one long sleep of the stream,
+    divided by `runs`. Whatever fn launches (a fill, a copy) is in the
+    window. The sleep must outlast the host's issue of the calls: if the
+    card has reached the first event when the last call is issued, the
+    host set the pace, and the run fails. Kernels that write their
+    inputs take prepare(), which makes one call's inputs, and fn(inputs);
+    a window's `runs` inputs are made before its sleep."""
+    import torch
+
+    for _ in range(warm):
+        fn() if prepare is None else fn(prepare())
+    per = []
+    for _ in range(windows):
+        ins = None if prepare is None else [prepare() for _ in range(runs)]
+        torch.cuda.synchronize()
+        torch.cuda._sleep(B2B_SLEEP_CYCLES)
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for i in range(runs):
+            fn() if ins is None else fn(ins[i])
+        e1.record()
+        check(not e0.query(), "device_ms_b2b: the card reached the first "
+              "event before the host had issued the last call")
+        torch.cuda.synchronize()
+        per.append(e0.elapsed_time(e1) / runs)
+    return statistics.median(per)
+
+
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -276,18 +316,26 @@ def bound(moved: int, ops: float) -> dict:
             "library_note": NO_LIBRARY}
 
 
-def floor_ms() -> float:
-    """device_ms of an empty kernel (a stream sleep of 0 cycles): what
-    the timing gives for a launch that does no work."""
+def floor_ms() -> dict:
+    """device_ms and device_ms_b2b of an empty kernel (a stream sleep of
+    0 cycles): what each timing gives for a launch that does no work."""
     import torch
 
-    return device_ms(lambda: torch.cuda._sleep(0))
+    def empty():
+        torch.cuda._sleep(0)
+    return {"device_ms": device_ms(empty),
+            "device_ms_b2b": device_ms_b2b(empty)}
 
 
-def timed(fn, restore=None) -> dict:
-    """Wall ms (host clock around a synchronise, wrapper included) and
-    device ms of fn()."""
-    return {"ms": median_ms(fn, restore), "device_ms": device_ms(fn, restore)}
+def timed(fn, restore=None, inplace=None) -> dict:
+    """Wall ms (host clock around a synchronise, wrapper included),
+    device ms and back-to-back device ms of fn(); a kernel that writes
+    its inputs passes inplace = (prepare, run) for the back-to-back run
+    (device_ms_b2b)."""
+    b2b = device_ms_b2b(fn) if inplace is None else device_ms_b2b(
+        inplace[1], inplace[0])
+    return {"ms": median_ms(fn, restore), "device_ms": device_ms(fn, restore),
+            "device_ms_b2b": b2b}
 
 
 def mc_read_bytes(luma4, upad, vpad, mv, ref, mb_w: int) -> int:
@@ -522,12 +570,15 @@ def kernel_phases(dev) -> dict:
     n_i4 = int((kind[ilist.long()] == 2).sum())
     steps = IP.dependent_steps(ilist.tolist(), mb_w)
 
-    def run_intra():
-        KI.launch(*iwork, scal, lres_t, cres_t, mb_w, mb_h)
+    def run_intra(planes=iwork):
+        KI.launch(*planes, scal, lres_t, cres_t, mb_w, mb_h)
+
+    def fresh_planes(src=(y, u, v)):
+        return [p.clone() for p in src]
 
     res["intra"] = {
         "max_abs_err": err,
-        **timed(run_intra, restore_intra),
+        **timed(run_intra, restore_intra, (fresh_planes, run_intra)),
         "plain_ms": median_ms(lambda: IP.intra_scan_plain(
             y, u, v, scal, lres_t, cres_t, mb_w, mb_h)),
         # per intra MB: its 384 samples written, about 75 neighbour
@@ -555,9 +606,15 @@ def kernel_phases(dev) -> dict:
         for w_, p in zip(work, (y, u, v)):
             w_.copy_(p)
 
+    def run_db(planes=work):
+        KD.launch(*planes, P, mb_w, mb_h)
+
+    def fresh_db(src=(y, u, v)):
+        return [p.clone() for p in src]
+
     res["deblock"] = {
         "max_abs_err": err,
-        **timed(lambda: KD.launch(*work, P, mb_w, mb_h), restore_db),
+        **timed(run_db, restore_db, (fresh_db, run_db)),
         "params_ms": median_ms(lambda: DP.deblock_params(
             idx, vals, mv, ref, qp, kind, mb_w, mb_h, cqo, ao, bo)),
         "plain_ms": median_ms(lambda: DR.deblock_frame(
@@ -616,16 +673,6 @@ def kernel_phases(dev) -> dict:
         **bound(nbytes(*cargs) + 2 * nbytes(ru), 2 * ru.numel() * 8),
         "shape": "2x 640x360, 3600 MBs"}
 
-    restore_db()
-    restore_intra()
-    checked = launch_check({
-        "intra": run_intra,
-        "deblock": lambda: KD.launch(*work, P, mb_w, mb_h),
-        "mc": lambda: KM.launch(*margs),
-        "hpel": lambda: KH.launch(*hargs)})
-    for name, c in checked.items():
-        res[name]["launch_check"] = c
-
     # residual: the P frame's coefficients as compact rows (no window:
     # the JAX package's packer cannot take this frame)
     coeffs = DR.dense_coeffs(idx, vals, nmb)
@@ -649,12 +696,23 @@ def kernel_phases(dev) -> dict:
         **timed(lambda: RP.expand_residual(packed, None, nmb)),
         "plain_ms": median_ms(lambda: RP.expand_residual_plain(packed,
                                                                nmb)),
-        # the packed rows read, the dense output written (the zero fill
-        # included); per row a dequantised 4x4 butterfly, about 96
-        # operations
+        # the packed rows read, the dense output written (each float
+        # once, zeros included); per row a dequantised 4x4 butterfly,
+        # about 96 operations
         **bound(nbytes(packed, got), len(ids) * 96),
         "shape": f"{len(ids)} rows, {nmb} MBs (the JAX packer's 512-row "
                  f"window {'holds' if windowed else 'overflows'})"}
+    restore_db()
+    restore_intra()
+    checked = launch_check({
+        "intra": run_intra,
+        "deblock": lambda: KD.launch(*work, P, mb_w, mb_h),
+        "mc": lambda: KM.launch(*margs),
+        "hpel": lambda: KH.launch(*hargs),
+        "residual": lambda: RP.expand_residual(packed, None, nmb)})
+    for name, c in checked.items():
+        res[name]["launch_check"] = c
+
     return res
 
 
@@ -1416,7 +1474,7 @@ def audio_phase(dev) -> dict:
     # dither_method=lipshitz -c:a pcm_s16le over the clip, one convert
     # (one launch) per WAV packet. Every launch is recorded (its inputs
     # and outputs are fresh tensors that nothing writes afterwards) and
-    # replayed through the plain version below, bit-exact.
+    # replayed through the plain version below, equal by value.
     calls = []
     kernel = RD.shape_scan
 
@@ -1488,7 +1546,8 @@ def audio_phase(dev) -> dict:
         "library_note": "no single PyTorch call computes an error-feedback "
                         "quantiser",
         "shape": f"2 channels x {n} samples (a convert of the path), "
-                 f"K={k}; bit-exact on all {launches} launches of the path "
+                 f"K={k}; equal by value on all {launches} launches of the "
+                 f"path "
                  f"and at 2 x {SCAN_N} in two chunks, both shapers"}
     w = torch.randn(2, 2048, device=dev)
     mdct_ms = device_ms(lambda: tx.mdct(w))
@@ -1555,8 +1614,9 @@ def main(argv: list[str]) -> int:
             log(f"build {name}: {dt:.2f} s")
     log(f"build all: {time.perf_counter() - t0:.2f} s")
 
-    log(f"device floor: an empty kernel takes {floor_ms():.4f} ms by the "
-        f"kernels' device timing")
+    fl = floor_ms()
+    log(f"device floor: an empty kernel takes {fl['device_ms']:.4f} ms by "
+        f"device_ms, {fl['device_ms_b2b']:.4f} ms by device_ms_b2b")
     kres = kernel_phases(dev)
     leg = leg_inputs(dev)
     kres["fsearch"] = fsearch_phase(dev, leg)
@@ -1565,10 +1625,11 @@ def main(argv: list[str]) -> int:
             f"bit-exact on integer inputs; float inputs: MVs equal on "
             f"{r['float_mv_equal']:.6f}, cost rel err "
             f"{r['float_cost_rel_err']:.2e}")
-        log(f"kernel {name}: {exact}, device {r['device_ms']:.4f} ms, wall "
+        log(f"kernel {name}: {exact}, device {r['device_ms']:.4f} ms, back "
+            f"to back {r['device_ms_b2b']:.4f} ms, wall "
             f"{r['ms']:.3f} ms vs plain {r['plain_ms']:.3f} ms, bound "
             f"{r['bound_ms']:.4f} ms by {r['bound_by']} ({r['shape']})")
-    for name in ("deblock", "intra", "mc", "hpel"):
+    for name in ("deblock", "intra", "mc", "hpel", "residual"):
         log(f"{name} on the card: {kres[name]['launch_check']} "
             f"(torch.profiler, one call)")
 
@@ -1620,8 +1681,8 @@ def main(argv: list[str]) -> int:
         f"frame aac.mdct stage (launch and fetch) "
         f"{a['mdct_stage_ms_per_frame']:.3f} ms, host quantiser "
         f"{a['quant_ms_per_frame']:.3f} ms")
-    log(f"kernel shape_scan: bit-exact, device {kr['device_ms']:.4f} ms, "
-        f"wall {kr['ms']:.3f} ms vs plain {kr['plain_ms']:.3f} ms, bound "
+    log(f"kernel shape_scan: equal by value, device {kr['device_ms']:.4f} ms, "
+        f"back to back {kr['device_ms_b2b']:.4f} ms, wall {kr['ms']:.3f} ms vs plain {kr['plain_ms']:.3f} ms, bound "
         f"{kr['bound_ms']:.4f} ms by {kr['bound_by']} ({kr['bound_note']}; "
         f"{kr['shape']}); {kr['launches']} launches over the dithered "
         f"path ({a['dither_path_s']:.3f} s, SNR {a['dither_snr_db']:.2f} dB "
@@ -1650,7 +1711,8 @@ def main(argv: list[str]) -> int:
          "launches": launches[name], "path": KERNELS[name][3],
          "launches_options": o["launches"][name],
          **{k: kres[name][k] for k in (
-             "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+             "max_abs_err", "ms", "device_ms", "device_ms_b2b", "plain_ms",
+             "bound_ms",
              "bound_by", "library_ms", "library_note")}}
         for name in KERNELS]}
     log(json.dumps(record))

@@ -154,11 +154,13 @@ def expand_residual_plain(packed: torch.Tensor, nmb: int) -> torch.Tensor:
 
 
 def expand_residual(packed: torch.Tensor, offw, nmb: int) -> torch.Tensor:
-    """packed [K,24] i16 compact rows (unique ids; pad rows carry an id
-    of nmb*24 or more) -> [out_rows(nmb), 384] f32 spatial residual.
-    offw, the TPU kernel's window starts, is accepted and not needed.
-    CPU tensors take the plain version; CUDA tensors launch the
-    kernel."""
+    """packed [K,24] i16 compact rows -> [out_rows(nmb), 384] f32
+    spatial residual. The ids ascend, each at most once, and the pad
+    rows (an id of nmb*24 or more) come last: compact_rows returns
+    np.flatnonzero order and pack_rows appends PAD_ID rows, and the
+    kernel finds each block's rows by a search of the ids. offw, the
+    TPU kernel's window starts, is accepted and not needed. CPU tensors
+    take the plain version; CUDA tensors launch the kernel."""
     if packed.device.type == "cpu":
         return expand_residual_plain(packed, nmb)
     return K.launch(packed.contiguous(), nmb, out_rows(nmb))

@@ -557,3 +557,154 @@ def test_shape_scan_kernel(k, c, n):
     got2 = RD.shape_scan(x, noise, coefs, got[1])
     want2 = RD.shape_scan_plain(x, noise, coefs, want[1])
     _eq(got2[0], want2[0], "shape_scan y, second call")
+
+
+def _eq_value(a, b, what):
+    """Equal by value: -0.0 equals +0.0 and a NaN equals a NaN (the
+    shaper kernel's fast rounding may give +0.0 where rint gives -0.0)."""
+    a, b = a.cpu().numpy(), b.cpu().numpy()
+    assert a.shape == b.shape, (what, a.shape, b.shape)
+    bad = np.count_nonzero(~((a == b) | (np.isnan(a) & np.isnan(b))))
+    assert bad == 0, f"{what}: {bad}/{a.size} values differ"
+
+
+def _scan_check(x, noise, coefs, err0, what):
+    """The kernel against the plain scan (on the CPU) by value, y and
+    history -> the kernel's result."""
+    got = RD.shape_scan(x, noise, coefs, err0)
+    want = RD.shape_scan_plain(*(t.cpu() for t in (x, noise, coefs, err0)))
+    torch.cuda.synchronize()
+    _eq_value(got[0], want[0], f"shape_scan y, {what}")
+    _eq_value(got[1], want[1], f"shape_scan hist, {what}")
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [3, 5])
+@pytest.mark.parametrize("c", [1, 2, 33])
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 1120, 4096])
+def test_shape_scan_kernel_lengths(n, c, k):
+    """Whole chunks of 32 samples, a last partial one, a single sample;
+    one warp and two; then a second call from the carried history."""
+    dev = _card()
+    x, noise, coefs, err0 = _shape_scan_case(n * 3 + c * 7 + k, k, c, n, dev)
+    got = _scan_check(x, noise, coefs, err0, f"n={n} c={c} k={k}")
+    _scan_check(x, noise, coefs, got[1], f"n={n} c={c} k={k}, second call")
+
+
+def _scan_special(case, k, dev):
+    """Inputs that take the range test's edges: (x, noise, coefs, err0)."""
+    rng = np.random.default_rng(k)
+    coefs = np.asarray(RD._SHAPER_COEFS[{5: "lipshitz", 3: "f_weighted"}[k]])
+    err0 = np.zeros((k, 2))
+    if case == "ties":
+        # no feedback (zero taps) and no noise: every t is x, a tie at
+        # +-(m + 0.5) for even and odd m, small and near 2^22
+        m = np.concatenate([np.arange(-48, 48), 2 ** 22 - 1 - np.arange(32)])
+        x = np.stack([m + 0.5, -(m + 0.5)])
+        noise, coefs = np.zeros_like(x), np.zeros(k)
+    elif case == "straddle":
+        # a chunk whose samples cross 2^22 (-2^22 in channel 1), then
+        # chunks back in range
+        x = rng.normal(0, 9000, (2, 160))
+        x[0, 32:64] = np.linspace(2 ** 22 - 40, 2 ** 22 + 40, 32)
+        x[1, 64:96] = -np.linspace(2 ** 22 - 3, 2 ** 22 + 3, 32)
+        noise = rng.random((2, 160)) - rng.random((2, 160))
+    elif case == "s32":
+        x = rng.uniform(-2.0 ** 31, 2.0 ** 31, (2, 300))
+        noise = rng.random((2, 300)) - rng.random((2, 300))
+    elif case == "mixed_lanes":
+        # lane 0 in range (s16), lane 1 not (s32)
+        x = np.stack([rng.normal(0, 9000, 300),
+                      rng.uniform(-2.0 ** 31, 2.0 ** 31, 300)])
+        noise = rng.random((2, 300)) - rng.random((2, 300))
+    else:
+        # NaN and +-Inf in x (lane 0 from sample 40 on, lane 1 at one
+        # sample), in the noise, and in the history
+        x = rng.normal(0, 9000, (2, 200))
+        x[0, 40], x[1, 70], x[1, 150] = np.nan, np.inf, -np.inf
+        noise = rng.random((2, 200)) - rng.random((2, 200))
+        if case == "nan_noise":
+            noise[1, 100] = np.nan
+        if case == "nan_history":
+            err0[1, 1] = np.nan
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+
+    return t(x), t(noise), t(coefs), t(err0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [3, 5])
+@pytest.mark.parametrize("case", ["ties", "straddle", "s32", "mixed_lanes",
+                                  "nan_inf", "nan_noise", "nan_history"])
+def test_shape_scan_kernel_range_edges(case, k):
+    """The fast rounding's range test at its edges, by value against the
+    plain scan, then a second call from the carried history."""
+    dev = _card()
+    x, noise, coefs, err0 = _scan_special(case, k, dev)
+    got = _scan_check(x, noise, coefs, err0, f"{case} k={k}")
+    _scan_check(x, noise, coefs, got[1], f"{case} k={k}, second call")
+
+
+def _residual_rows(ids, seed, nmb, pad=0):
+    """Packed rows for the given ascending ids (random levels) plus `pad`
+    pad rows, on the card."""
+    rng = np.random.default_rng(seed)
+    ids = np.asarray(ids, np.int32)
+    levels = rng.integers(-3000, 3001, (ids.size, 16)).astype(np.int16)
+    return torch.from_numpy(RP.pack_rows(ids, levels, ids.size + pad)).cuda()
+
+
+def _residual_check(packed, nmb, what):
+    """The kernel against the plain version, into memory that held NaN
+    (each float of the output must be written)."""
+    junk = torch.full((RP.out_rows(nmb), 384), float("nan"), device="cuda")
+    del junk
+    _eq(RP.expand_residual(packed, None, nmb),
+        RP.expand_residual_plain(packed, nmb), f"residual {what}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["k0", "one_row", "first_last_mb",
+                                  "pad_ids", "nmb7", "pad_only"])
+def test_residual_kernel_cases(case):
+    _card()
+    nmb = 130                   # not a multiple of 120
+    if case == "k0":
+        packed = torch.zeros((0, 24), dtype=torch.int16, device="cuda")
+    elif case == "one_row":
+        packed, nmb = _residual_rows([17], 1, 3), 3
+    elif case == "first_last_mb":
+        packed = _residual_rows(np.r_[0:24, (nmb - 1) * 24:nmb * 24], 2, nmb)
+    elif case == "pad_ids":
+        # ids of nmb*24 and beyond (below PAD_ID) and PAD_ID rows, last
+        ids = np.r_[np.sort(np.random.default_rng(3).choice(
+            nmb * 24, 700, replace=False)), nmb * 24, nmb * 24 + 5]
+        packed = _residual_rows(ids, 3, nmb, pad=9)
+    elif case == "nmb7":
+        packed, nmb = _residual_rows(np.arange(0, 7 * 24, 3), 4, 7, pad=2), 7
+    else:
+        packed = _residual_rows([], 5, nmb, pad=11)
+    _residual_check(packed, nmb, case)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("density", [0.02, 0.25, 0.9])
+def test_residual_kernel_1080p_subsets(density):
+    """Random ascending subsets of the blocks of a 120x68-MB frame."""
+    _card()
+    nmb = 120 * 68
+    ids = np.flatnonzero(np.random.default_rng(6).random(nmb * 24) < density)
+    _residual_check(_residual_rows(ids, 6, nmb, pad=5), nmb,
+                    f"120x68 density {density}")
+
+
+@pytest.mark.cuda
+def test_residual_kernel_refuses_misaligned_rows():
+    """The kernel loads each row as three 16-byte words."""
+    _card()
+    flat = torch.zeros(10 * 24 + 1, dtype=torch.int16, device="cuda")
+    with pytest.raises(ValueError, match="aligned"):
+        RP.expand_residual(flat[1:].view(10, 24), None, 5)

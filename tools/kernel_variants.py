@@ -1,31 +1,34 @@
 #!/usr/bin/env python3
-"""Time text variants of the intra, half-pel, MC and shaper kernels on
-the card.
+"""Time text variants of the intra, half-pel, MC, shaper and residual
+kernels on the card.
 
     python3 tools/kernel_variants.py [--rounds N] [--parent DIR] [SOURCE ...]
 
 Each variant is csrc/<source>.cu with a few text replacements (VARIANTS
-below; SOURCE picks some of intra, hpel, mc, shape_scan, default all),
-built with
-the flags of kernels/_build.py into a temporary directory and put in
-place of the package's library, so the package's wrappers launch it. On
-the bench inputs chip_smoke.py uses (the intra and MC kernels on the
-first P frame of assets/bench_1080p.264, the half-pel kernels on the
-encoder's first P-VOP at 1280x720, the shaper on one convert of the
-audio path: 2 x 1120 samples of testgen.audio_mix resampled to 48 kHz
-in LSB units, the lipshitz ditherer's noise, K = 5), every entry of a
-variant must equal
-its plain version bit for bit (the run fails otherwise); then the device
-time of each entry (the median of 25 calls, chip_smoke.device_ms) is
-taken in turns, base first and last, N rounds (default 2), with each
-kernel's SASS instruction count (tools/kernel_resources.py). The entries
-timed: intra (and intra1, the first list entry alone); hpel (the fused
-kernel), hpel_luma and hpel_chroma; mc; shape_scan. --parent DIR adds
-the variant
-"parent": the source of the checkout at DIR (an earlier commit, unpacked
-with git archive), timed in the same turns; entries whose C function it
-lacks are left out. The first line after the card's name is the device
-time of an empty kernel (chip_smoke.floor_ms). Needs a CUDA card; the
+below; SOURCE picks some of intra, hpel, mc, shape_scan, residual,
+default all), built with the flags of kernels/_build.py into a
+temporary directory and put in place of the package's library, so the
+package's wrappers launch it. On the bench inputs chip_smoke.py uses
+(the intra, MC and residual kernels on the first P frame of
+assets/bench_1080p.264, the residual kernel on its compact rows; the
+half-pel kernels on the encoder's first P-VOP at 1280x720; the shaper
+on one convert of the audio path: 2 x 1120 samples of
+testgen.audio_mix resampled to 48 kHz in LSB units, the lipshitz
+ditherer's noise, K = 5), every entry of a variant must equal its
+plain version by value (the run fails otherwise); then the device time
+of each entry (the median of 25 calls, chip_smoke.device_ms, and for
+the entries that do not write their inputs the back-to-back time,
+chip_smoke.device_ms_b2b) is taken in turns, base first and last, N
+rounds (default 2), with each kernel's SASS instruction count
+(tools/kernel_resources.py). The entries timed: intra (and intra1, the
+first list entry alone); hpel (the fused kernel), hpel_luma and
+hpel_chroma; mc; shape_scan; residual. --parent DIR adds the variant
+"parent": the source of the checkout at DIR (an earlier commit,
+unpacked with git archive), timed in the same turns; entries whose C
+function it lacks are left out, and a parent whose C function takes
+other arguments (residual before its one-launch form) cannot be timed.
+The first line after the card's name is the device time of an empty
+kernel by both timings (chip_smoke.floor_ms). Needs a CUDA card; the
 last line is one JSON object.
 """
 from __future__ import annotations
@@ -74,9 +77,14 @@ _CHROMA_NEEDED = """  for (int j = 0; j < 3; ++j) {
     su[j] = row ? bytes4(cu + j * wc, cix, n) : 0u;
     sv[j] = row ? bytes4(cv + j * wc, cix, n) : 0u;
   }"""
-_CHUNK = "constexpr int U = 32;"
-_WHOLE = "if (base + U <= N) {"
-_RINT = "rintf(__fadd_rn(want, di));"
+_FAST = "const bool fast ="
+_FB = """  float fb = 0.0f;
+#pragma unroll
+  for (int k = 0; k < K; ++k) fb = __fmaf_rn(e[k], cf[k], fb);"""
+_RING = "constexpr int B = 4;"
+_GROUP = "constexpr int G = 4;"
+_RMBS = "constexpr int MBS = 8; "
+_RTHREADS = "constexpr int THREADS = 128;"
 _QMPACK = "constexpr uint64_t kQMLo = qm_pack(0), kQMHi = qm_pack(1);"
 _QMREAD = ("const int q = (int)(((key & 8) ? kQMHi : kQMLo) >> "
            "(8 * (key & 7))) & 0xff;")
@@ -142,16 +150,27 @@ VARIANTS = {
                          (_CHROMA_ROWS, _CHROMA_NEEDED)],
     },
     "shape_scan": {
-        # every chunk checked sample by sample, as the last one is
-        "guarded": [(_WHOLE, "if (false) {")],
-        # rounding by adding and subtracting 1.5 * 2^23 (exact only
-        # below 2^22 in magnitude: s16 and u8 samples, not s32)
-        "magic_round": [(_RINT, "__fsub_rn(__fadd_rn(__fadd_rn(want, di), "
-                                "12582912.0f), 12582912.0f);")],
-        # samples loaded a chunk ahead of the chain
-        "u8": [(_CHUNK, "constexpr int U = 8;")],
-        "u16": [(_CHUNK, "constexpr int U = 16;")],
-        "u64": [(_CHUNK, "constexpr int U = 64;")],
+        # every chunk rounded by rintf (the range test never passes)
+        "rint_only": [(_FAST, "const bool fast = false &&")],
+        # every chunk on the fast rounding (exact on the path's inputs
+        # only: the cost of the range test)
+        "always_fast": [(_FAST, "const bool fast = true ||")],
+        # the first feedback term as a product (fma(e0, c0, +0) by value)
+        "fmul_first": [(_FB, """  float fb = __fmul_rn(e[0], cf[0]);
+#pragma unroll
+  for (int k = 1; k < K; ++k) fb = __fmaf_rn(e[k], cf[k], fb);""")],
+        # the shared ring: 3 handovers in place of 4 (5 would pass the
+        # 48 KB of static shared memory)
+        "ring3": [(_RING, "constexpr int B = 3;")],
+        # chunks per handover (one __syncthreads each): 1 or 2 for 4
+        "g1": [(_GROUP, "constexpr int G = 1;")],
+        "g2": [(_GROUP, "constexpr int G = 2;")],
+    },
+    "residual": {
+        # output rows (MBs) per block: 4 or 16 in place of 8
+        "mbs4": [(_RMBS, "constexpr int MBS = 4; ")],
+        "mbs16": [(_RMBS, "constexpr int MBS = 16; ")],
+        "threads256": [(_RTHREADS, "constexpr int THREADS = 256;")],
     },
 }
 # the kernels of each source whose SASS is counted (a part of the
@@ -160,13 +179,14 @@ VARIANTS = {
 ENTRY_FNS = {"intra": "intra_scan", "intra1": "intra_scan",
              "hpel": "hpel_refine_mc", "hpel_luma": "refine_mc_luma",
              "hpel_chroma": "mc_chroma", "mc": "mc_predict",
-             "shape_scan": "shape_scan"}
+             "shape_scan": "shape_scan", "residual": "expand_residual"}
 KERNEL_FNS = {"intra": {"intra": "intra_kernel"},
               "hpel": {"hpel": "hpel_kernelILb1E",
                        "hpel_luma": "hpel_kernelILb0E",
                        "hpel_chroma": "chroma_kernel"},
               "mc": {"mc": "mc_kernel"},
-              "shape_scan": {"shape_scan": "shape_scan_kernelILi5E"}}
+              "shape_scan": {"shape_scan": "shape_scan_kernelILi5E"},
+              "residual": {"residual": "residual_kernel"}}
 
 
 def _constant_qm() -> str:
@@ -241,10 +261,13 @@ def inputs(names):
     """{source: the bench inputs of its kernels}, for the sources named."""
     if names == ["shape_scan"]:
         return {"shape_scan": scan_inputs()}
+    import torch
+
     import chip_smoke as CS
     from librempeg_tpu_torch.codecs.h264 import device_recon as DR
     from librempeg_tpu_torch.codecs.h264 import intra_pallas as IP
     from librempeg_tpu_torch.codecs.h264 import mc_pallas as MC
+    from librempeg_tpu_torch.codecs.h264 import residual_pallas as RP
 
     args, frames = CS.capture_p_frame("cuda")
     (idx, vals, qp, kind, info, i4m, ilist, mv, ref, luma4, upad, vpad,
@@ -254,9 +277,14 @@ def inputs(names):
     y, u, v, lres_t, cres_t = DR.recon_p_frame_pred_noscan(
         *pred, idx, vals, qp, kind, mb_w, mb_h, cqo, fold_i16=True)
     scal = IP.build_intra_scalars(ilist, kind, info, i4m, mb_w, mb_h)
+    nmb = mb_w * mb_h
+    coeffs = DR.dense_coeffs(idx, vals, nmb)
+    ids, levels = RP.compact_rows(coeffs.cpu().numpy(), qp.cpu().numpy(),
+                                  kind.cpu().numpy(), cqo, mb_w, mb_h)
+    packed = torch.from_numpy(RP.pack_rows(ids, levels)).cuda()
     return {"intra": ((y, u, v), scal, lres_t, cres_t, mb_w, mb_h),
             "hpel": CS.hpel_inputs("cuda", frames), "mc": margs,
-            "shape_scan": scan_inputs()}
+            "shape_scan": scan_inputs(), "residual": (packed, nmb)}
 
 
 def _pure(fn, plain, args):
@@ -287,6 +315,13 @@ def runners(name, ins) -> dict:
 
     if name == "mc":
         return {"mc": _pure(MC.mc_predict, MC.mc_predict_plain, ins["mc"])}
+    if name == "residual":
+        from librempeg_tpu_torch.codecs.h264 import residual_pallas as RP
+
+        return {"residual": _pure(
+            lambda p, n: (RP.expand_residual(p, None, n),),
+            lambda p, n: (RP.expand_residual_plain(p, n),),
+            ins["residual"])}
     if name == "shape_scan":
         from librempeg_tpu_torch.resample import dither as RD
 
@@ -372,7 +407,10 @@ def main(argv) -> int:
                 res[label] = {"exact": {e: bool(r[2]()) for e, r in
                                         entries(label).items()},
                               "sass": sass_count(name, path, tmp),
-                              "device_ms": {e: [] for e in entries(label)}}
+                              "device_ms": {e: [] for e in entries(label)},
+                              "device_ms_b2b": {e: [] for e, r in
+                                                entries(label).items()
+                                                if r[1] is None}}
             bad = [k for k, r in res.items() if not all(r["exact"].values())]
             if bad:
                 raise RuntimeError(f"{name} variants differ from the plain "
@@ -383,6 +421,9 @@ def main(argv) -> int:
                     for e, (run, restore, _) in entries(label).items():
                         res[label]["device_ms"][e].append(
                             CS.device_ms(run, restore))
+                        if restore is None:
+                            res[label]["device_ms_b2b"][e].append(
+                                CS.device_ms_b2b(run))
             for label, r in res.items():
                 print(f"{name} {label}: " + ", ".join(
                     f"{k} {v}" for k, v in r.items()), flush=True)

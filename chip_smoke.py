@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--profile DIR]
 
-It drives four paths and nine kernels. Phases, in order; any failure
+It drives five paths and nine kernels. Phases, in order; any failure
 raises and the script exits non-zero:
 
 1. device: the card's name and power limit (nvidia-smi);
@@ -69,7 +69,27 @@ raises and the script exits non-zero:
    equal by value; the phase prints the stage split, the realtime
    factor, the MDCT's device time apart from the host quantiser, and
    its wall time;
-8. kernel leg: parallel.transcode_step as bench.py's kernel leg runs it
+8. jpeg: the JPEG/MJPEG path through cli.ffmpeg's parser and Transcoder
+   (jpeg_commands): A, the asset to -pix_fmt yuvj420p -c:v mjpeg -q:v 3
+   in AVI (the H.264 decode's mc, intra and deblock kernels 44 times
+   each); B, that AVI to -vf scale=1280:720 -c:v mpeg4 -q:v 4 (the JPEG
+   decode, hpel once per P-VOP); C, thumbnails -vf
+   fps=5,crop=1440:1080,scale=320:240 -q:v 2 -f image2 (mc, intra,
+   deblock 44 times each again); C2, -c:v copy of those files into raw
+   MJPEG; then the psnr and ssim two-input graphs of A's decode against
+   its yuvj420p source, on the card and on the CPU. Held to
+   tests/data/torch_port/bench_1080p_mjpeg.npz (jpeg_checks): A's 48
+   key packets, pts exact, each size within JPEG_SIZE_REL of the JAX
+   package's, the byte-identical count printed, every packet decoded on
+   the card equal to its CPU decode, identical packets and the stored
+   -q:v 31 frame and the JAX package's own packet 0 of A (-q:v 3) to the
+   JAX decoder's md5, decoded PSNR per plane within
+   JPEG_PSNR_TOL_DB; B's VOP types and pts exact, its decoded mean within
+   JPEG_B_PSNR_TOL_DB; C's names, pts and sizes, C2 splitting back into
+   the files' bytes; the graphs within METRIC_DEV_DB / METRIC_DEV_SSIM of
+   the CPU and within the limits of the JAX package's means. Each path's
+   frames/s and stage split (jpeg.device, jpeg.fetch, jpeg.scan) print;
+9. kernel leg: parallel.transcode_step as bench.py's kernel leg runs it
    (8 testgen frames 1920x1088 -> 1280x720, qscale 4, 4 chained steps),
    held to the JAX package's goldens (tests/data/torch_port/
    kernel_leg.npz); fsearch must launch once per step; then one warm
@@ -213,6 +233,21 @@ AUDIO_SNR_TOL_DB = 0.03
 # cycles of one dependent float operation on the SM (the shortest
 # pipeline latency): the shape_scan kernel's bound is its serial chain
 DEP_OP_CYCLES = 4
+
+# the JPEG/MJPEG path (the commands of jpeg_commands), held to
+# tests/data/torch_port/bench_1080p_mjpeg.npz
+# (tools/torch_port_goldens.py --jpeg). Limits from the port on a CPU
+# against the goldens (--jpeg --calibrate) and faults planted in copies
+# (--jpeg --check-port; PERF.md section 2)
+JPEG_GOLD = "bench_1080p_mjpeg.npz"
+JPEG_FRAMES, JPEG_THUMBS = 48, 10
+JPEG_STORED_Q = 31         # -q:v of the stored frame 0 (quality 4)
+JPEG_SIZE_REL = 5e-3       # each packet's bytes against the JAX package's
+JPEG_PSNR_TOL_DB = 0.02    # decoded per-plane PSNR means (path A)
+JPEG_B_PSNR_TOL_DB = 0.02  # path B's decoded mean
+JPEG_SSIM_TOL = 1e-4       # the ssim graph's mean against the JAX package's
+METRIC_DEV_DB = 1e-3       # psnr on the card against the CPU
+METRIC_DEV_SSIM = 1e-5     # ssim on the card against the CPU
 
 
 def log(msg: str) -> None:
@@ -1563,6 +1598,271 @@ def audio_phase(dev) -> dict:
     return res
 
 
+# -- the JPEG/MJPEG path -----------------------------------------------------
+
+def jpeg_commands(td: str) -> dict:
+    """The JPEG phase's command lines (cli.ffmpeg), with outputs in td:
+    A the MJPEG transcode of the asset, B its MJPEG AVI back to MPEG-4,
+    C thumbnails as image2 files, C2 their stream copy to raw MJPEG."""
+    j = os.path.join
+    return {
+        "A": ["-i", ASSET, "-pix_fmt", "yuvj420p", "-c:v", "mjpeg", "-q:v",
+              "3", "-y", j(td, "mjpeg.avi")],
+        "B": ["-i", j(td, "mjpeg.avi"), "-vf", "scale=1280:720", "-c:v",
+              "mpeg4", "-q:v", "4", "-y", j(td, "back.avi")],
+        "C": ["-i", ASSET, "-vf", "fps=5,crop=1440:1080,scale=320:240",
+              "-q:v", "2", "-f", "image2", j(td, "thumb_%03d.jpg")],
+        "C2": ["-i", j(td, "thumb_%03d.jpg"), "-c:v", "copy", "-f", "mjpeg",
+               "-y", j(td, "thumbs.mjpeg")],
+    }
+
+
+def cli_run(argv: list[str], dev: str, keep_input: bool = False) -> dict:
+    """One command line through cli.ffmpeg's parser and Transcoder, with
+    the packets the muxer receives recorded as (pts, bytes, key), the
+    frames the encoder takes (keep_input), the launch counts and the
+    stage split of the run (both reset before it)."""
+    from librempeg_tpu_torch import kernels
+    from librempeg_tpu_torch.cli.ffmpeg import parse_args
+    from librempeg_tpu_torch.core.packet import PktFlags
+    from librempeg_tpu_torch.sched.pipeline import Transcoder
+    from librempeg_tpu_torch.utils import stagetimer
+
+    spec, _ = parse_args(argv + ["-device", dev])
+    tc = Transcoder(spec)
+    pk, inputs = [], []
+    write = tc.mux.write
+
+    def rec(p):
+        pk.append((p.pts, bytes(p.data), bool(p.flags & PktFlags.KEY)))
+        write(p)
+
+    tc.mux.write = rec
+    chain = tc.chains[0]
+    if keep_input:
+        name = "encode_async" if chain._pipelined else "encode"
+        enc = getattr(chain.encoder, name)
+
+        def take(frame, **kw):
+            inputs.append(frame)
+            return enc(frame, **kw)
+
+        setattr(chain.encoder, name, take)
+    stagetimer.reset()
+    kernels.reset_counts()
+    sync(dev)
+    t0 = time.perf_counter()
+    tc.run()
+    sync(dev)
+    wall = time.perf_counter() - t0
+    return {"wall_s": wall, "packets": pk, "inputs": inputs,
+            "launches": kernels.counts(),
+            "split_s": {k: v["s"] for k, v in stagetimer.report().items()}}
+
+
+def metric_stats(name: str, mains, refs, dev) -> list[dict]:
+    """The two-input `name` graph (psnr or ssim) over main frames
+    against reference frames (frame i of each at pts i), on `dev`: each
+    frame's stats."""
+    from librempeg_tpu_torch.core.rational import Rational
+    from librempeg_tpu_torch.filters import GraphRunner, StreamProps
+
+    f, tb = mains[0], Rational(1, 25)
+    props = StreamProps(media="video", width=f.width, height=f.height,
+                        pix_fmt=f.format, frame_rate=Rational(25, 1),
+                        time_base=tb)
+    g = GraphRunner(f"[in][in2]{name}", [props, props])
+    for i, (m, r) in enumerate(zip(mains, refs)):
+        g.push(r.to_device(dev).replace(pts=i, time_base=tb), 1)
+        g.push(m.to_device(dev).replace(pts=i, time_base=tb), 0)
+    g.finish()
+    return next(n.filter.stats for n in g.graph.nodes
+                if n.filter.NAME == name)
+
+
+def jpeg_paths(dev: str, td: str) -> dict:
+    """Paths A, B, C and C2 once each on `dev`, with what the checks
+    read: A's packets and yuvj420p encoder input, B's packets and
+    scaled encoder input, C's files and C2's stream."""
+    cmd = jpeg_commands(td)
+    out = {}
+    for name, keep in (("A", True), ("B", True), ("C", False),
+                       ("C2", False)):
+        out[name] = cli_run(cmd[name], dev, keep_input=keep)
+    out["thumb_files"] = sorted(
+        f for f in os.listdir(td) if f.startswith("thumb_"))
+    out["thumb_bytes"] = [open(os.path.join(td, f), "rb").read()
+                          for f in out["thumb_files"]]
+    out["thumbs_mjpeg"] = os.path.join(td, "thumbs.mjpeg")
+    return out
+
+
+def jpeg_checks(dev: str, run: dict, gold, limits: bool = True) -> dict:
+    """Hold the JPEG paths' outputs to the goldens (with the limits, or
+    none) and return what the checks read."""
+    import numpy as np
+    import torch
+
+    from librempeg_tpu_torch.codecs.jpeg.decoder import decode_jpeg
+    from librempeg_tpu_torch.codecs.mpeg4._decoder import Mpeg4Decoder
+    from librempeg_tpu_torch.core.packet import Packet
+    from librempeg_tpu_torch.formats.api import open_input
+
+    inf = float("inf")
+    size_rel = JPEG_SIZE_REL if limits else inf
+    res = {}
+
+    # A: 48 key packets, pts exact, sizes against the JAX package's
+    pa = run["A"]["packets"]
+    check(len(pa) == JPEG_FRAMES and all(k for _, _, k in pa)
+          and [p for p, _, _ in pa] == list(range(JPEG_FRAMES)),
+          f"path A: {len(pa)} packets, pts {[p for p, _, _ in pa]}")
+    md5s = [hashlib.md5(d).hexdigest() for _, d, _ in pa]
+    rel = [len(d) / int(n) - 1 for (_, d, _), n in zip(pa, gold["a_sizes"])]
+    res["a_size_rel_max"] = max(abs(r) for r in rel)
+    res["a_bytes"] = sum(len(d) for _, d, _ in pa)
+    res["a_identical"] = sum(a == b for a, b in zip(md5s, gold["a_md5"]))
+    check(res["a_size_rel_max"] <= size_rel,
+          f"path A: a packet's size is {res['a_size_rel_max']:.5f} off the "
+          f"JAX package's (limit {JPEG_SIZE_REL})")
+
+    # the decoder: on `dev` equal to the CPU decode; identical packets to
+    # the JAX decoder's md5; the stored -q:v 31 frame and the JAX
+    # package's packet 0 of A (-q:v 3) to theirs
+    decoded, bad = [], []
+    for i, (_, d, _) in enumerate(pa):
+        f = decode_jpeg(d, device=dev)
+        decoded.append(f.replace(pts=i))
+        if torch.device(dev).type != "cpu":
+            c = decode_jpeg(d, device="cpu")
+            if not all(torch.equal(x.cpu(), y) for x, y in zip(f.planes,
+                                                              c.planes)):
+                bad.append(i)
+        if md5s[i] == gold["a_md5"][i] and \
+                frame_md5(f.planes) != gold["a_dec_md5"][i]:
+            bad.append(i)
+    check(not bad, f"path A: packets {bad} decode otherwise on {dev} than "
+          f"on the CPU or than the JAX decoder")
+    stored = decode_jpeg(gold["stored_jpeg"].tobytes(), device=dev)
+    check(frame_md5(stored.planes) == str(gold["stored_md5"]),
+          "the stored -q:v 31 frame decodes otherwise than in the JAX "
+          "package")
+    a0 = gold["a0_jpeg"].tobytes()
+    check(hashlib.md5(a0).hexdigest() == gold["a_md5"][0] and
+          frame_md5(decode_jpeg(a0, device=dev).planes) ==
+          gold["a_dec_md5"][0],
+          "the JAX package's packet 0 of path A decodes otherwise than in "
+          "the JAX package")
+
+    # A: decoded PSNR per plane against the yuvj420p encoder input
+    src = run["A"]["inputs"]
+    check(len(src) == JPEG_FRAMES and src[0].format == "yuvj420p",
+          f"path A: {len(src)} encoder inputs")
+    psnr = np.array([[psnr_db(a, b) for a, b in zip(f.planes, s.planes)]
+                     for f, s in zip(decoded, src)])
+    res["a_psnr_mean"] = psnr.mean(0).tolist()
+    res["a_psnr_gap"] = (psnr.mean(0) - gold["a_psnr"].mean(0)).tolist()
+    check(max(abs(g) for g in res["a_psnr_gap"]) <=
+          (JPEG_PSNR_TOL_DB if limits else inf),
+          f"path A: decoded PSNR means {res['a_psnr_mean']} are "
+          f"{res['a_psnr_gap']} dB off the JAX package's")
+
+    # the metric graphs: main = A's decode, reference = its source
+    for name, tol_dev, tol_gold, keys in (
+            ("psnr", METRIC_DEV_DB, JPEG_PSNR_TOL_DB,
+             ("psnr_y", "psnr_u", "psnr_v", "psnr_avg")),
+            ("ssim", METRIC_DEV_SSIM, JPEG_SSIM_TOL,
+             ("ssim_y", "ssim_u", "ssim_v", "ssim_all"))):
+        st = metric_stats(name, decoded, src, dev)
+        check(len(st) == JPEG_FRAMES, f"{name}: {len(st)} frames")
+        got = np.array([[s[k] for k in keys] for s in st], np.float64)
+        if torch.device(dev).type != "cpu":
+            cpu = metric_stats(name, decoded, src, "cpu")
+            want = np.array([[s[k] for k in keys] for s in cpu], np.float64)
+            res[f"{name}_dev_err"] = float(np.abs(got - want).max())
+            check(res[f"{name}_dev_err"] <= tol_dev,
+                  f"{name} on {dev} is {res[f'{name}_dev_err']} off the CPU")
+        res[f"{name}_mean"] = got.mean(0).tolist()
+        res[f"{name}_gap"] = (got.mean(0) - gold[name].mean(0)).tolist()
+        check(max(abs(g) for g in res[f"{name}_gap"]) <=
+              (tol_gold if limits else inf),
+              f"{name} means {res[f'{name}_mean']} are {res[f'{name}_gap']}"
+              f" off the JAX package's")
+
+    # B: MPEG-4 of A's AVI: VOP types and pts exact, decoded mean
+    pb = run["B"]["packets"]
+    types = "".join(vop_type(d) for _, d, _ in pb)
+    check(len(pb) == JPEG_FRAMES and types == str(gold["b_types"])
+          and [p for p, _, _ in pb] == gold["b_pts"].tolist(),
+          f"path B: {len(pb)} packets, types {types}")
+    dec = Mpeg4Decoder()
+    back = [f for p, d, _ in pb for f in dec.decode(
+        Packet(data=d, pts=p))] + dec.flush()
+    bsrc = [tuple(p.cpu().numpy() for p in f.planes)
+            for f in run["B"]["inputs"]]
+    check(len(back) == len(bsrc) == JPEG_FRAMES,
+          f"path B: {len(back)} decoded, {len(bsrc)} encoded frames")
+    res["b_types"] = types
+    res["b_psnr_mean"] = statistics.fmean(
+        planes_psnr_db(a, f.planes) for a, f in zip(bsrc, back))
+    res["b_psnr_gap"] = res["b_psnr_mean"] - float(gold["b_psnr"].mean())
+    check(abs(res["b_psnr_gap"]) <= (JPEG_B_PSNR_TOL_DB if limits else inf),
+          f"path B: decoded mean {res['b_psnr_mean']} dB is "
+          f"{res['b_psnr_gap']} off the JAX package's")
+
+    # C: the thumbnails' names, pts and sizes; C2 splits back into them
+    pc = run["C"]["packets"]
+    names = [f"thumb_{i:03d}.jpg" for i in range(1, len(pc) + 1)]
+    check(len(pc) == JPEG_THUMBS and run["thumb_files"] == names
+          and [p for p, _, _ in pc] == gold["c_pts"].tolist(),
+          f"path C: files {run['thumb_files']}, pts "
+          f"{[p for p, _, _ in pc]}")
+    res["c_size_rel_max"] = max(abs(len(d) / int(n) - 1) for (_, d, _), n
+                                in zip(pc, gold["c_sizes"]))
+    check(res["c_size_rel_max"] <= size_rel,
+          f"path C: a thumbnail's size is {res['c_size_rel_max']:.5f} off "
+          f"the JAX package's")
+    check(run["thumb_bytes"] == [d for _, d, _ in pc],
+          "path C: the files differ from the packets written")
+    split = [bytes(p.data) for p in open_input(run["thumbs_mjpeg"])
+             .packets()]
+    check(split == run["thumb_bytes"] and [d for _, d, _ in
+                                           run["C2"]["packets"]] == split,
+          "path C2: the raw MJPEG stream does not split into the "
+          "thumbnails' bytes")
+    res["c_bytes"] = [len(d) for _, d, _ in pc]
+    return res
+
+
+def jpeg_phase(dev: str) -> dict:
+    """The JPEG paths on the card, checked against the goldens, with
+    each path's rate, stage split and kernel launches."""
+    import numpy as np
+
+    gold = np.load(os.path.join(GOLD, JPEG_GOLD))
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as td:
+        run = jpeg_paths(dev, td)
+        res = jpeg_checks(dev, run, gold)
+    la, lb, lc = (run[k]["launches"] for k in "ABC")
+    check(la["mc"] == la["deblock"] == la["intra"] == 44 and
+          lc["mc"] == lc["deblock"] == lc["intra"] == 44,
+          f"jpeg: H.264 kernel launches A {la}, C {lc}")
+    n_p = res["b_types"].count("P")
+    check(lb["hpel"] == n_p and lb["hpel_luma"] == lb["hpel_chroma"] == 0
+          and lb["mc"] == 0, f"jpeg: path B launches {lb} for {n_p} P-VOPs")
+    res["launches"] = {k: la[k] + lb[k] + lc[k] + run["C2"]["launches"][k]
+                       for k in la}
+    for k in ("A", "B", "C", "C2"):
+        res[f"{k}_wall_s"] = run[k]["wall_s"]
+        res[f"{k}_split_s"] = run[k]["split_s"]
+    res["fps"] = {"A": JPEG_FRAMES / run["A"]["wall_s"],
+                  "B": JPEG_FRAMES / run["B"]["wall_s"],
+                  "C": JPEG_FRAMES / run["C"]["wall_s"]}
+    res["phase_s"] = time.perf_counter() - t_phase
+    return res
+
+
 def main(argv: list[str]) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch "
                                  "port on one NVIDIA card.")
@@ -1689,6 +1989,28 @@ def main(argv: list[str]) -> int:
         f"against the undithered path)")
     log(f"audio phase: {a['phase_s']:.1f} s")
 
+    j = jpeg_phase(dev)
+    log(f"jpeg A: 48 key packets, pts exact, {j['a_bytes']} bytes, "
+        f"largest size gap {j['a_size_rel_max']:.6f} of the JAX package's, "
+        f"{j['a_identical']} of 48 packets byte-identical; decode on the "
+        f"card equal to the CPU's; decoded PSNR per plane "
+        f"{[round(x, 4) for x in j['a_psnr_mean']]} dB (gap "
+        f"{[round(x, 5) for x in j['a_psnr_gap']]})")
+    for name in ("psnr", "ssim"):
+        log(f"jpeg {name} graph: means "
+            f"{[round(x, 6) for x in j[name + '_mean']]}, gap to the JAX "
+            f"package's {[float(f'{x:.3g}') for x in j[name + '_gap']]}, "
+            f"card against CPU {j[name + '_dev_err']:.3g}")
+    log(f"jpeg B: {j['b_types']}, decoded mean {j['b_psnr_mean']:.4f} dB "
+        f"(gap {j['b_psnr_gap']:+.5f}); C: sizes {j['c_bytes']} (largest "
+        f"gap {j['c_size_rel_max']:.6f}), C2 splits into the files")
+    log(f"jpeg: frames/s A {j['fps']['A']:.3f}, B {j['fps']['B']:.3f}, C "
+        f"{j['fps']['C']:.3f} (48 input frames each); C2 "
+        f"{j['C2_wall_s']:.3f} s; launches {j['launches']}; phase "
+        f"{j['phase_s']:.1f} s")
+    for path in ("A", "B", "C"):
+        log(f"jpeg {path} split: " + json.dumps(j[f"{path}_split_s"]))
+
     k = kernel_leg_phase(dev, leg, profile_dir)
     log(f"kernel leg: {LEG_BATCH}x{LEG_H}x{LEG_W} -> {LEG_DH}x{LEG_DW}, "
         f"{LEG_ITERS} chained steps; launches {k['launches']}; MVs equal "
@@ -1710,6 +2032,7 @@ def main(argv: list[str]) -> int:
          "replaces": KERNELS[name][1], "row": KERNELS[name][2],
          "launches": launches[name], "path": KERNELS[name][3],
          "launches_options": o["launches"][name],
+         "launches_jpeg": j["launches"][name],
          **{k: kres[name][k] for k in (
              "max_abs_err", "ms", "device_ms", "device_ms_b2b", "plain_ms",
              "bound_ms",

@@ -3,15 +3,24 @@
 A thin wrapper over sched.pipeline.Transcoder that accepts only the
 options the slices implement:
 
-    python -m librempeg_tpu_torch.cli.ffmpeg -i IN
-        [-s WxH | -vf scale=W:H[,format=F]] [-pix_fmt F] [-c:v mpeg4]
+    python -m librempeg_tpu_torch.cli.ffmpeg [-f FMT] -i IN
+        [-s WxH] [-vf GRAPH] [-pix_fmt F] [-c:v mpeg4|mjpeg|copy]
         [-b:v N | -q:v N] [-g N] [-bf N] [-trellis N] [-frames:v N]
         [-c:a aac|pcm_s16le] [-b:a N] [-ar RATE] [-ac N] [-af CHAIN]
-        [-frames:a N] [-vn] [-an] [-device cuda|cpu] [-y] OUT
+        [-frames:a N] [-vn] [-an] [-device cuda|cpu] [-y] [-f FMT] OUT
 
-Video (H.264 in, MPEG-4 in AVI out): -pix_fmt appends format=F after the
-scale (e.g. yuvj420p, a range change); -bf sets the B-VOPs between
-anchors (0-4) and -trellis the RD quantisation of I/P-VOPs (0-2).
+Video: H.264, MJPEG (in AVI, raw .mjpeg, or image2 files such as
+thumb_%03d.jpg) in; MPEG-4 or MJPEG in AVI, raw MJPEG (-f mjpeg) or
+image2 (-f image2, one file per frame) out. -f before -i names the
+input format, after it the output's. Without -c:v the output format
+picks the codec (mjpeg for image2 and mjpeg, mpeg4 otherwise); -c:v
+copy passes the packets through. -vf takes a filter graph (crop, pad,
+hflip, vflip, transpose, fps, trim, setpts, scale, format, ...). -q:v
+is the MPEG-4 qscale, or for mjpeg a quality of 100 - 3.1 q (the JAX
+package's rule). -pix_fmt appends format=F after the scale (e.g.
+yuvj420p, a range change); -bf sets the B-VOPs between anchors (0-4);
+-trellis the RD quantisation of MPEG-4 I/P-VOPs or of the JPEG AC
+levels (0-2).
 
 Audio (PCM WAV or ADTS AAC in; AAC in ADTS, or s16 PCM in WAV or AVI,
 out): -ar appends aresample=RATE to the -af chain, -ac appends
@@ -57,10 +66,11 @@ def _int(s: str) -> int:
 
 
 def parse_args(argv: list[str]) -> tuple[TranscodeSpec, bool]:
-    smap = StreamMap(codec="mpeg4")
+    smap = StreamMap()
     audio = StreamMap(codec="pcm_s16le")
     kw: dict = {"input_url": None, "output_url": None}
     overwrite = False
+    fmt = None                       # -f: for the next -i or the output
     i = 0
     while i < len(argv):
         a = argv[i]
@@ -76,6 +86,7 @@ def parse_args(argv: list[str]) -> tuple[TranscodeSpec, bool]:
             if kw["output_url"] is not None:
                 raise CliError(f"unexpected argument {a!r}")
             kw["output_url"] = a
+            kw["output_format"], fmt = fmt, None
             i += 1
             continue
         if i + 1 >= len(argv):
@@ -84,6 +95,9 @@ def parse_args(argv: list[str]) -> tuple[TranscodeSpec, bool]:
         i += 2
         if a == "-i":
             kw["input_url"] = v
+            kw["input_format"], fmt = fmt, None
+        elif a == "-f":
+            fmt = v
         elif a in ("-c:v", "-vcodec", "-codec:v"):
             smap.codec = v
         elif a == "-s":
@@ -102,7 +116,7 @@ def parse_args(argv: list[str]) -> tuple[TranscodeSpec, bool]:
         elif a == "-pix_fmt":
             smap.pix_fmt = v
         elif a in ("-q:v", "-qscale:v"):
-            smap.codec_opts["qscale"] = int(v)
+            smap.codec_opts["quality_scale"] = float(v)
         elif a in ("-frames:v", "-vframes"):
             smap.frames_limit = int(v)
         elif a in ("-c:a", "-acodec", "-codec:a"):
@@ -123,8 +137,6 @@ def parse_args(argv: list[str]) -> tuple[TranscodeSpec, bool]:
             raise CliError(f"option {a} is not supported by the port")
     if not kw["input_url"] or not kw["output_url"]:
         raise CliError("usage: -i INPUT [options] OUTPUT")
-    if smap.codec != "mpeg4":
-        raise CliError(f"-c:v {smap.codec}: the port encodes mpeg4 only")
     return TranscodeSpec(video=smap, audio=audio, **kw), overwrite
 
 

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from librempeg_tpu_torch.codecs.aac import tables_data as T
-from librempeg_tpu_torch.codecs.api import CodecInfo, Encoder
+from librempeg_tpu_torch.codecs.api import CodecInfo, Encoder, register_encoder
 from librempeg_tpu_torch.codecs.flac.bitio import BitWriterMSB
 from librempeg_tpu_torch.core.errors import Unsupported
 from librempeg_tpu_torch.core.frame import AudioFrame
@@ -240,6 +240,7 @@ class _ChannelCoder:
                 _encode_band(bw, self.quant[b], int(self.cbs[b]))
 
 
+@register_encoder
 class AacEncoder(Encoder):
     INFO = CodecInfo(name="aac", long_name="AAC (Advanced Audio Coding) LC",
                      codec_type="audio")

@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from librempeg_tpu_torch.codecs.aac import tables_data as T
-from librempeg_tpu_torch.codecs.api import CodecInfo, Decoder
+from librempeg_tpu_torch.codecs.api import CodecInfo, Decoder, register_decoder
 from librempeg_tpu_torch.codecs.flac.bitio import BitReaderMSB
 from librempeg_tpu_torch.core.errors import InvalidData, Unsupported
 from librempeg_tpu_torch.core.frame import AudioFrame
@@ -528,6 +528,7 @@ class AacFrameDecoder:
         return out.astype(np.float32)
 
 
+@register_decoder
 class AacDecoder(Decoder):
     INFO = CodecInfo(name="aac", long_name="AAC (Advanced Audio Coding) LC",
                      codec_type="audio")

@@ -159,3 +159,49 @@ class Encoder(OptionedObject):
                 yield self.receive_packet()
             except EndOfStream:
                 return
+
+
+# -- registry ---------------------------------------------------------------
+
+_DECODERS: dict[str, type[Decoder]] = {}
+_ENCODERS: dict[str, type[Encoder]] = {}
+
+
+def register_decoder(cls: type[Decoder]) -> type[Decoder]:
+    _DECODERS[cls.INFO.name] = cls
+    return cls
+
+
+def register_encoder(cls: type[Encoder]) -> type[Encoder]:
+    _ENCODERS[cls.INFO.name] = cls
+    return cls
+
+
+def _ensure_registered() -> None:
+    from librempeg_tpu_torch.codecs import registry  # noqa: F401
+
+
+def find_decoder(name: str) -> type[Decoder]:
+    _ensure_registered()
+    try:
+        return _DECODERS[name]
+    except KeyError:
+        raise NotFound(f"decoder {name!r} not found") from None
+
+
+def find_encoder(name: str) -> type[Encoder]:
+    _ensure_registered()
+    try:
+        return _ENCODERS[name]
+    except KeyError:
+        raise NotFound(f"encoder {name!r} not found") from None
+
+
+def decoders() -> dict[str, type[Decoder]]:
+    _ensure_registered()
+    return dict(_DECODERS)
+
+
+def encoders() -> dict[str, type[Encoder]]:
+    _ensure_registered()
+    return dict(_ENCODERS)

@@ -14,7 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from librempeg_tpu_torch.codecs.api import CodecInfo, Decoder
+from librempeg_tpu_torch.codecs.api import CodecInfo, Decoder, register_decoder
 from librempeg_tpu_torch.codecs.h264.parse import (
     NalUnit,
     parse_pps,
@@ -141,6 +141,7 @@ class _DecodeAhead:
         return (sh, res)
 
 
+@register_decoder
 class H264Decoder(Decoder):
     """Baseline-profile decoder: I (I_4x4 / I_16x16) + P slices (all
     partition shapes incl. sub-8x8, P_SKIP, multi-ref), CAVLC, quarter-pel

@@ -16,16 +16,17 @@ A copy of librempeg_tpu/codecs/mpeg4/decoder.py (host numpy code, no
 JAX) with its imports rewritten to the port's modules, and with the
 simple_idct integer IDCT it borrows from the MPEG-1/2 decoder
 (codecs/mpeg12/decoder.py idct_simple, ops/dct8x8.py _int_idct_matrix)
-carried here. The port has no decoder registry, so Mpeg4Decoder is not
-registered. It is no product path (hence the private module): it lets
-chip_smoke.py and the no-JAX test decode the port's own MPEG-4 streams
-(B-VOPs included) where JAX is not installed.
+carried here. It is the port's registered mpeg4 decoder, on the host:
+its planes are numpy arrays unless `device` is given, then tensors on
+that device. It lets chip_smoke.py, the no-JAX test and the transcode
+decode the port's own MPEG-4 streams (B-VOPs included) where JAX is not
+installed.
 """
 from __future__ import annotations
 
 import numpy as np
 
-from librempeg_tpu_torch.codecs.api import CodecInfo, Decoder
+from librempeg_tpu_torch.codecs.api import CodecInfo, Decoder, register_decoder
 from librempeg_tpu_torch.codecs.flac.bitio import BitReaderMSB
 from librempeg_tpu_torch.codecs.jpeg.tables import ZIGZAG
 from librempeg_tpu_torch.codecs.mpeg4 import tables as T
@@ -33,6 +34,7 @@ from librempeg_tpu_torch.core.errors import InvalidData, Unsupported
 from librempeg_tpu_torch.core.frame import VideoFrame
 from librempeg_tpu_torch.core.packet import Packet
 from librempeg_tpu_torch.core.rational import Rational
+from librempeg_tpu_torch.device import resolve
 
 # ---------------------------------------------------------------------------
 # simple_idct 8-bit integer IDCT (copied from the MPEG-1/2 decoder)
@@ -1096,11 +1098,14 @@ def _reconstruct_b(dec, mbs, qy, qu, qv, mb_w, mb_h):
     return out_y, out_u, out_v
 
 
+@register_decoder
 class Mpeg4Decoder(Decoder):
     INFO = CodecInfo(name="mpeg4", long_name="MPEG-4 part 2",
                      codec_type="video")
 
-    def __init__(self, params=None, **opts):
+    def __init__(self, params=None, device=None, **opts):
+        # host decoder: planes are numpy arrays unless a device is named
+        self.device = None if device is None else resolve(device)
         self._dec = Mpeg4BitstreamDecoder()
         self._n = 0
         self._held = None       # reordering: non-B frames delay by one
@@ -1116,7 +1121,7 @@ class Mpeg4Decoder(Decoder):
         y, u, v = out
         vol = self._dec.vol
         self._n += 1
-        return VideoFrame(
+        f = VideoFrame(
             planes=(y[:vol.height, :vol.width],
                     u[:(vol.height + 1) // 2, :(vol.width + 1) // 2],
                     v[:(vol.height + 1) // 2, :(vol.width + 1) // 2]),
@@ -1124,6 +1129,7 @@ class Mpeg4Decoder(Decoder):
             pts=pkt.pts,
             time_base=pkt.time_base if pkt.time_base.valid
             and pkt.time_base.num else Rational(1, 25))
+        return f if self.device is None else f.to_device(self.device)
 
     def decode(self, pkt: Packet):
         out = self._dec.decode_frame(bytes(pkt.data))

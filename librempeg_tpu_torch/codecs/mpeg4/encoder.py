@@ -26,7 +26,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from librempeg_tpu_torch.codecs.api import CodecInfo, Encoder
+from librempeg_tpu_torch.codecs.api import CodecInfo, Encoder, register_encoder
 from librempeg_tpu_torch.codecs.mpeg4 import me_pallas as MEP
 from librempeg_tpu_torch.codecs.mpeg4 import tables as T
 from librempeg_tpu_torch.codecs.mpeg4 import trellis as rdq
@@ -602,6 +602,7 @@ class RateController:
             self.c_p = 0.7 * self.c_p + 0.3 * c
 
 
+@register_encoder
 class Mpeg4Encoder(Encoder):
     INFO = CodecInfo(name="mpeg4", long_name="MPEG-4 part 2 (Simple Profile)",
                      codec_type="video")

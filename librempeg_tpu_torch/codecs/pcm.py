@@ -19,7 +19,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from librempeg_tpu_torch.codecs.api import CodecInfo, Decoder, Encoder
+from librempeg_tpu_torch.codecs.api import (
+    CodecInfo,
+    Decoder,
+    Encoder,
+    register_decoder,
+    register_encoder,
+)
 from librempeg_tpu_torch.core.errors import Unsupported
 from librempeg_tpu_torch.core.frame import AudioFrame
 from librempeg_tpu_torch.core.packet import Packet, PktFlags
@@ -249,3 +255,20 @@ def clip_to_int(y: torch.Tensor, lo: int, hi: int, dtype) -> torch.Tensor:
     int64 (a float32 clamp cannot hold 2^31 - 1: it rounds to 2^31,
     which wraps)."""
     return y.to(torch.int64).clamp(lo, hi).to(dtype)
+
+
+def _register(base, codec: str, register) -> None:
+    """Register `base` bound to one PCM codec under the codec's name."""
+    def init(self, *args, **kw):
+        base.__init__(self, codec, *args, **kw)
+
+    register(type(f"{base.__name__}_{codec}", (base,), {
+        "INFO": CodecInfo(name=codec, long_name=f"PCM {codec[4:]}",
+                          codec_type="audio"),
+        "__init__": init}))
+
+
+for _name in DECODERS:
+    _register(PcmDecoder, _name, register_decoder)
+for _name in ENCODERS:
+    _register(PcmEncoder, _name, register_encoder)

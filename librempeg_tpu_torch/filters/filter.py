@@ -141,7 +141,12 @@ def register_filter(cls: type[Filter]) -> type[Filter]:
 
 
 def _ensure_registered():
-    from librempeg_tpu_torch.filters import audio, video  # noqa: F401
+    from librempeg_tpu_torch.filters import (  # noqa: F401
+        audio,
+        metrics,
+        misc,
+        video,
+    )
 
 
 def find_filter(name: str) -> type[Filter]:

@@ -307,9 +307,15 @@ def muxers() -> dict[str, type[Muxer]]:
 
 
 def _ensure_registered() -> None:
-    """Import the port's container modules (H.264 ES in, AVI out; WAV
-    and ADTS in and out)."""
-    from librempeg_tpu_torch.formats import adts, avi, rawes, wav  # noqa: F401
+    """Import the port's container modules (H.264 ES in; AVI, raw MJPEG,
+    image2, WAV and ADTS in and out)."""
+    from librempeg_tpu_torch.formats import (  # noqa: F401
+        adts,
+        avi,
+        image2,
+        rawes,
+        wav,
+    )
 
 
 def probe_format(buf: bytes, filename: str = "") -> tuple[type[Demuxer] | None, int]:
@@ -329,7 +335,13 @@ def open_input(url: str, format: str | None = None, **demux_opts) -> Demuxer:
     (e.g. rawvideo's pix_fmt/width/height — the AVDictionary options of
     the reference)."""
     _ensure_registered()
-    if format is not None:
+    if "%" in url and format in (None, "image2") and not os.path.exists(url):
+        # a patterned image sequence: the demuxer opens each file itself
+        # (the JAX package opens the pattern's literal name and fails)
+        cls = _DEMUXERS["image2"]
+        io = MemoryIO()
+        io.url = url
+    elif format is not None:
         try:
             cls = _DEMUXERS[format]
         except KeyError:

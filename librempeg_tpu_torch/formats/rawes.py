@@ -1,4 +1,8 @@
-"""Raw video elementary-stream containers: h264 (annex-B), m4v, mjpeg.
+"""Raw video elementary-stream containers: h264 (annex-B) in, mjpeg in
+and out.
+
+Copies of the H.264 demuxer and the MJPEG muxer and demuxer of
+librempeg_tpu/formats/rawes.py (host code, no JAX), imports rewritten.
 
 Analog of libavformat/rawenc.c (one-call passthrough
 muxers) and rawdec.c/m4vdec.c/mjpegdec.c's startcode-splitting demuxers.
@@ -15,9 +19,24 @@ from librempeg_tpu_torch.core.rational import Rational
 from librempeg_tpu_torch.formats.api import (
     CodecParameters,
     Demuxer,
+    Muxer,
     Stream,
     register_demuxer,
+    register_muxer,
 )
+
+
+@register_muxer
+class MJpegESMuxer(Muxer):
+    """Concatenate packet payloads (rawenc.c ff_raw_write_packet)."""
+
+    NAME = "mjpeg"
+    LONG_NAME = "raw MJPEG video"
+    EXTENSIONS = ("mjpeg", "mjpg")
+    INTERLEAVE = False
+
+    def write_packet(self, pkt: Packet):
+        self.io.write(pkt.data)
 
 
 class _RawESDemuxer(Demuxer):
@@ -107,3 +126,32 @@ class H264Demuxer(_RawESDemuxer):
             else:
                 cur += b"\x00\x00\x00\x01" + nal
         return bytes(extradata), frames
+
+
+@register_demuxer
+class MJpegESDemuxer(_RawESDemuxer):
+    NAME = "mjpeg"
+    LONG_NAME = "raw MJPEG video"
+    EXTENSIONS = ("mjpeg", "mjpg")
+    CODEC_ID = "mjpeg"
+
+    @classmethod
+    def probe(cls, buf: bytes, filename: str = "") -> int:
+        if buf.startswith(b"\xff\xd8\xff") and filename.endswith(
+                ("mjpeg", "mjpg")):
+            return 51
+        return 0
+
+    def _split(self, data: bytes) -> tuple[bytes, list[bytes]]:
+        frames = []
+        pos = 0
+        while True:
+            soi = data.find(b"\xff\xd8", pos)
+            if soi < 0:
+                break
+            eoi = data.find(b"\xff\xd9", soi + 2)
+            if eoi < 0:
+                break
+            frames.append(data[soi:eoi + 2])
+            pos = eoi + 2
+        return b"", frames

@@ -1,8 +1,9 @@
 """Build & load the native host extension (ctypes).
 
-Compiles bitstream.cpp to a shared library on first import (cached by
-source mtime) and exposes typed wrappers. The native layer is optional:
-callers check `available()` and can fall back to pure-Python paths.
+Compiles the C++ sources beside this file (bitstream.cpp, h264.cpp,
+mpeg4.cpp and their table headers) to a shared library on first use
+(cached by source mtime) and exposes typed wrappers. Callers check
+`available()`; the port's codecs raise where it is missing.
 """
 from __future__ import annotations
 
@@ -13,13 +14,10 @@ import threading
 
 import numpy as np
 
-# The C++ sources are shared with the JAX package and read by path from
-# its tree (never imported); the library is built under the checkout's
-# build/ directory so that tree is never written to.
-_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))))
-_DIR = os.path.join(_ROOT, "librempeg_tpu", "native")
-_SRC = os.path.join(_DIR, "bitstream.cpp")
+# The C++ sources are the port's own copies, in this directory; the
+# library is built under the checkout's build/ directory.
+_DIR = os.path.dirname(os.path.abspath(__file__))
+_ROOT = os.path.dirname(os.path.dirname(_DIR))
 _SRCS = [os.path.join(_DIR, f)
          for f in ("bitstream.cpp", "h264.cpp", "mpeg4.cpp")]
 _HDRS = [os.path.join(_DIR, f)

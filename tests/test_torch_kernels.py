@@ -708,3 +708,67 @@ def test_residual_kernel_refuses_misaligned_rows():
     flat = torch.zeros(10 * 24 + 1, dtype=torch.int16, device="cuda")
     with pytest.raises(ValueError, match="aligned"):
         RP.expand_residual(flat[1:].view(10, 24), None, 5)
+
+
+def _jpeg_planes(w, h, seed):
+    """Seeded yuvj420p planes: a smooth pattern plus noise."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for ph, pw in ((h, w), (h // 2, w // 2), (h // 2, w // 2)):
+        gy, gx = np.mgrid[0:ph, 0:pw]
+        base = 128 + 60 * np.sin(gx / 7.0) * np.cos(gy / 5.0)
+        out.append(torch.from_numpy(np.clip(
+            base + rng.normal(0, 8, (ph, pw)), 0, 255).astype(np.uint8)))
+    return tuple(out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w,h,quality", [(38, 30, 75), (1920, 1088, 91),
+                                         (1920, 1088, 4)])
+def test_jpeg_decode_on_cuda_equals_the_cpu(w, h, quality):
+    """The JPEG decoder's dequant, integer IDCT and placement on the
+    card: bit-exact with the plain path on the CPU."""
+    from librempeg_tpu_torch.codecs.jpeg.decoder import decode_jpeg
+    from librempeg_tpu_torch.codecs.jpeg.encoder import encode_jpeg
+    from librempeg_tpu_torch.core.frame import VideoFrame
+
+    dev = _card()
+    f = VideoFrame(planes=_jpeg_planes(w, h, 0), format="yuvj420p",
+                   width=w, height=h)
+    jpg = encode_jpeg(f, quality=quality, device=dev)
+    a = decode_jpeg(jpg, device="cpu")
+    b = decode_jpeg(jpg, device=dev)
+    for x, y in zip(a.planes, b.planes):
+        assert y.is_cuda and torch.equal(x, y.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["psnr", "ssim"])
+def test_metric_on_cuda_equals_the_cpu(metric):
+    """psnr within 1e-3 dB (mse within 1e-5 relative), ssim within 1e-5,
+    of the same two-input graph on the CPU, at 1920x1088."""
+    from librempeg_tpu_torch.core.frame import VideoFrame
+    from librempeg_tpu_torch.core.rational import Rational
+    from librempeg_tpu_torch.filters import GraphRunner, StreamProps
+
+    dev = _card()
+    props = StreamProps(media="video", width=1920, height=1088,
+                        pix_fmt="yuv420p", frame_rate=Rational(25, 1),
+                        time_base=Rational(1, 25))
+    stats = {}
+    for d in ("cpu", dev):
+        g = GraphRunner(f"[in][in2]{metric}", [props, props])
+        for i in range(3):
+            main, ref = (VideoFrame(
+                planes=tuple(p.to(d) for p in _jpeg_planes(1920, 1088, s)),
+                format="yuv420p", width=1920, height=1088, pts=i,
+                time_base=Rational(1, 25)) for s in (i, 100 + i))
+            g.push(ref, 1)
+            g.push(main, 0)
+        stats[d] = next(n.filter.stats for n in g.graph.nodes
+                        if n.filter.NAME == metric)
+    for a, b in zip(stats["cpu"], stats[dev]):
+        for k in a:
+            tol = (1e-5 * a[k] if k.startswith("mse") else
+                   1e-3 if k.startswith("psnr") else 1e-5)
+            assert abs(a[k] - b[k]) <= tol, (k, a[k], b[k])

@@ -11,10 +11,18 @@ kernel-leg modules and runs one transcode step, then converts a frame to
 yuvj420p and encodes one B group (trellis on) and decodes it with the
 port's own MPEG-4 decoder, then runs the audio slice (1 s of WAV ->
 -ar 48000 -c:a aac -b:a 128k -> ADTS), decodes it with the port's AAC
-decoder and imports every audio module.
+decoder and imports every audio module, then encodes and decodes one
+MJPEG frame and runs a two-input psnr graph on it.
+
+The port also reads nothing under librempeg_tpu/ at run time: no path
+into that tree in its Python, CUDA or C++ sources or in chip_smoke.py
+(citations such as librempeg_tpu/codecs/h264/mc_pallas.py:324 in
+comments and labels are not paths), and its native library compiles
+from its own copies in librempeg_tpu_torch/native/.
 """
 import ast
 import os
+import re
 import subprocess
 import sys
 
@@ -126,8 +134,25 @@ astats = Transcoder(TranscodeSpec(
 demux = open_input(sys.argv[5])
 adec = AacDecoder(demux.streams[0].codecpar, device="cpu")
 pcm = torch.cat([adec.decode(p)[0].data for p in demux.packets()], 1)
+from librempeg_tpu_torch.codecs.jpeg.decoder import decode_jpeg
+from librempeg_tpu_torch.codecs.jpeg.encoder import encode_jpeg
+from librempeg_tpu_torch.core.rational import Rational
+from librempeg_tpu_torch.filters import GraphRunner, StreamProps
+
+src = VideoFrame(planes=tuple(torch.from_numpy(p)
+                              for p in testgen.video_yuv420(64, 32, 1)),
+                 format="yuvj420p", width=64, height=32, pts=0)
+jpg = encode_jpeg(src, quality=90, device="cpu")
+back = decode_jpeg(jpg, device="cpu").replace(pts=0)
+props = StreamProps(media="video", width=64, height=32, pix_fmt="yuvj420p",
+                    frame_rate=Rational(25, 1), time_base=Rational(1, 25))
+g = GraphRunner("[in][in2]psnr", [props, props])
+g.push(src, 1)
+g.push(back, 0)
+jst = next(n.filter.stats for n in g.graph.nodes if n.filter.NAME == "psnr")
 leaked = sorted(m for m in sys.modules if banned(m))
 assert not leaked, leaked
+print("jpeg", jpg[:2].hex(), back.format, len(jst), jst[0]["psnr_avg"] > 30)
 print("frames", stats["frames"][0])
 print("audio", demux.streams[0].codecpar.sample_rate, tuple(pcm.shape))
 print("step", tuple(out["y"].shape), tuple(out["mv"].shape))
@@ -156,3 +181,69 @@ def test_slice_runs_without_jax(tmp_path):
     # 48000 resampled samples: 47 frames, the padded last and the flush
     assert "audio 48000 (2, 49152)" in proc.stdout
     assert aac.stat().st_size > 10000
+    assert "jpeg ffd8 yuvj420p 1 True" in proc.stdout
+
+
+_PATH_CALLS = {"join", "open", "exists", "isdir", "isfile", "listdir",
+               "glob", "Path", "CDLL", "walk", "scandir", "getmtime"}
+_C_PATH = re.compile(r'(#\s*include\s*[<"][^>"]*|"[^"\n]*)'
+                     r'librempeg_tpu(?!_torch)[/"]')
+
+
+def _runtime_paths_into_the_jax_package(path: str) -> list[str]:
+    """Lines of `path` that name librempeg_tpu/ as a file-system path:
+    in Python, the exact string "librempeg_tpu" or any string naming
+    that tree passed to a path or file call; in C/C++/CUDA, an include
+    or string literal into it."""
+    text = open(path).read()
+    if not path.endswith(".py"):
+        return [f"{path}:{text.count(chr(10), 0, m.start()) + 1}"
+                for m in _C_PATH.finditer(text)]
+    bad = []
+    for node in ast.walk(ast.parse(text, path)):
+        if isinstance(node, ast.Constant) and node.value == "librempeg_tpu":
+            bad.append(f"{path}:{node.lineno}")
+        if isinstance(node, ast.Call):
+            fn = node.func
+            name = fn.attr if isinstance(fn, ast.Attribute) else getattr(
+                fn, "id", "")
+            if name in _PATH_CALLS:
+                bad += [f"{path}:{a.lineno}" for a in ast.walk(node)
+                        if isinstance(a, ast.Constant)
+                        and isinstance(a.value, str)
+                        and re.search(r"librempeg_tpu(?!_torch)", a.value)]
+    return bad
+
+
+def test_no_runtime_path_into_the_jax_package(tmp_path):
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for d, _, names in os.walk(PKG):
+        files += [os.path.join(d, f) for f in names
+                  if f.endswith((".py", ".cu", ".cpp", ".h"))]
+    bad = [b for f in files for b in _runtime_paths_into_the_jax_package(f)]
+    assert len(files) > 60 and not bad, bad
+    # the scan finds the old loader's path
+    probe = tmp_path / "probe.py"
+    probe.write_text('import os\n_DIR = os.path.join("x", "librempeg_tpu", '
+                     '"native")\n')
+    assert _runtime_paths_into_the_jax_package(str(probe))
+
+
+def test_native_library_builds_from_the_ports_copies(tmp_path):
+    """Every source the loader compiles lies in librempeg_tpu_torch/native,
+    each C++ file compiles there alone (its headers resolve beside it),
+    and the loaded library is newer than every source."""
+    from librempeg_tpu_torch.native import build as native
+
+    here = os.path.join(PKG, "native")
+    srcs = native._SRCS + native._HDRS
+    assert {os.path.dirname(s) for s in srcs} == {here}
+    assert sorted(os.path.basename(s) for s in srcs) == [
+        "bitstream.cpp", "cabac_tables.h", "h264.cpp", "h264_tables.h",
+        "mpeg4.cpp", "mpeg4_tables.h"]
+    for s in native._SRCS:
+        subprocess.run(["g++", "-fsyntax-only", s], check=True,
+                       cwd=tmp_path)
+    assert native.available()
+    assert all(os.path.getmtime(native._LIB) >= os.path.getmtime(s)
+               for s in srcs)

@@ -26,8 +26,23 @@ Runs the JAX package (the reference) on the CPU:
   bytes, and the JAX package's decoder's SNR on its own stream against
   its resampled input) into tests/data/torch_port/audio_aac.npz.
 
-Usage: python tools/torch_port_goldens.py [--audio] [--calibrate |
-       --check-port]
+* with --jpeg, only the JPEG goldens: chip_smoke.py's JPEG commands
+  (jpeg_commands: A the asset to -pix_fmt yuvj420p -c:v mjpeg -q:v 3 in
+  AVI, B that AVI to -vf scale=1280:720 -c:v mpeg4 -q:v 4, C the
+  thumbnails -vf fps=5,crop=1440:1080,scale=320:240 -q:v 2 -f image2,
+  given -c:v mjpeg, which the JAX package does not pick itself) through
+  the JAX package's CLI parser and Transcoder, into
+  tests/data/torch_port/bench_1080p_mjpeg.npz: per frame of A the
+  packet's size and md5, the md5 of the JAX decoder's planes and their
+  PSNR per plane against the yuvj420p frames the encoder took, and the
+  psnr and ssim graphs' stats of that decode against those frames;
+  frame 0 coded at -q:v 31 (its bytes and the JAX decoder's md5) and
+  A's own packet 0 at -q:v 3 (its bytes; its md5s are A's first); B's
+  VOP types, pts and decoded PSNR per frame (the JAX MPEG-4 decoder,
+  against the encoder's input); C's pts and sizes.
+
+Usage: python tools/torch_port_goldens.py [--audio | --jpeg]
+       [--calibrate | --check-port]
 
 --calibrate also runs the options transcode through the port on the CPU
 and prints its agreement with the JAX package's: the share of the first
@@ -44,10 +59,11 @@ quantisers, and the decoded I/P and B PSNR means within
 OPTIONS_PSNR_TOL_DB). Run from a copy of the repo with a fault planted
 in the port, it reads how far that fault moves those numbers.
 
-With --audio, --calibrate also runs chip_smoke.py's audio checks on the
-port on the CPU with no limits and prints what they read (the numbers
-the audio phase's limits come from); --check-port runs them with
-chip_smoke.py's limits against the stored npz and writes nothing.
+With --audio or --jpeg, --calibrate also runs chip_smoke.py's audio or
+JPEG checks on the port on the CPU with no limits and prints what they
+read (the numbers the phase's limits come from); --check-port runs them
+with chip_smoke.py's limits against the stored npz and writes nothing.
+The port's JPEG paths take about 6 minutes on an 8-core CPU.
 """
 from __future__ import annotations
 
@@ -94,6 +110,7 @@ OFF, RS = 3, 7
 # chip_smoke.py's limit on the decoded PSNR means of the options path
 OPTIONS_PSNR_TOL_DB = 0.02
 AUDIO_OUT = os.path.join(OUT, "audio_aac.npz")
+JPEG_OUT = os.path.join(OUT, "bench_1080p_mjpeg.npz")
 
 
 def frame_md5(planes) -> str:
@@ -418,6 +435,126 @@ def audio_port(limits: bool) -> bool:
     return True
 
 
+def jpeg_goldens() -> dict:
+    """The JAX package's runs of chip_smoke.py's JPEG commands."""
+    import chip_smoke as CS
+
+    from librempeg_tpu.cli.ffmpeg import parse_args
+    from librempeg_tpu.codecs.jpeg.decoder import decode_jpeg
+    from librempeg_tpu.codecs.jpeg.encoder import encode_jpeg
+    from librempeg_tpu.core.packet import Packet
+    from librempeg_tpu.core.rational import Rational
+    from librempeg_tpu.filters import GraphRunner, StreamProps
+
+    def run(argv, keep=None):
+        tc = Transcoder(parse_args(argv)[0])
+        pk, write = [], tc.mux.write
+
+        def rec(p):
+            pk.append((p.pts, bytes(p.data)))
+            write(p)
+
+        tc.mux.write = rec
+        if keep is not None:
+            enc = tc.chains[0].encoder
+            name = "encode_async" if tc.chains[0]._pipelined else "encode"
+            inner = getattr(enc, name)
+
+            def take(frame, **kw):
+                keep.append([np.asarray(p) for p in frame.planes])
+                return inner(frame, **kw)
+
+            setattr(enc, name, take)
+        tc.run()
+        return pk
+
+    def plane_psnr(a, b):
+        d = np.asarray(a, np.float64) - np.asarray(b, np.float64)
+        mse = float((d * d).mean())
+        return float("inf") if mse == 0 else 10 * np.log10(255 ** 2 / mse)
+
+    with tempfile.TemporaryDirectory() as td:
+        cmd = CS.jpeg_commands(td)
+        src = []
+        pa = run(cmd["A"], src)
+        dec = [decode_jpeg(d) for _, d in pa]
+        tb = Rational(1, 25)
+        props = StreamProps(media="video", width=1920, height=1088,
+                            pix_fmt="yuvj420p", frame_rate=Rational(25, 1),
+                            time_base=tb)
+        stats = {}
+        for name, keys in (("psnr", ("psnr_y", "psnr_u", "psnr_v",
+                                     "psnr_avg")),
+                           ("ssim", ("ssim_y", "ssim_u", "ssim_v",
+                                     "ssim_all"))):
+            g = GraphRunner(f"[in][in2]{name}", [props, props])
+            for i, (f, s) in enumerate(zip(dec, src)):
+                g.push(f.replace(pts=i, time_base=tb).replace(
+                    planes=tuple(s)), 1)
+                g.push(f.replace(pts=i, time_base=tb), 0)
+            g.finish()
+            st = next(n.filter.stats for n in g.graph.nodes
+                      if n.filter.NAME == name)
+            stats[name] = np.array([[x[k] for k in keys] for x in st])
+        first = dec[0].replace(planes=tuple(src[0]))
+        stored = encode_jpeg(first, quality=int(max(2, min(100, round(
+            100 - CS.JPEG_STORED_Q * 3.1)))))
+        bin_ = []
+        pb = run(cmd["B"], bin_)
+        mdec = Mpeg4Decoder()
+        back = [f for p, d in pb for f in mdec.decode(
+            Packet(data=d, pts=p))] + mdec.flush()
+        c = cmd["C"]
+        pc = run(c[:-1] + ["-c:v", "mjpeg"] + c[-1:])
+    return {
+        "a_sizes": np.array([len(d) for _, d in pa], np.int32),
+        "a_md5": np.array([hashlib.md5(d).hexdigest() for _, d in pa]),
+        "a_dec_md5": np.array([frame_md5(f.planes) for f in dec]),
+        "a_psnr": np.array([[plane_psnr(a, b) for a, b in zip(f.planes, s)]
+                            for f, s in zip(dec, src)]),
+        "psnr": stats["psnr"], "ssim": stats["ssim"],
+        "stored_jpeg": np.frombuffer(stored, np.uint8),
+        "stored_md5": frame_md5(decode_jpeg(stored).planes),
+        "a0_jpeg": np.frombuffer(pa[0][1], np.uint8),
+        "b_types": "".join(vop_type(d) for _, d in pb),
+        "b_pts": np.array([p for p, _ in pb], np.int64),
+        "b_psnr": np.array([psnr(s, f.planes) for s, f in zip(bin_, back)]),
+        "c_pts": np.array([p for p, _ in pc], np.int64),
+        "c_sizes": np.array([len(d) for _, d in pc], np.int32),
+    }
+
+
+def jpeg_port(limits: bool) -> bool:
+    """chip_smoke.py's JPEG paths and checks on the port on the CPU
+    against the stored npz, with its limits (or none); prints what they
+    read."""
+    import chip_smoke as CS
+
+    gold = np.load(JPEG_OUT)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as td:
+        try:
+            r = CS.jpeg_checks("cpu", CS.jpeg_paths("cpu", td), gold,
+                               limits=limits)
+        except RuntimeError as e:
+            print(f"port JPEG checks on the CPU: FAIL: {e}")
+            return False
+    print(f"port JPEG checks on the CPU ({time.perf_counter() - t0:.1f} s, "
+          f"limits {'on' if limits else 'off'}): pass")
+    print(f"  A: {r['a_bytes']} bytes (JAX {int(gold['a_sizes'].sum())}), "
+          f"largest packet size gap {r['a_size_rel_max']:.6f}, "
+          f"{r['a_identical']} of 48 packets byte-identical; decoded PSNR "
+          f"per plane {[round(x, 4) for x in r['a_psnr_mean']]} dB, gap "
+          f"{[round(x, 5) for x in r['a_psnr_gap']]}")
+    for name in ("psnr", "ssim"):
+        print(f"  {name} graph means {[round(x, 6) for x in r[name + '_mean']]}"
+              f", gap {[float(f'{x:.3g}') for x in r[name + '_gap']]}")
+    print(f"  B: {r['b_types']}, decoded mean {r['b_psnr_mean']:.4f} dB, gap "
+          f"{r['b_psnr_gap']:+.5f}")
+    print(f"  C: sizes {r['c_bytes']}, largest gap {r['c_size_rel_max']:.6f}")
+    return True
+
+
 def main(argv) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--calibrate", action="store_true",
@@ -428,7 +565,29 @@ def main(argv) -> None:
                     "CPU against the stored goldens; write nothing")
     ap.add_argument("--audio", action="store_true",
                     help="only the audio goldens (audio_aac.npz)")
+    ap.add_argument("--jpeg", action="store_true",
+                    help="only the JPEG goldens (bench_1080p_mjpeg.npz)")
     args = ap.parse_args(argv)
+    if args.jpeg:
+        if args.check_port:
+            sys.exit(0 if jpeg_port(limits=True) else 1)
+        os.makedirs(OUT, exist_ok=True)
+        t0 = time.perf_counter()
+        gold = jpeg_goldens()
+        np.savez_compressed(JPEG_OUT, **gold)
+        print(f"JPEG goldens (JAX, CPU, {time.perf_counter() - t0:.1f} s): "
+              f"A {int(gold['a_sizes'].sum())} bytes, decoded PSNR per plane "
+              f"{gold['a_psnr'].mean(0).round(4).tolist()} dB, psnr graph "
+              f"{gold['psnr'].mean(0).round(4).tolist()}, ssim graph "
+              f"{gold['ssim'].mean(0).round(6).tolist()}; stored frame "
+              f"{gold['stored_jpeg'].size} bytes, A's packet 0 "
+              f"{gold['a0_jpeg'].size} bytes; B {gold['b_types']} "
+              f"decoded {gold['b_psnr'].mean():.4f} dB; C sizes "
+              f"{gold['c_sizes'].tolist()}, pts {gold['c_pts'].tolist()}; "
+              f"{os.path.getsize(JPEG_OUT)} bytes")
+        if args.calibrate:
+            jpeg_port(limits=False)
+        return
     if args.audio:
         if args.check_port:
             sys.exit(0 if audio_port(limits=True) else 1)

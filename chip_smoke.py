@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--profile DIR]
 
-It drives five paths and nine kernels. Phases, in order; any failure
+It drives six paths and ten kernels. Phases, in order; any failure
 raises and the script exits non-zero:
 
 1. device: the card's name and power limit (nvidia-smi);
@@ -89,7 +89,30 @@ raises and the script exits non-zero:
    the files' bytes; the graphs within METRIC_DEV_DB / METRIC_DEV_SSIM of
    the CPU and within the limits of the JAX package's means. Each path's
    frames/s and stage split (jpeg.device, jpeg.fetch, jpeg.scan) print;
-9. kernel leg: parallel.transcode_step as bench.py's kernel leg runs it
+9. filters: the filter slice through cli.ffmpeg's parser and Transcoder
+   (filters_commands) at the asset's full 1920x1088: F1 -vf F1_VF
+   (colorspace, eq, gblur, boxblur, lutyuv, drawbox, fade) to MPEG-4 at
+   -q:v 4, F2 -vf minterpolate=fps=50 (the full-search kernel once per
+   interpolated frame, 47 launches, r = 8), F3 the 10 s WAV through -af
+   F3_AF (four biquads: the biquad kernel once per WAV packet each,
+   1724 launches; aecho, afade) to AAC, F4 -f lavfi testsrc (2 s) to
+   MPEG-4 and sine (10 s) to AAC; then the graph-API graphs
+   (FILTER_GRAPHS: xfade, the stacks and tile after a scale, lut3d with
+   a generated 33^3 cube, concat, reverse, select, thumbnail on the
+   decode; showwaves, showspectrum and afir on F3's samples). Held to
+   tests/data/torch_port/bench_1080p_filters.npz (filters_checks):
+   VOP types and pts exact, bytes and mean recon PSNR within
+   FILT_BYTES_REL / FILT_PSNR_TOL_DB, F2's and F4's encoder input and
+   F2's MV fields equal to the JAX package's, F1's within the float
+   limits (plane sums, sampled rows), the audio paths' encoder input
+   exact, AAC pts exact, bytes and SNR within the audio limits, the
+   exact graphs' outputs equal, lut3d within FILT_SUM_TOL and FILT_SHARE,
+   the scaled frames equal to the exact scale off ties of its rounding
+   (FILT_TIE), each output of the stacks and tile equal to them stacked
+   or tiled and off the JAX package's only at ties. Every biquad launch of F3 is replayed through the plain
+   recurrence, equal by value; the full search equals its plain version
+   on minterpolate's inputs at r = 8 and r = 16;
+10. kernel leg: parallel.transcode_step as bench.py's kernel leg runs it
    (8 testgen frames 1920x1088 -> 1280x720, qscale 4, 4 chained steps),
    held to the JAX package's goldens (tests/data/torch_port/
    kernel_leg.npz); fsearch must launch once per step; then one warm
@@ -162,6 +185,10 @@ KERNELS = {
     "shape_scan": ("librempeg_tpu_torch/csrc/shape_scan.cu",
                    "librempeg_tpu/resample/dither.py:47", "7",
                    "audio (aresample=48000:dither_method=lipshitz)"),
+    # a lax.scan in the JAX package, not a Pallas kernel
+    "biquad": ("librempeg_tpu_torch/csrc/biquad.cu",
+               "librempeg_tpu/filters/biquads.py:27", "8",
+               "filters (F3: -af highpass,lowpass,equalizer,bass,...)"),
 }
 E2E_KERNELS = tuple(n for n, k in KERNELS.items() if k[3] == "e2e")
 
@@ -248,6 +275,46 @@ JPEG_B_PSNR_TOL_DB = 0.02  # path B's decoded mean
 JPEG_SSIM_TOL = 1e-4       # the ssim graph's mean against the JAX package's
 METRIC_DEV_DB = 1e-3       # psnr on the card against the CPU
 METRIC_DEV_SSIM = 1e-5     # ssim on the card against the CPU
+
+# the filter slice (filters_commands and FILTER_GRAPHS), held to
+# tests/data/torch_port/bench_1080p_filters.npz
+# (tools/torch_port_goldens.py --filters)
+FILTERS_GOLD = "bench_1080p_filters.npz"
+F1_VF = ("colorspace=all=bt709:ispace=bt470bg:iprimaries=bt470bg,"
+         "eq=contrast=1.1:brightness=0.02:saturation=1.2,gblur=sigma=1.5,"
+         "boxblur=2,lutyuv=y=val*0.9+16,drawbox=64:64:320:180:white:t=4,"
+         "fade=in:0:12")
+F3_AF = ("highpass=f=80,lowpass=f=12000,equalizer=f=3000:g=3:w=1,"
+         "bass=g=-2,aecho=0.8:0.5:40:0.3,afade=t=in:d=1")
+F4_SECONDS, SINE_SECONDS = 2, 10
+FILTER_SAMPLE_FRAMES = (0, 24)   # frames whose sampled rows are stored
+# Limits of the float contracts against the JAX package's outputs
+# (PERF.md section 2): packet bytes of a constant-qscale MPEG-4 stream
+# and its mean in-loop recon PSNR; per plane, the plane-sum gap per
+# sample; in sampled rows, the share of samples that differ and the
+# largest difference (lut3d's slope can carry a difference of 1 in its
+# RGB input to 2)
+FILT_BYTES_REL = 5e-3
+FILT_PSNR_TOL_DB = 0.02
+FILT_SUM_TOL = 1e-3
+FILT_SHARE = 1e-3
+FILT_LUT_MAX = 2
+# F1: frames of the encoder input equal to the JAX package's, at least
+FILT_F1_EQUAL = 40
+# the graphs fed by scale=960:544 (scaled_graph_checks). Each output
+# must equal the port's own scaled frames stacked or tiled, exactly.
+# Each scaled sample, and against the JAX package's outputs each sampled
+# sample, may differ only by 1 and only at a tie: where its exact value
+# (float64 through the JAX package's resize matrices, stored with the
+# goldens) lies within FILT_TIE of k + 0.5. The asset's flat areas put
+# many samples on ties of the 2:1 resize (tools/torch_port_goldens.py
+# --filters prints how many), and there a float32 GEMM, whose error here
+# stays under 4e-4 (eight taps a pass, two passes, sums below 330),
+# picks the side by its summation order: the JAX package's own float32
+# and the exact rounding part on many of them. Each plane sum may move
+# by at most its plane's count of ties.
+FILTER_SCALED_GRAPHS = ("hstack", "vstack", "tile")
+FILT_TIE = 1e-3
 
 
 def log(msg: str) -> None:
@@ -1303,17 +1370,18 @@ def read_wav(path: str):
         -1, par.nb_channels).T
 
 
-def adts_lengths(data: bytes) -> list[int]:
+def adts_lengths(data: bytes, rate_index: int = 3,
+                 channels: int = 2) -> list[int]:
     """The frame lengths of an ADTS stream, each header checked: sync
-    word, AAC LC, rate index 3 (48 kHz), channel configuration 2, and
-    lengths that add up to the stream."""
+    word, AAC LC, the rate index (3: 48 kHz, 4: 44.1 kHz), the channel
+    configuration, and lengths that add up to the stream."""
     out, pos = [], 0
     while pos < len(data):
         h = data[pos:pos + 7]
         ln = (h[3] & 3) << 11 | h[4] << 3 | h[5] >> 5 if len(h) == 7 else 0
         check(len(h) == 7 and h[0] == 0xFF and h[1] & 0xF6 == 0xF0
-              and h[2] >> 6 == 1 and (h[2] >> 2) & 0xF == 3
-              and ((h[2] & 1) << 2 | h[3] >> 6) == 2
+              and h[2] >> 6 == 1 and (h[2] >> 2) & 0xF == rate_index
+              and ((h[2] & 1) << 2 | h[3] >> 6) == channels
               and 7 < ln <= len(data) - pos,
               f"ADTS header at byte {pos}: {h.hex()}")
         out.append(ln)
@@ -1617,11 +1685,13 @@ def jpeg_commands(td: str) -> dict:
     }
 
 
-def cli_run(argv: list[str], dev: str, keep_input: bool = False) -> dict:
+def cli_run(argv: list[str], dev: str, keep_input: bool = False,
+            on_input=None, prepare=None) -> dict:
     """One command line through cli.ffmpeg's parser and Transcoder, with
     the packets the muxer receives recorded as (pts, bytes, key), the
-    frames the encoder takes (keep_input), the launch counts and the
-    stage split of the run (both reset before it)."""
+    frames the encoder takes (keep_input; or each passed to on_input),
+    the launch counts and the stage split of the run (both reset before
+    it). prepare(transcoder) runs before the run."""
     from librempeg_tpu_torch import kernels
     from librempeg_tpu_torch.cli.ffmpeg import parse_args
     from librempeg_tpu_torch.core.packet import PktFlags
@@ -1639,15 +1709,19 @@ def cli_run(argv: list[str], dev: str, keep_input: bool = False) -> dict:
 
     tc.mux.write = rec
     chain = tc.chains[0]
-    if keep_input:
-        name = "encode_async" if chain._pipelined else "encode"
+    if keep_input or on_input is not None:
+        name = "encode_async" if getattr(chain, "_pipelined", False) \
+            else "encode"
         enc = getattr(chain.encoder, name)
+        keep = inputs.append if keep_input else on_input
 
         def take(frame, **kw):
-            inputs.append(frame)
+            keep(frame)
             return enc(frame, **kw)
 
         setattr(chain.encoder, name, take)
+    if prepare is not None:
+        prepare(tc)
     stagetimer.reset()
     kernels.reset_counts()
     sync(dev)
@@ -1863,6 +1937,689 @@ def jpeg_phase(dev: str) -> dict:
     return res
 
 
+# -- the filter slice ---------------------------------------------------------
+
+def filters_commands(td: str, wav: str) -> dict:
+    """The filter phase's command lines (cli.ffmpeg), outputs in td: F1
+    broadcast preparation, F2 25 -> 50 fps, F3 audio clean-up of the WAV
+    at `wav`, F4 the lavfi sources (video, then audio)."""
+    j = os.path.join
+    return {
+        "F1": ["-i", ASSET, "-vf", F1_VF, "-c:v", "mpeg4", "-q:v", "4",
+               "-y", j(td, "f1.avi")],
+        "F2": ["-i", ASSET, "-vf", "minterpolate=fps=50", "-c:v", "mpeg4",
+               "-q:v", "4", "-y", j(td, "f2.avi")],
+        "F3": ["-i", wav, "-af", F3_AF, "-c:a", "aac", "-b:a", "128k", "-y",
+               j(td, "f3.aac")],
+        "F4v": ["-f", "lavfi", "-i", f"testsrc=size=1920x1088:rate=25:"
+                f"duration={F4_SECONDS}", "-c:v", "mpeg4", "-q:v", "4", "-y",
+                j(td, "f4.avi")],
+        "F4a": ["-f", "lavfi", "-i", f"sine=frequency=1000:duration="
+                f"{SINE_SECONDS}", "-c:a", "aac", "-b:a", "128k", "-y",
+                j(td, "f4.aac")],
+    }
+
+
+def host(x):
+    """A tensor or array as a numpy array on the host."""
+    import numpy as np
+
+    return x.cpu().numpy() if hasattr(x, "cpu") else np.asarray(x)
+
+
+def digest(*arrays) -> bytes:
+    """md5 of the arrays' bytes in order (float arrays with -0.0 made
+    +0.0, so equal values digest equally)."""
+    import numpy as np
+
+    h = hashlib.md5()
+    for a in arrays:
+        a = np.ascontiguousarray(host(a))
+        if a.dtype.kind == "f":
+            a = a + a.dtype.type(0)
+        h.update(a.tobytes())
+    return h.digest()
+
+
+def sample_rows(planes, step: int):
+    """Every step-th row of each plane, from row step // 2, in one
+    flat array."""
+    import numpy as np
+
+    return np.concatenate([host(p)[step // 2::step].reshape(-1)
+                           for p in planes])
+
+
+def frame_stats(planes, step: int, rows: bool):
+    """A frame's md5 digest, per-plane sums and (rows) its sample_rows."""
+    import numpy as np
+
+    ps = [host(p) for p in planes]
+    sums = [int(p.astype(np.int64).sum()) for p in ps]
+    return digest(*ps), sums, sample_rows(ps, step) if rows else None
+
+
+def scaled_graph_planes(name: str, frames, i: int) -> list:
+    """Output i of a graph of FILTER_SCALED_GRAPHS from its inputs
+    (frames: per frame its planes, numpy arrays): hstack and vstack join
+    frame i and frame n - 1 - i, tile=2x2 puts frames 4i..4i+3 in two
+    rows of two."""
+    import numpy as np
+
+    if name == "tile":
+        f = frames[4 * i:4 * i + 4]
+        return [np.concatenate([np.concatenate([f[0][k], f[1][k]], 1),
+                                np.concatenate([f[2][k], f[3][k]], 1)], 0)
+                for k in range(len(f[0]))]
+    axis = 1 if name == "hstack" else 0
+    return [np.concatenate([a, b], axis)
+            for a, b in zip(frames[i], frames[-1 - i])]
+
+
+def write_cube(path: str, n: int = 33) -> str:
+    """A smooth non-linear 3D LUT in .cube text (and a 64-entry 1D one
+    at path + "1d"), generated from a formula."""
+    import numpy as np
+
+    with open(path, "w") as f:
+        f.write(f"TITLE \"generated\"\nLUT_3D_SIZE {n}\n")
+        for b in range(n):
+            for g in range(n):
+                for r in range(n):
+                    R, G, B = r / (n - 1), g / (n - 1), b / (n - 1)
+                    f.write(f"{R ** 0.8 * 0.9 + 0.05 * B:.6f} "
+                            f"{G * G * 0.7 + 0.2 * R:.6f} "
+                            f"{np.sin(B * 1.4) * 0.8 + 0.1:.6f}\n")
+    with open(path + "1d", "w") as f:
+        f.write("LUT_1D_SIZE 64\nDOMAIN_MIN 0 0 0\nDOMAIN_MAX 1 1 1\n")
+        for i in range(64):
+            t = i / 63
+            f.write(f"{t ** 0.7:.6f} {t * t:.6f} {1 - t:.6f}\n")
+    return path
+
+
+def afir_ir():
+    """The afir graph's impulse response: 0.5 s of seeded noise decaying
+    with a 0.1 s time constant, mono s16."""
+    import numpy as np
+
+    n = AUDIO_IN_RATE // 2
+    rng = np.random.default_rng(0)
+    ir = rng.standard_normal(n) * np.exp(-np.arange(n) / (0.1 * AUDIO_IN_RATE))
+    return np.round(np.clip(ir * 0.3, -1, 1) * 32767).astype(np.int16)[None]
+
+
+FILTER_GRAPHS = {
+    # name: (description, inputs, what goes in; see filters_graph_inputs)
+    "xfade_fade": ("[in][in2]xfade=transition=fade:duration=0.8:offset=0.4",
+                   "decode, negated decode"),
+    "xfade_dissolve": ("[in][in2]xfade=transition=dissolve:duration=0.8:"
+                       "offset=0.4", "decode, negated decode"),
+    "xfade_wipeleft": ("[in][in2]xfade=transition=wipeleft:duration=0.8:"
+                       "offset=0.4", "decode, negated decode"),
+    "hstack": ("[in][in2]hstack", "scaled frame i, scaled frame 47 - i"),
+    "vstack": ("[in][in2]vstack", "scaled frame i, scaled frame 47 - i"),
+    "tile": ("tile=2x2", "scaled frames"),
+    "lut3d": ("format=rgb24,lut3d=file={cube}:interp=tetrahedral",
+              "decode"),
+    "concat": ("[in][in2]concat=n=2:v=1:a=0",
+               "frames 0-23, frames 24-47 from pts 0"),
+    "reverse": ("reverse", "frames 0-11"),
+    "select": ("select=mod(n\\,3)", "decode"),
+    "thumbnail": ("thumbnail=12", "decode"),
+    "showwaves": ("showwaves=s=1280x240", "F3's WAV samples"),
+    "showspectrum": ("showspectrum=s=512x256", "F3's WAV samples"),
+    "afir": ("[in][in2]afir", "F3's WAV samples, afir_ir()"),
+}
+# the graphs whose outputs are float contracts (lut3d; the scaler's
+# GEMMs in front of the stacks and tile): sums and sampled rows, not
+# md5s, are held against the JAX package's
+FILTER_FLOAT_GRAPHS = ("hstack", "vstack", "tile", "lut3d")
+
+
+def filters_graphs(frames, audio, td: str, pkg: dict) -> dict:
+    """The graph-API graphs (FILTER_GRAPHS) of one package (pkg: its
+    GraphRunner, StreamProps, Rational, VideoFrame, AudioFrame,
+    ChannelLayout and a to_data(numpy) for sample arrays) over decoded
+    frames and the WAV's [2, n] int16 samples: per graph, each output
+    frame's digest, plane sums, pts and (float graphs, sampled frames)
+    rows."""
+    G, SP, R = pkg["GraphRunner"], pkg["StreamProps"], pkg["Rational"]
+    AF, CL, to_data = pkg["AudioFrame"], pkg["ChannelLayout"], pkg["to_data"]
+    tb = R(1, 25)
+    f0 = frames[0]
+
+    def vprops(w, h, fmt="yuv420p"):
+        return SP(media="video", width=w, height=h, pix_fmt=fmt,
+                  frame_rate=R(25, 1), time_base=tb)
+
+    def run(desc, ins, props):
+        g = G(desc, props)
+        out = []
+        for pad, f in ins:
+            out += g.push(f, pad)
+        return out + g.finish()
+
+    def one(desc, fs, props=None):
+        return run(desc, [(0, f) for f in fs],
+                   props or vprops(f0.width, f0.height))
+
+    neg = one("negate", frames)
+    scaled = one("scale=960:544", frames)
+    cube = write_cube(os.path.join(td, "graph.cube"))
+    outs = {}
+    for name in ("xfade_fade", "xfade_dissolve", "xfade_wipeleft"):
+        p = vprops(f0.width, f0.height)
+        outs[name] = run(FILTER_GRAPHS[name][0],
+                         [x for a, b in zip(frames, neg)
+                          for x in ((1, b), (0, a))], [p, p])
+    ps = vprops(960, 544)
+    for name in ("hstack", "vstack"):
+        outs[name] = run(FILTER_GRAPHS[name][0],
+                         [x for i in range(len(scaled))
+                          for x in ((1, scaled[-1 - i]), (0, scaled[i]))],
+                         [ps, ps])
+    outs["tile"] = one("tile=2x2", scaled, ps)
+    outs["lut3d"] = one(FILTER_GRAPHS["lut3d"][0].format(cube=cube), frames)
+    p = vprops(f0.width, f0.height)
+    half = len(frames) // 2
+    outs["concat"] = run(FILTER_GRAPHS["concat"][0],
+                         [(0, f) for f in frames[:half]]
+                         + [(1, f.replace(pts=i)) for i, f in
+                            enumerate(frames[half:])], [p, p])
+    outs["reverse"] = one("reverse", frames[:12])
+    outs["select"] = one(FILTER_GRAPHS["select"][0], frames)
+    outs["thumbnail"] = one("thumbnail=12", frames)
+
+    ap = SP(media="audio", sample_rate=AUDIO_IN_RATE, sample_fmt="s16p",
+            layout=CL.default(2), time_base=R(1, AUDIO_IN_RATE))
+    chunks = [(0, AF(data=to_data(audio[:, s:s + AUDIO_CHUNK]),
+                     sample_rate=AUDIO_IN_RATE, sample_fmt="s16p",
+                     layout=CL.default(2), pts=s,
+                     time_base=R(1, AUDIO_IN_RATE)))
+              for s in range(0, audio.shape[1], AUDIO_CHUNK)]
+    for name in ("showwaves", "showspectrum"):
+        outs[name] = run(FILTER_GRAPHS[name][0], chunks, ap)
+    ir = afir_ir()
+    irp = SP(media="audio", sample_rate=AUDIO_IN_RATE, sample_fmt="s16p",
+             layout=CL.default(1), time_base=R(1, AUDIO_IN_RATE))
+    ir_frame = AF(data=to_data(ir), sample_rate=AUDIO_IN_RATE,
+                  sample_fmt="s16p", layout=CL.default(1), pts=0,
+                  time_base=R(1, AUDIO_IN_RATE))
+    outs["afir"] = run("[in][in2]afir", [(1, ir_frame)] + chunks,
+                       [ap, irp])
+
+    res = {}
+    for name, fs in outs.items():
+        if name == "afir":
+            res[name] = {"n": len(fs), "pts": [f.pts for f in fs],
+                         "md5": [digest(f.data) for f in fs],
+                         "sums": [[int(host(f.data).astype("int64").sum())]
+                                  for f in fs], "rows": [],
+                         "numel": [host(fs[0].data).size]}
+            continue
+        step = 128 if name == "lut3d" else 64
+        st = [frame_stats(f.planes, step,
+                          name in FILTER_FLOAT_GRAPHS and
+                          i in FILTER_SAMPLE_FRAMES)
+              for i, f in enumerate(fs)]
+        res[name] = {"n": len(fs), "pts": [f.pts for f in fs],
+                     "md5": [a for a, _, _ in st],
+                     "sums": [b for _, b, _ in st],
+                     "rows": [c for _, _, c in st if c is not None],
+                     "numel": [host(p).size for p in fs[0].planes]}
+    res["_scaled"] = (frames, scaled)
+    return res
+
+
+def filters_paths(dev: str, td: str) -> dict:
+    """F1-F4 once each on `dev` through cli_run, with what the checks
+    read: each video path's encoder input (digest, plane sums, sampled
+    rows of FILTER_SAMPLE_FRAMES), in-loop recon PSNR and packets; F2's
+    block searches (each MV field's digest, the first search's inputs);
+    F3's biquad launches (inputs and outputs, for the replay); each audio
+    path's encoder input and AAC stream."""
+    import numpy as np
+
+    from librempeg_tpu_torch.kernels import biquad as KB
+    from librempeg_tpu_torch.ops.pallas import mesearch as MS
+
+    wav = os.path.join(td, "in.wav")
+    x = write_audio_wav(wav, AUDIO_SECONDS)
+    cmd = filters_commands(td, wav)
+    out = {"wav": x}
+    for name in ("F1", "F2", "F4v"):
+        ins, mvs, search, enc = [], [], [], []
+
+        def on_input(frame, ins=ins):
+            ins.append(frame_stats(frame.planes, 64,
+                                   len(ins) in FILTER_SAMPLE_FRAMES))
+
+        def prepare(tc, enc=enc):
+            tc.chains[0].encoder.recon_psnr = []
+            enc.append(tc.chains[0].encoder)
+
+        search_fn = MS.full_search_mc
+
+        def recorded(cur, ref, r, *tile, mvs=mvs, search=search):
+            res = search_fn(cur, ref, r, *tile)
+            mvs.append(digest(res[0]))
+            if not search:
+                search.append((cur.clone(), ref.clone(), r))
+            return res
+
+        MS.full_search_mc = recorded
+        try:
+            run = cli_run(cmd[name], dev, on_input=on_input, prepare=prepare)
+        finally:
+            MS.full_search_mc = search_fn
+        run.update(inputs=ins, mvs=mvs, search=search,
+                   recon_psnr=list(enc[0].recon_psnr))
+        out[name] = run
+    for name in ("F3", "F4a"):
+        ins, calls = [], []
+
+        def on_input(frame, ins=ins):
+            ins.append(host(frame.data))
+
+        launch = KB.launch
+
+        def recorded(xx, b, a, z, calls=calls):
+            y, zo = launch(xx, b, a, z)
+            calls.append(((xx, tuple(b), tuple(a), z), (y, zo)))
+            return y, zo
+
+        KB.launch = recorded
+        try:
+            run = cli_run(cmd[name], dev, on_input=on_input)
+        finally:
+            KB.launch = launch
+        data = np.concatenate(ins, 1)
+        run.update(inputs=data, calls=calls, path=cmd[name][-1])
+        out[name] = run
+    return out
+
+
+def aac_snr(dev: str, path: str, ref_s16) -> float:
+    """SNR (dB) of the port's decode (on `dev`) of an ADTS file against
+    the encoder's input in s16 units."""
+    import numpy as np
+    import torch
+
+    from librempeg_tpu_torch.codecs.aac.decoder import AacDecoder
+    from librempeg_tpu_torch.formats.api import open_input
+
+    demux = open_input(path)
+    dec = AacDecoder(demux.streams[0].codecpar, device=dev)
+    y = torch.cat([dec.decode(p)[0].data for p in demux.packets()], 1)
+    demux.close()
+    y = y.cpu().numpy()
+    check(np.isfinite(y).all() and y.shape[0] == ref_s16.shape[0], y.shape)
+    return snr_db(ref_s16, y)
+
+
+def _rows_diff(got, want):
+    """(share of samples that differ, largest |difference|) of sampled
+    rows."""
+    import numpy as np
+
+    d = np.abs(np.concatenate(got).astype(np.int32)
+               - np.concatenate(want).astype(np.int32))
+    return float(np.count_nonzero(d) / max(1, d.size)), int(d.max(initial=0))
+
+
+def _sums_gap(got, want, numel) -> float:
+    """The largest |plane sum difference| per sample of the plane."""
+    import numpy as np
+
+    g, w = np.asarray(got, np.int64), np.asarray(want, np.int64)
+    check(g.shape == w.shape, (g.shape, w.shape))
+    return float((np.abs(g - w) / np.asarray(numel)).max(initial=0.0))
+
+
+def filters_checks(dev: str, run: dict, gold, graphs: dict | None = None,
+                   limits: bool = True) -> dict:
+    """The filter phase's checks against bench_1080p_filters.npz (also
+    run on the CPU by tools/torch_port_goldens.py --filters
+    --check-port). limits=False reads the numbers without the limits."""
+    import numpy as np
+
+    def lim(ok, what):
+        if limits:
+            check(ok, what)
+
+    res, verdicts = {}, []
+    luma, chroma = 1920 * 1088, 960 * 544
+    for name, key in (("F1", "f1"), ("F2", "f2"), ("F4v", "f4v")):
+        r = run[name]
+        types = "".join(vop_type(d) for _, d, _ in r["packets"])
+        pts = [p for p, _, _ in r["packets"]]
+        nbytes = sum(len(d) for _, d, _ in r["packets"])
+        gbytes = int(gold[f"{key}_sizes"].sum())
+        ps = r["recon_psnr"]
+        md5 = [a for a, _, _ in r["inputs"]]
+        same = sum(a == bytes(b) for a, b in zip(md5, gold[f"{key}_md5"]))
+        share, dmax = _rows_diff([c for _, _, c in r["inputs"]
+                                  if c is not None], list(gold[f"{key}_rows"]))
+        res[key] = {
+            "types": types, "bytes": nbytes, "golden_bytes": gbytes,
+            "bytes_rel": abs(nbytes - gbytes) / gbytes,
+            "recon_psnr": float(np.mean(ps)),
+            "psnr_gap": float(np.mean(ps) - gold[f"{key}_psnr"].mean()),
+            "inputs_equal": same, "inputs": len(md5),
+            "sums_gap": _sums_gap([b for _, b, _ in r["inputs"]],
+                                  gold[f"{key}_sums"], [luma, chroma, chroma]),
+            "rows_share": share, "rows_max": dmax}
+        if name == "F2":
+            res[key]["mv_equal"] = sum(
+                a == bytes(b) for a, b in zip(r["mvs"], gold["f2_mv"]))
+        log(f"filters {name}: " + json.dumps(res[key]))
+        x = res[key]
+        verdicts += [
+            (check, types == str(gold[f"{key}_types"]) and
+             pts == gold[f"{key}_pts"].tolist() and len(ps) == len(pts) and
+             len(md5) == len(gold[f"{key}_md5"]),
+             f"{name}: VOP types, pts or frame count differ from the JAX "
+             f"package's"),
+            (lim, x["bytes_rel"] <= FILT_BYTES_REL, f"{name}: bytes"),
+            (lim, abs(x["psnr_gap"]) <= FILT_PSNR_TOL_DB,
+             f"{name}: recon PSNR mean")]
+        if name == "F1":
+            # colorspace's transfer functions raise to float32 powers,
+            # which XLA's CPU code approximates: a sample may move by 1
+            verdicts.append((lim, same >= FILT_F1_EQUAL and
+                             x["sums_gap"] <= FILT_SUM_TOL and
+                             share <= FILT_SHARE and dmax <= 1,
+                             "F1: encoder input against the JAX package's"))
+        else:
+            verdicts.append((check, same == len(md5),
+                             f"{name}: encoder input frames differ from the "
+                             f"JAX package's"))
+        if name == "F2":
+            verdicts.append((check, len(r["mvs"]) == len(gold["f2_mv"]) ==
+                             x["mv_equal"], "F2: MV fields differ from the "
+                             "JAX package's"))
+    for name, key, rate_idx, ch in (("F3", "f3", 4, 2), ("F4a", "f4a", 4, 1)):
+        r = run[name]
+        x = r["inputs"]
+        data = open(r["path"], "rb").read()
+        lens = adts_lengths(data, rate_idx, ch)
+        pts = [p for p, _, _ in r["packets"]]
+        gbytes = int(gold[f"{key}_sizes"].sum())
+        ref = x if x.dtype == np.int16 else x.astype(np.float64) * 32768.0
+        snr = aac_snr(dev, r["path"], ref)
+        res[key] = {"input_equal": digest(x) == bytes(gold[f"{key}_in_md5"]),
+                    "bytes": len(data), "golden_bytes": gbytes,
+                    "bytes_rel": abs(len(data) - gbytes) / gbytes,
+                    "snr_db": snr, "snr_gap": snr - float(gold[f"{key}_snr"]),
+                    "packets": len(pts)}
+        log(f"filters {name}: " + json.dumps(res[key]))
+        verdicts += [
+            (check, res[key]["input_equal"], f"{name}: the encoder's input "
+             f"differs from the JAX package's"),
+            (check, pts == gold[f"{key}_pts"].tolist() and
+             len(lens) == len(pts), f"{name}: packets or pts differ from the "
+             f"JAX package's"),
+            (lim, res[key]["bytes_rel"] <= AUDIO_BYTES_TOL, f"{name}: bytes"),
+            (lim, abs(res[key]["snr_gap"]) <= AUDIO_SNR_TOL_DB,
+             f"{name}: decoded SNR")]
+    # every path read (and logged) before any verdict, so that a failing
+    # run prints them all
+    for fn, ok, what in verdicts:
+        fn(ok, what)
+    if graphs is not None:
+        res["graphs"] = graph_checks(graphs, gold, lim)
+    return res
+
+
+def scale_exact(planes, gold) -> list:
+    """planes scaled by scale=960:544 exactly: float64 GEMMs, on the
+    planes' device, through the JAX package's resize matrices (gold's
+    scale_m<source size>; the scale halves every plane). Per plane, the
+    samples rounded (floor(x + 0.5), clipped) and the mask of the ties
+    (within FILT_TIE of k + 0.5)."""
+    import torch
+
+    out = []
+    for p in planes:
+        p = torch.as_tensor(p)
+        mv, mh = (torch.from_numpy(gold[f"scale_m{n}"]).to(p.device,
+                                                           torch.float64)
+                  for n in p.shape)
+        y = mv @ p.to(torch.float64) @ mh.T
+        out.append((torch.floor(y + 0.5).clamp(0, 255),
+                    (y - torch.floor(y) - 0.5).abs() <= FILT_TIE))
+    return out
+
+
+def scaled_graph_checks(graphs: dict, gold) -> dict:
+    """The scaler in front of the stacks and tile, and the graphs
+    (FILTER_SCALED_GRAPHS). graphs["_scaled"] (taken out here) holds the
+    scaler's input and output frames. Each output of a graph must equal
+    the port's scaled frames stacked or tiled. Read: the scaled samples
+    that differ from the exact scale (scale_exact) off a tie; against the
+    JAX package's outputs, the sampled samples that differ, how many of
+    them are off a tie, and each plane sum's gap beyond its count of
+    ties (`over` when any is read)."""
+    import numpy as np
+    import torch
+
+    frames, scaled = graphs.pop("_scaled")
+    differ = off = 0
+    for f, s in zip(frames, scaled):
+        for (r, tie), q in zip(scale_exact(f.planes, gold), s.planes):
+            d = torch.as_tensor(q).to(r) != r
+            differ += int(d.sum())
+            off += int((d & ~tie).sum())
+    res = {"scale": {"frames": len(scaled), "differ": differ,
+                     "off_tie": off, "over": off > 0}}
+    sc = [[host(p) for p in f.planes] for f in scaled]
+    for name in FILTER_SCALED_GRAPHS:
+        g, k = graphs[name], f"g_{name}"
+        n = len(sc) // 4 if name == "tile" else len(sc)
+        wrong = [i for i in range(n)
+                 if g["md5"][i] != digest(*scaled_graph_planes(name, sc, i))]
+        check(g["n"] == n and not wrong, f"graph {name}: outputs {wrong} "
+              f"of {g['n']} are not the port's scaled frames joined")
+        d = np.abs(np.concatenate(g["rows"]).astype(np.int32)
+                   - np.concatenate(gold[f"{k}_rows"]).astype(np.int32))
+        off_tie = int(np.count_nonzero(d[~np.concatenate(
+            gold[f"{k}_tie_rows"])]))
+        gap = np.abs(np.asarray(g["sums"], np.int64) - gold[f"{k}_sums"])
+        beyond = int(np.maximum(gap - gold[f"{k}_ties"], 0).sum())
+        res[name] = {"n": g["n"], "equal": sum(
+                         a == bytes(b) for a, b in zip(g["md5"],
+                                                       gold[f"{k}_md5"])),
+                     "rows_share": float(np.count_nonzero(d) / d.size),
+                     "rows_max": int(d.max(initial=0)),
+                     "rows_off_tie": off_tie, "sums_beyond_ties": beyond,
+                     "sums_gap": _sums_gap(g["sums"], gold[f"{k}_sums"],
+                                           gold[f"{k}_numel"])}
+        res[name]["over"] = bool(off_tie or beyond or d.max(initial=0) > 1)
+    return res
+
+
+def graph_checks(graphs: dict, gold, lim) -> dict:
+    """The graph-API outputs against the JAX package's: exact graphs by
+    md5 and pts, lut3d by plane sums and sampled rows, the stacks and
+    tile by scaled_graph_checks."""
+    import numpy as np
+
+    scaled = scaled_graph_checks(graphs, gold)
+    res, bad, over = {"scale": scaled["scale"]}, [], []
+    if res["scale"].pop("over"):
+        over.append("scale")
+    for name in FILTER_GRAPHS:
+        g, k = graphs[name], f"g_{name}"
+        check(g["n"] == len(gold[f"{k}_pts"]) and
+              g["pts"] == gold[f"{k}_pts"].tolist(),
+              f"graph {name}: {g['n']} outputs, pts {g['pts'][:8]}...")
+        if name in scaled:
+            res[name] = scaled[name]
+            if res[name].pop("over"):
+                over.append(name)
+            continue
+        same = sum(a == bytes(b) for a, b in zip(g["md5"], gold[f"{k}_md5"]))
+        res[name] = {"n": g["n"], "equal": same}
+        if name not in FILTER_FLOAT_GRAPHS:
+            if same != g["n"]:
+                bad.append(name)
+            continue
+        sums_gap = _sums_gap(g["sums"], gold[f"{k}_sums"],
+                             gold[f"{k}_numel"])
+        share, dmax = _rows_diff(g["rows"], list(gold[f"{k}_rows"]))
+        if not (sums_gap <= FILT_SUM_TOL and share <= FILT_SHARE
+                and dmax <= FILT_LUT_MAX):
+            over.append(name)
+        res[name].update(sums_gap=sums_gap, rows_share=share, rows_max=dmax)
+    log("filters graphs: " + json.dumps(res))
+    check(not bad, f"graphs whose outputs differ from the JAX package's: "
+          f"{ {n: res[n] for n in bad} }")
+    lim(not over, f"float graphs over their limits: "
+        f"{ {n: res[n] for n in over} }")
+    return res
+
+
+def port_graph_pkg(dev: str) -> dict:
+    """The port's pieces filters_graphs takes."""
+    import numpy as np
+    import torch
+
+    from librempeg_tpu_torch.core.frame import AudioFrame, VideoFrame
+    from librempeg_tpu_torch.core.rational import Rational
+    from librempeg_tpu_torch.core.samplefmt import ChannelLayout
+    from librempeg_tpu_torch.filters import GraphRunner, StreamProps
+
+    return {"GraphRunner": GraphRunner, "StreamProps": StreamProps,
+            "Rational": Rational, "VideoFrame": VideoFrame,
+            "AudioFrame": AudioFrame, "ChannelLayout": ChannelLayout,
+            "to_data": lambda a: torch.from_numpy(
+                np.ascontiguousarray(a)).to(dev)}
+
+
+def decoded_frames(dev: str) -> list:
+    """The asset's 48 frames decoded on `dev`, at pts 0..47 in 1/25."""
+    from librempeg_tpu_torch.codecs.h264.codec import H264Decoder
+    from librempeg_tpu_torch.core.rational import Rational
+    from librempeg_tpu_torch.formats.api import open_input
+
+    demux = open_input(ASSET)
+    dec = H264Decoder(demux.streams[0].codecpar, device=dev)
+    frames = [f for p in demux.packets() for f in dec.decode(p)]
+    frames += dec.flush()
+    demux.close()
+    return [f.replace(pts=i, time_base=Rational(1, 25))
+            for i, f in enumerate(frames)]
+
+
+def filters_phase(dev: str) -> dict:
+    """The filter slice on the card: F1-F4 and the graph-API graphs
+    held to the goldens, the biquad kernel replayed through its plain
+    version on every launch of F3, the full search against its plain
+    version on minterpolate's inputs at r = 8 and r = 16, and the
+    kernels' times on the path's shapes."""
+    import numpy as np
+    import torch
+
+    from librempeg_tpu_torch.kernels import biquad as KB
+    from librempeg_tpu_torch.ops import motion
+    from librempeg_tpu_torch.ops.pallas import mesearch as MS
+
+    gold = np.load(os.path.join(GOLD, FILTERS_GOLD))
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as td:
+        run = filters_paths(dev, td)
+        t_graphs = time.perf_counter()
+        frames = decoded_frames(dev)
+        graphs = filters_graphs(frames, run["wav"], td, port_graph_pkg(dev))
+        graphs_s = time.perf_counter() - t_graphs
+        res = filters_checks(dev, run, gold, graphs)
+
+    # launches on each path
+    counts = {k: run[k]["launches"] for k in ("F1", "F2", "F3", "F4v",
+                                                "F4a")}
+    for k in ("F1", "F2"):
+        c, n_p = counts[k], res[k.lower()]["types"].count("P")
+        check(c["mc"] == c["intra"] == c["deblock"] == 44 and c["hpel"] == n_p,
+              f"{k}: launches {c} for {n_p} P-VOPs")
+    check(counts["F2"]["fsearch"] == len(run["F2"]["mvs"]) == 47,
+          f"F2: fsearch launches {counts['F2']['fsearch']}, "
+          f"{len(run['F2']['mvs'])} searches")
+    calls = run["F3"]["calls"]
+    n_wav = -(-AUDIO_SECONDS * AUDIO_IN_RATE // AUDIO_CHUNK)
+    check(counts["F3"]["biquad"] == len(calls) == 4 * n_wav,
+          f"F3: biquad launches {counts['F3']['biquad']}, {len(calls)} "
+          f"calls, for 4 filters x {n_wav} WAV packets")
+    check(counts["F4v"]["hpel"] == res["f4v"]["types"].count("P"),
+          f"F4: launches {counts['F4v']}")
+
+    # every biquad launch of F3 replayed through the plain version, the
+    # calls of one filter and length stacked along the channels
+    replay_err, groups = 0.0, {}
+    for args, outs in calls:
+        key = (args[1], args[2], args[0].shape[1])
+        groups.setdefault(key, []).append((args, outs))
+    for (b, a, n), group in groups.items():
+        yp, zp = KB.biquad_plain(torch.cat([g[0][0] for g in group]), b, a,
+                                 torch.cat([g[0][3] for g in group]))
+        got = (torch.cat([g[1][0] for g in group]),
+               torch.cat([g[1][1] for g in group]))
+        sync(dev)
+        e = max_abs_err(got, (yp, zp))
+        check(e == 0, f"biquad on F3 ({len(group)} calls of {n} samples) "
+              f"differs from its plain version: {e}")
+        replay_err = max(replay_err, e)
+    args = calls[len(calls) // 2][0]
+    n = args[0].shape[1]
+    lat_ms = n * 4 * DEP_OP_CYCLES / sm_clock_hz() * 1e3
+    byte_ms = nbytes(args[0], args[3], args[0], args[3]) / HBM_BYTES_S * 1e3
+    biquad = {
+        "max_abs_err": replay_err, "launches": len(calls),
+        **timed(lambda: KB.launch(*args)),
+        "plain_ms": median_ms(lambda: KB.biquad_plain(*args), runs=3, warm=1),
+        "bound_ms": max(lat_ms, byte_ms),
+        "bound_by": "operations" if lat_ms >= byte_ms else "bytes",
+        "bound_note": f"a serial chain: {n} steps of 4 dependent operations "
+                      f"at {DEP_OP_CYCLES} cycles each and the highest SM "
+                      f"clock; the bytes take {byte_ms:.6f} ms",
+        "library_ms": None,
+        "library_note": "no single PyTorch call computes a recursive "
+                        "(IIR) filter",
+        "shape": f"{args[0].shape[0]} channels x {n} samples (a WAV packet "
+                 f"of F3); equal by value on all {len(calls)} launches of "
+                 f"F3 in {len(groups)} stacked replays"}
+
+    # the full search on minterpolate's first search inputs, at the
+    # path's r and at 16
+    cur, ref, r = run["F2"]["search"][0]
+    fs = {}
+    for rr in (r, 16):
+        e = max_abs_err(MS.full_search_mc(cur, ref, rr, *cur.shape[1:]),
+                        motion.full_search_mc_xla(cur, ref, rr, 16, 1))
+        check(e == 0, f"fsearch on minterpolate's inputs, r={rr}: {e}")
+        fs[rr] = e
+    nmb = cur.shape[1] // 16 * (cur.shape[2] // 16)
+    side = 2 * r + 1
+    fsearch = {"r": r, "max_abs_err": max(fs.values()),
+               **timed(lambda: MS.full_search_mc(cur, ref, r,
+                                                 *cur.shape[1:])),
+               "plain_ms": median_ms(lambda: motion.full_search_mc_xla(
+                   cur, ref, r, 16, 1), runs=3, warm=1),
+               **bound(nbytes(cur, ref, cur), nmb * side * side * 256 * 3),
+               "shape": f"1x{cur.shape[1]}x{cur.shape[2]}, r={r}, {nmb} MBs "
+                        f"(minterpolate; equal to the plain search at r={r} "
+                        f"and r=16)"}
+    res.update({
+        "biquad": biquad, "fsearch_minterpolate": fsearch,
+        "launches": {k: sum(c[k] for c in counts.values())
+                     for k in counts["F1"]},
+        "path_launches": counts, "graphs_s": graphs_s,
+        "wall_s": {k: run[k]["wall_s"] for k in counts},
+        "split_s": {k: run[k]["split_s"] for k in counts},
+        "phase_s": time.perf_counter() - t_phase})
+    return res
+
+
 def main(argv: list[str]) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch "
                                  "port on one NVIDIA card.")
@@ -2011,6 +2768,24 @@ def main(argv: list[str]) -> int:
     for path in ("A", "B", "C"):
         log(f"jpeg {path} split: " + json.dumps(j[f"{path}_split_s"]))
 
+    fl = filters_phase(dev)
+    kres["biquad"] = fl["biquad"]
+    log("filters path launches: " + json.dumps(fl["path_launches"]))
+    walls = {k: round(v, 3) for k, v in fl["wall_s"].items()}
+    log(f"filters: wall s {json.dumps(walls)}; graph API "
+        f"{fl['graphs_s']:.1f} s; phase {fl['phase_s']:.1f} s")
+    for path in ("F1", "F2", "F3", "F4v", "F4a"):
+        log(f"filters {path} split: " + json.dumps(fl["split_s"][path]))
+    kb, kf = fl["biquad"], fl["fsearch_minterpolate"]
+    log(f"kernel biquad: equal by value, device {kb['device_ms']:.4f} ms, "
+        f"back to back {kb['device_ms_b2b']:.4f} ms, wall {kb['ms']:.3f} ms "
+        f"vs plain {kb['plain_ms']:.3f} ms, bound {kb['bound_ms']:.4f} ms by "
+        f"{kb['bound_by']} ({kb['bound_note']}; {kb['shape']})")
+    log(f"kernel fsearch (minterpolate): bit-exact, device "
+        f"{kf['device_ms']:.4f} ms, back to back {kf['device_ms_b2b']:.4f} "
+        f"ms, wall {kf['ms']:.3f} ms vs plain {kf['plain_ms']:.3f} ms, bound "
+        f"{kf['bound_ms']:.4f} ms by {kf['bound_by']} ({kf['shape']})")
+
     k = kernel_leg_phase(dev, leg, profile_dir)
     log(f"kernel leg: {LEG_BATCH}x{LEG_H}x{LEG_W} -> {LEG_DH}x{LEG_DW}, "
         f"{LEG_ITERS} chained steps; launches {k['launches']}; MVs equal "
@@ -2025,7 +2800,8 @@ def main(argv: list[str]) -> int:
 
     launches = {n: s["launches"][n] for n in E2E_KERNELS}
     launches["fsearch"] = k["launches"]["fsearch"]
-    for n in ("hpel_luma", "hpel_chroma", "residual", "shape_scan"):
+    for n in ("hpel_luma", "hpel_chroma", "residual", "shape_scan",
+              "biquad"):
         launches[n] = kres[n]["launches"]
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0],
@@ -2033,11 +2809,17 @@ def main(argv: list[str]) -> int:
          "launches": launches[name], "path": KERNELS[name][3],
          "launches_options": o["launches"][name],
          "launches_jpeg": j["launches"][name],
+         "launches_filters": fl["launches"][name],
          **{k: kres[name][k] for k in (
              "max_abs_err", "ms", "device_ms", "device_ms_b2b", "plain_ms",
              "bound_ms",
              "bound_by", "library_ms", "library_note")}}
         for name in KERNELS]}
+    kf = fl["fsearch_minterpolate"]
+    next(e for e in record["kernels"] if e["name"] == "fsearch")[
+        "minterpolate"] = {k: kf[k] for k in (
+            "r", "ms", "device_ms", "device_ms_b2b", "plain_ms", "bound_ms",
+            "bound_by")}
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -10,12 +10,16 @@ options the slices implement:
         [-frames:a N] [-vn] [-an] [-device cuda|cpu] [-y] [-f FMT] OUT
 
 Video: H.264, MJPEG (in AVI, raw .mjpeg, or image2 files such as
-thumb_%03d.jpg) in; MPEG-4 or MJPEG in AVI, raw MJPEG (-f mjpeg) or
+thumb_%03d.jpg), or a source filter graph (-f lavfi -i
+"testsrc=size=1920x1088:duration=2", "sine=frequency=1000:duration=10")
+in; MPEG-4 or MJPEG in AVI, raw MJPEG (-f mjpeg) or
 image2 (-f image2, one file per frame) out. -f before -i names the
 input format, after it the output's. Without -c:v the output format
 picks the codec (mjpeg for image2 and mjpeg, mpeg4 otherwise); -c:v
 copy passes the packets through. -vf takes a filter graph (crop, pad,
-hflip, vflip, transpose, fps, trim, setpts, scale, format, ...). -q:v
+hflip, vflip, transpose, fps, trim, setpts, scale, format, colorspace,
+eq, gblur, boxblur, lutyuv, drawbox, fade, minterpolate, ...), -af an
+audio one (highpass, lowpass, equalizer, bass, aecho, afade, ...). -q:v
 is the MPEG-4 qscale, or for mjpeg a quality of 100 - 3.1 q (the JAX
 package's rule). -pix_fmt appends format=F after the scale (e.g.
 yuvj420p, a range change); -bf sets the B-VOPs between anchors (0-4);

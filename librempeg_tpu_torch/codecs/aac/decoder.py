@@ -532,6 +532,8 @@ class AacFrameDecoder:
 class AacDecoder(Decoder):
     INFO = CodecInfo(name="aac", long_name="AAC (Advanced Audio Coding) LC",
                      codec_type="audio")
+    #: the sample format of the frames it returns
+    sample_fmt = "fltp"
 
     def __init__(self, params=None, device="cuda", **opts):
         self._dec = AacFrameDecoder(device)

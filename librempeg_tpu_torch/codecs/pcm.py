@@ -4,9 +4,8 @@ conversion.
 Port of librempeg_tpu/codecs/pcm.py (libavcodec/pcm.c analog). The byte
 packing is a host copy; the decoder uploads each packet's samples to
 `device` as a [channels, samples] tensor in the codec's native width,
-and the encoder fetches its frame's samples once to pack them. There is
-no codec registry: DECODERS and ENCODERS list the names this module
-builds, and sched/pipeline wires them.
+and the encoder fetches its frame's samples once to pack them. DECODERS
+and ENCODERS list the names this module registers, one class each.
 
 `to_float` and `from_float` take tensors on any device and keep the JAX
 package's scaling (s16/2^15, s32/2^31, u8 offset-binary) and its
@@ -137,6 +136,8 @@ class PcmDecoder(Decoder):
             raise ValueError(f"unknown PCM codec {codec!r}")
         self.codec = codec
         self.device = resolve(device)
+        #: the sample format of the frames it returns
+        self.sample_fmt = _SAMPLE_FMT[codec] + "p"
         super().__init__(params, **opts)
 
     def configure(self, params):
@@ -148,7 +149,7 @@ class PcmDecoder(Decoder):
         return [AudioFrame(
             data=torch.from_numpy(data).to(self.device),
             sample_rate=self.sample_rate,
-            sample_fmt=_SAMPLE_FMT[self.codec] + "p",
+            sample_fmt=self.sample_fmt,
             layout=ChannelLayout.default(self.channels),
             pts=pkt.pts,
             time_base=pkt.time_base if pkt.time_base.valid
@@ -162,7 +163,10 @@ class PcmEncoder(Encoder):
 
     INFO = CodecInfo(name="pcm", long_name="PCM", codec_type="audio")
 
-    def __init__(self, codec: str, sample_rate=48000, channels=2, **opts):
+    def __init__(self, codec: str, sample_rate=48000, channels=2,
+                 device=None, **opts):
+        # `device` is the chain's; the conversion runs where each frame's
+        # samples lie
         if codec not in ENCODERS:
             raise ValueError(f"no PCM encoder {codec!r}")
         super().__init__(**opts)

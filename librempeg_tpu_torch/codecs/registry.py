@@ -10,6 +10,7 @@ import importlib
 
 _MODULES = (
     "librempeg_tpu_torch.codecs.pcm",
+    "librempeg_tpu_torch.codecs.rawvideo",
     "librempeg_tpu_torch.codecs.jpeg.decoder",
     "librempeg_tpu_torch.codecs.jpeg.encoder",
     "librempeg_tpu_torch.codecs.mpeg4.encoder",

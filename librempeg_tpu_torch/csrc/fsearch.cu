@@ -14,8 +14,10 @@
 // from the globally edge-padded reference, so the search is a
 // whole-frame search with edge clamping; tiles play no part here.
 //
-// Design: one block per strip of K = 16 MBs of one MB row (the last
-// strip of a row may be shorter). The strip's (16+2r) x (16K+2r)
+// Design: one block per strip of K MBs of one MB row (the last strip of
+// a row may be shorter): K = 16 for r <= 8, 8 above, where each thread's
+// 2r+1 sums and its 16+2r window values would not fit beside 16 MBs'
+// threads in the register file. The strip's (16+2r) x (16K+2r)
 // reference window and its 16 x 16K current pixels go to shared memory
 // once, rounded to bf16 and kept as floats; neighbouring MBs share all
 // but 2r of the window's columns. Thread (j, dy) owns candidate row dy
@@ -29,8 +31,8 @@
 // inputs). Each thread keeps the first minimum of its row; one thread
 // per MB then scans the rows in order (strict <), which keeps the first
 // minimum in raster order. All threads write the winners' pixels.
-// The r in 0..8 is a template parameter, so the sums and the row
-// segments are register arrays.
+// The r in 0..16 is a template parameter, so the sums and the row
+// segments are register arrays (minterpolate's search_range reaches 16).
 //
 // Rounding: the two differences of a pixel pair go through one
 // cvt.rn.bf16x2.f32 (__floats2bfloat162_rn) and are widened back with a
@@ -54,8 +56,8 @@
 namespace {
 
 constexpr int BS = 16;
-constexpr int MAX_R = 8;         // the encoders search +-4 and +-8
-constexpr int K = 16;            // MBs per block (strip of one MB row)
+constexpr int MAX_R = 16;        // the encoders search +-4 and +-8,
+                                 // minterpolate up to +-16
 
 __device__ __forceinline__ float bf16r(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
@@ -75,6 +77,10 @@ __device__ __forceinline__ int clampi(int v, int lo, int hi) {
 
 template <int R>
 struct Geo {
+  // MBs per block (a strip of one MB row): 8 past r = 8, so that the
+  // block's K * SIDE threads keep their 2r+1 sums and row segments in
+  // registers
+  static constexpr int K = R <= 8 ? 16 : 8;
   static constexpr int SIDE = 2 * R + 1;
   static constexpr int WS = BS + 2 * R;            // window rows
   static constexpr int WV = (WS + 3) / 4;          // float4 per row segment
@@ -95,14 +101,14 @@ __global__ void __launch_bounds__(Geo<R>::THREADS)
   extern __shared__ float4 smem[];
   float* const win = reinterpret_cast<float*>(smem);    // [WS][PITCH]
   float* const cs = win + G::WS * G::PITCH;             // [16][CPITCH]
-  __shared__ float row_cost[K * G::SIDE];
-  __shared__ int row_cand[K * G::SIDE];
-  __shared__ int best[K];
-  const int bw = W / BS, bh = H / BS, strips = (bw + K - 1) / K;
+  __shared__ float row_cost[G::K * G::SIDE];
+  __shared__ int row_cand[G::K * G::SIDE];
+  __shared__ int best[G::K];
+  const int bw = W / BS, bh = H / BS, strips = (bw + G::K - 1) / G::K;
   const int s = blockIdx.x % strips;
   const int by = (blockIdx.x / strips) % bh;
   const int n = blockIdx.x / (strips * bh);
-  const int j0 = s * K, kk = min(K, bw - j0);
+  const int j0 = s * G::K, kk = min(G::K, bw - j0);
   const int tid = threadIdx.x;
   const size_t plane = (size_t)n * H * W;
   const int oy = by * BS - R, ox = j0 * BS - R;
@@ -202,7 +208,7 @@ int launch(const void* cur, const void* ref, int N, int H, int W, void* mv,
     if (err != cudaSuccess) return (int)err;
     ready.fetch_or(bit, std::memory_order_release);
   }
-  const long nblk = (long)N * (H / BS) * ((W / BS + K - 1) / K);
+  const long nblk = (long)N * (H / BS) * ((W / BS + G::K - 1) / G::K);
   if (nblk > 0) {
     fsearch_kernel<R><<<(unsigned)nblk, G::THREADS, G::SMEM, st>>>(
         (const float*)cur, (const float*)ref, H, W, (int32_t*)mv,
@@ -228,6 +234,14 @@ extern "C" int full_search_mc(const void* cur, const void* ref, int N,
     case 5: return launch<5>(cur, ref, N, H, W, mv, cost, pred, st);
     case 6: return launch<6>(cur, ref, N, H, W, mv, cost, pred, st);
     case 7: return launch<7>(cur, ref, N, H, W, mv, cost, pred, st);
-    default: return launch<8>(cur, ref, N, H, W, mv, cost, pred, st);
+    case 8: return launch<8>(cur, ref, N, H, W, mv, cost, pred, st);
+    case 9: return launch<9>(cur, ref, N, H, W, mv, cost, pred, st);
+    case 10: return launch<10>(cur, ref, N, H, W, mv, cost, pred, st);
+    case 11: return launch<11>(cur, ref, N, H, W, mv, cost, pred, st);
+    case 12: return launch<12>(cur, ref, N, H, W, mv, cost, pred, st);
+    case 13: return launch<13>(cur, ref, N, H, W, mv, cost, pred, st);
+    case 14: return launch<14>(cur, ref, N, H, W, mv, cost, pred, st);
+    case 15: return launch<15>(cur, ref, N, H, W, mv, cost, pred, st);
+    default: return launch<16>(cur, ref, N, H, W, mv, cost, pred, st);
   }
 }

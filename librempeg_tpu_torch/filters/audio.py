@@ -1,14 +1,15 @@
-"""Audio filters of the transcode: anull, aformat, aresample, volume,
-atrim.
+"""Audio filters: anull, aformat, aresample, volume, atrim, amix.
 
-Port of those filters of librempeg_tpu/filters/audio.py (af_aformat.c,
-af_aresample.c wrapping swresample, af_volume.c, f_trim.c analogs).
+Port of librempeg_tpu/filters/audio.py (af_aformat.c, af_aresample.c
+wrapping swresample, af_volume.c, f_trim.c, af_amix.c analogs).
 Frames carry tensors; a converting filter builds its resample.Swr on
 the device of the first frame it sees, so the samples stay where the
 decoder put them. aresample also takes swresample's dither_method
 (the JAX package's filter does not; its Swr does), so that
 `-af aresample=48000:dither_method=lipshitz -c:a pcm_s16le` requantises
-through the noise shaper. amix waits for the full filter graph.
+through the noise shaper. amix sums its inputs' float32 samples in
+input order on the first input's device, as the JAX package's numpy
+code does.
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ from librempeg_tpu_torch.core.options import Option, OptionTable
 from librempeg_tpu_torch.core.rational import NOPTS, Rational
 from librempeg_tpu_torch.core.samplefmt import ChannelLayout
 from librempeg_tpu_torch.filters.filter import Filter, PadDesc, register_filter
+from librempeg_tpu_torch.filters.video2 import _div
 from librempeg_tpu_torch.resample import DITHER_METHODS, Swr
 
 
@@ -185,3 +187,70 @@ class ATrimFilter(Filter):
             return [(0, frame)]
         data = frame.data[:, lo - f_start:hi - f_start]
         return [(0, frame.replace(data=data, pts=lo))]
+
+
+@register_filter
+class AMixFilter(Filter):
+    NAME = "amix"
+    DESCRIPTION = "Mix several audio streams."
+    INPUTS = (PadDesc("in0", "audio"), PadDesc("in1", "audio"))
+    OUTPUTS = (PadDesc("default", "audio"),)
+    OPTIONS = OptionTable(
+        Option("inputs", int, 2, min=2, max=32),
+        Option("normalize", bool, True),
+    )
+
+    def __init__(self, args: str = "", **kwargs):
+        super().__init__(args, **kwargs)
+        n = self.opts["inputs"]
+        self.INPUTS = tuple(PadDesc(f"in{i}", "audio") for i in range(n))
+        self._bufs: list = [None] * n
+        self._dev = None
+
+    def configure(self, in_props):
+        self.in_props = in_props
+        self.out_props = [in_props[0].copy()]
+        return self.out_props
+
+    def _frame(self, mix, n):
+        pts = getattr(self, "_next_pts", 0)
+        self._next_pts = pts + n
+        return AudioFrame(data=from_float(mix, self._fmt),
+                          sample_rate=self._rate, sample_fmt=self._fmt,
+                          layout=self._layout, pts=pts)
+
+    def filter_frame(self, frame: AudioFrame, pad=0):
+        x = to_float(torch.as_tensor(frame.data), frame.sample_fmt)
+        if self._dev is None:
+            self._dev = x.device
+        x = x.to(self._dev)
+        b = self._bufs[pad]
+        self._bufs[pad] = x if b is None or not b.numel() else \
+            torch.cat([b, x], 1)
+        self._fmt = frame.sample_fmt
+        self._rate = frame.sample_rate
+        self._layout = frame.layout
+        if not all(b is not None and b.numel() for b in self._bufs):
+            return []
+        n = min(b.shape[1] for b in self._bufs)
+        mix = self._bufs[0][:, :n]
+        for b in self._bufs[1:]:
+            mix = mix + b[:, :n]
+        if self.opts["normalize"]:
+            mix = _div(mix, float(len(self._bufs)))
+        self._bufs = [b[:, n:] for b in self._bufs]
+        return [(0, self._frame(mix, n))]
+
+    def flush(self):
+        live = [b for b in self._bufs if b is not None and b.numel()]
+        if not live:
+            return []
+        n = max(b.shape[1] for b in live)
+        acc = torch.zeros((live[0].shape[0], n), dtype=torch.float32,
+                          device=self._dev)
+        for b in live:
+            acc[:, :b.shape[1]] += b
+        if self.opts["normalize"]:
+            acc = _div(acc, float(len(self._bufs)))
+        self._bufs = [None] * len(self._bufs)
+        return [(0, self._frame(acc, n))]

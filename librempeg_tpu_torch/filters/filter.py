@@ -79,6 +79,10 @@ class Filter(OptionedObject):
     FRAMESYNC = False
     #: declared order of positional (shorthand) options
     OPT_ORDER: Sequence[str] = ()
+    #: set by filters/video2.mark_fused on a PURE filter in a chain of
+    #: two or more, which the JAX package compiles into one XLA program;
+    #: the float filters then take XLA's fused forms (video2)
+    fused = False
 
     def in_formats(self, pad: int = 0):
         """Supported input pixel/sample formats (None = unconstrained)."""
@@ -143,9 +147,15 @@ def register_filter(cls: type[Filter]) -> type[Filter]:
 def _ensure_registered():
     from librempeg_tpu_torch.filters import (  # noqa: F401
         audio,
+        biquads,
+        color,
         metrics,
         misc,
+        misc2,
+        sources,
         video,
+        video2,
+        video3,
     )
 
 

@@ -5,7 +5,9 @@ libavfilter/avfiltergraph.c:1605 avfilter_graph_config; scheduling FSM
 avfilter.c:1507; endpoints buffersrc.c/buffersink.c), all of it but the
 device fusion: the JAX package's FusedChain and _FusedAdapter compile
 a run of PURE filters into one jax.jit program, and PyTorch runs
-eagerly, so each filter here runs as its own node.
+eagerly, so each filter here runs as its own node. configure still
+marks the chains the JAX package fuses (video2.mark_fused), whose float
+filters then take XLA's fused forms.
 
 Simplifications vs the reference, by design:
 * Scheduling is synchronous topological push (the reference's activate
@@ -35,6 +37,7 @@ from librempeg_tpu_torch.filters.filter import (
     StreamProps,
     find_filter,
 )
+from librempeg_tpu_torch.filters.video2 import mark_fused
 
 Frame = Any
 
@@ -132,6 +135,7 @@ class FilterGraph:
             for pad, ln in enumerate(n.out_links):
                 if ln is not None:
                     ln.props = outs[pad]
+        mark_fused(self._topo())
         self._configured = True
 
     # -- execution ----------------------------------------------------
@@ -324,8 +328,13 @@ class GraphRunner:
 
     graph = GraphRunner("scale=1280:720", src_props)
     graph = GraphRunner("[in][in2]psnr", [main_props, ref_props])
+    graph = GraphRunner("showwaves=s=1280x240", audio_props)
     for out in graph.push(frame, input_index): ...
     for out in graph.finish(): ...
+
+    The sink takes its media from the last filter's output pad, so a
+    graph whose media changes (showwaves: audio in, video out) needs no
+    more than its description.
     """
 
     def __init__(self, description: str, src_props: StreamProps | list):

@@ -307,12 +307,13 @@ def muxers() -> dict[str, type[Muxer]]:
 
 
 def _ensure_registered() -> None:
-    """Import the port's container modules (H.264 ES in; AVI, raw MJPEG,
-    image2, WAV and ADTS in and out)."""
+    """Import the port's container modules (H.264 ES and the lavfi
+    device in; AVI, raw MJPEG, image2, WAV and ADTS in and out)."""
     from librempeg_tpu_torch.formats import (  # noqa: F401
         adts,
         avi,
         image2,
+        lavfi,
         rawes,
         wav,
     )

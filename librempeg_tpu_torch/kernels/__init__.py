@@ -4,6 +4,7 @@ counter."""
 from __future__ import annotations
 
 from librempeg_tpu_torch.kernels import (
+    biquad,
     deblock,
     fsearch,
     hpel,
@@ -16,7 +17,7 @@ from librempeg_tpu_torch.kernels import (
 )
 
 MODULES = (mc, deblock, intra, hpel, hpel_luma, hpel_chroma, fsearch,
-           residual, shape_scan)
+           residual, shape_scan, biquad)
 
 
 def sources() -> list[str]:

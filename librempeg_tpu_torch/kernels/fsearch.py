@@ -10,7 +10,7 @@ from librempeg_tpu_torch.kernels import _build as B
 
 NAME = "fsearch"
 SOURCE = "fsearch"
-MAX_RANGE = 8          # MAX_R of the kernel's shared-memory layout
+MAX_RANGE = 16         # MAX_R of the kernel's template instances
 #: kernel launches since the last reset (one per call)
 LAUNCHES = 0
 

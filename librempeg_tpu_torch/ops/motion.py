@@ -1,11 +1,13 @@
 """Block motion estimation and compensation (the encoder's search).
 
 Port of the parts of librempeg_tpu/ops/motion.py that the MPEG-4 P- and
-B-VOP paths run: the integer full search (full_search_mc_xla, XLA in the
-JAX package, plain tensor code here), the half-pel refinement and
-compensation (_hpel_refine, mc_hpel), which are the plain version of
-the half-pel kernel (codecs/mpeg4/me_pallas.py), and the two together
-(full_search_mc_hpel, the B-VOP search).
+B-VOP paths and minterpolate run: the integer full search
+(full_search_mc_xla, XLA in the JAX package, plain tensor code here;
+the full-search kernel's wrapper is ops/pallas/mesearch.full_search_mc),
+the half-pel refinement and compensation (_hpel_refine,
+mc_hpel), which are the plain version of the half-pel kernel
+(codecs/mpeg4/me_pallas.py), the two together (full_search_mc_hpel, the
+B-VOP search), and motion_compensate (block gathers at integer MVs).
 
 Numerics of the integer search: like the JAX package it casts the
 current and reference planes to bf16 and takes the difference in bf16.
@@ -73,6 +75,22 @@ def full_search_mc_xla(cur: torch.Tensor, ref: torch.Tensor,
                           bs)
     pred = win.permute(0, 1, 3, 2, 4).reshape(n, h, w).to(torch.float32)
     return mv, cost, pred
+
+
+def motion_compensate(ref: torch.Tensor, mv: torch.Tensor,
+                      block_size: int = 16) -> torch.Tensor:
+    """The prediction frame from per-block integer MVs over the
+    reference edge-padded by 64. ref [N, H, W]; mv [N, bh, bw, 2]
+    (dy, dx), |mv| <= 64 -> pred [N, H, W] in ref's dtype."""
+    n, h, w = ref.shape
+    bs, pad = block_size, 64
+    bh, bw = h // bs, w // bs
+    ref_pad = _edge_pad(ref, pad, pad)
+    by = (torch.arange(bh, device=ref.device) * bs)[None, :, None]
+    bx = (torch.arange(bw, device=ref.device) * bs)[None, None, :]
+    blocks = _gather_windows(ref_pad, by + mv[..., 0] + pad,
+                             bx + mv[..., 1] + pad, bs)
+    return blocks.permute(0, 1, 3, 2, 4).reshape(n, h, w)
 
 
 def _gather_windows(ref_pad, oy, ox, win):

@@ -7,7 +7,8 @@ cut every window from the globally edge-padded reference (its docstring
 calls the search slice-local; the code is not), so interior tiles see
 their neighbours' pixels and the result is a whole-frame search with
 edge clamping. csrc/fsearch.cu runs that search one MB per block; the
-tile arguments only keep the JAX package's precondition. The plain
+tile arguments only keep the JAX package's precondition (minterpolate,
+whose frames no 144x256 tile divides, passes the frame as one tile). The plain
 version is ops.motion.full_search_mc_xla(cur, ref, r, 16, 1), which
 sums the bf16 differences in float32 as the kernel does.
 """

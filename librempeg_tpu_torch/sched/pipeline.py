@@ -1,17 +1,17 @@
 """Transcode pipeline: one chain per selected video and audio stream.
 
-Port of librempeg_tpu/sched/pipeline.py, cut to the slices. The video
-chain takes its decoder and encoder from the codec registry
-(codecs/registry.py: h264, mpeg4, mjpeg), runs the filter graph between
-them (-s appends scale=, -pix_fmt format=) and maps -q:v onto what the
-encoder declares (quality for mjpeg, qscale for mpeg4); `-c:v copy`
-passes the demuxer's packets to the muxer with no decode. Without -c:v
-the output format picks the codec (mjpeg for image2 and raw MJPEG,
-mpeg4 otherwise). An audio stream (PCM or AAC) is decoded, run through
-a linear audio chain (anull, aformat, aresample, volume, atrim; -ar
-appends aresample=, -ac aformat=channel_layouts=) and encoded to AAC or
-s16 PCM. Every device stage runs on `device` (default "cuda"; a missing
-card raises).
+Port of librempeg_tpu/sched/pipeline.py, cut to the slices. Both
+chains take their decoder and encoder from the codec registry
+(codecs/registry.py: h264, mpeg4, mjpeg, rawvideo; aac, pcm_*). The
+video chain runs the filter graph between them (-s appends scale=,
+-pix_fmt format=) and maps -q:v onto what the encoder declares (quality
+for mjpeg, qscale for mpeg4); `-c:v copy` passes the demuxer's packets
+to the muxer with no decode. Without -c:v the output format picks the
+codec (mjpeg for image2 and raw MJPEG, mpeg4 otherwise). An audio
+stream is decoded, run through its filter graph (-ar appends
+aresample=, -ac aformat=channel_layouts=) and encoded to AAC or PCM.
+Every device stage runs on `device` (default "cuda"; a missing card
+raises).
 
 As in the JAX package, a worker thread overlaps the fetch of frame i's
 compacted levels and its host VLC packing with the decode of frame
@@ -28,9 +28,6 @@ import threading
 from dataclasses import dataclass, field
 from typing import Any
 
-from librempeg_tpu_torch.codecs import pcm
-from librempeg_tpu_torch.codecs.aac.codec import AacEncoder
-from librempeg_tpu_torch.codecs.aac.decoder import AacDecoder
 from librempeg_tpu_torch.codecs.api import find_decoder, find_encoder
 from librempeg_tpu_torch.core.errors import InvalidData, Unsupported
 from librempeg_tpu_torch.core.rational import Rational
@@ -231,29 +228,6 @@ class _StreamChain:
         self._write(self.encoder.flush(), mux)
 
 
-def _audio_decoder(par, device):
-    """The port's decoder for an audio stream's codec."""
-    if par.codec_id in pcm.DECODERS:
-        return pcm.PcmDecoder(par.codec_id, par, device=device)
-    if par.codec_id == "aac":
-        return AacDecoder(par, device=device)
-    raise Unsupported(f"audio decoder {par.codec_id!r} is not ported "
-                      f"(pcm_*, aac)")
-
-
-def _audio_encoder(name, rate, channels, device, opts):
-    """The port's encoder for an audio codec name (aac, pcm_s16le); the
-    PCM encoder converts on the device its frames lie on."""
-    if name == "aac":
-        return AacEncoder(sample_rate=rate, channels=channels, device=device,
-                          **opts)
-    if name == "pcm_s16le":
-        return pcm.PcmEncoder(name, sample_rate=rate, channels=channels,
-                              **opts)
-    raise Unsupported(f"audio encoder {name!r} is not ported "
-                      f"(aac, pcm_s16le)")
-
-
 class _AudioChain:
     """decode -> filter -> encode for one audio stream, synchronous."""
 
@@ -262,14 +236,16 @@ class _AudioChain:
         self.smap = smap
         self.frames_done = 0
         self.eof = False
-        self.decoder = _audio_decoder(par, device)
+        dec_cls = find_decoder(par.codec_id)
+        if dec_cls.INFO.codec_type != "audio":
+            raise Unsupported(f"{par.codec_id} is not an audio decoder")
+        self.decoder = dec_cls(par, device=device)
         nch = par.nb_channels or 2
         # the decoder's own sample format (the JAX package says s16p for
         # every codec, which scales an AAC decoder's floats by 2^-15)
-        fmt = (pcm._SAMPLE_FMT[par.codec_id] + "p"
-               if par.codec_id in pcm.DECODERS else "fltp")
         props = StreamProps(
-            media="audio", sample_rate=par.sample_rate, sample_fmt=fmt,
+            media="audio", sample_rate=par.sample_rate,
+            sample_fmt=self.decoder.sample_fmt,
             layout=ChannelLayout.default(nch),
             time_base=in_stream.time_base)
         desc = smap.filters or "anull"
@@ -280,8 +256,11 @@ class _AudioChain:
         if smap.sample_rate:
             desc += f",aresample={smap.sample_rate}"
         self.graph = GraphRunner(desc, props)
-        self._make_encoder = lambda rate, ch: _audio_encoder(
-            smap.codec, rate, ch, device, smap.codec_opts)
+        enc_cls = find_encoder(smap.codec)
+        if enc_cls.INFO.codec_type != "audio":
+            raise Unsupported(f"-c:a {smap.codec} is not an audio encoder")
+        self._make_encoder = lambda rate, ch: enc_cls(
+            sample_rate=rate, channels=ch, device=device, **smap.codec_opts)
         out = self.graph.output_props
         self.encoder = self._make_encoder(
             out.sample_rate, out.layout.nb_channels if out.layout else 2)

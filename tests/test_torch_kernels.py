@@ -25,6 +25,9 @@ from librempeg_tpu_torch.codecs.h264 import intra_pallas as IP
 from librempeg_tpu_torch.codecs.h264 import mc_pallas as MC
 from librempeg_tpu_torch.codecs.h264 import residual_pallas as RP
 from librempeg_tpu_torch.codecs.mpeg4 import me_pallas as MEP
+from librempeg_tpu_torch.filters import biquads as BQ
+from librempeg_tpu_torch.kernels import biquad as KB
+from librempeg_tpu_torch.ops import motion
 from librempeg_tpu_torch.ops.pallas import mesearch as MS
 from librempeg_tpu_torch.resample import dither as RD
 
@@ -143,6 +146,19 @@ def _fsearch_case(seed, dev, n=2, h=96, w=160, integer=True):
     return [torch.from_numpy(a).to(dev) for a in (cur, ref)]
 
 
+def _biquad_case(seed, c, n, dev, kind="lowpass"):
+    """A biquad call's inputs: noisy audio in [-1, 1), the float32 RBJ
+    coefficients of `kind` at 44.1 kHz, a carried state."""
+    rng = np.random.default_rng(seed)
+    x = np.clip(rng.normal(0, 0.3, (c, n)), -1, 1).astype(np.float32)
+    b, a = BQ._rbj(kind, 700.0, 44100, 0.707, 4.0)
+    bb = tuple(np.float32(v / a[0]) for v in b)
+    aa = (np.float32(a[1] / a[0]), np.float32(a[2] / a[0]))
+    z = rng.uniform(-0.05, 0.05, (c, 2)).astype(np.float32)
+    return (torch.from_numpy(x).to(dev), bb, aa,
+            torch.from_numpy(z).to(dev))
+
+
 def _residual_case(seed, dev, mb_w=9, mb_h=15):
     """Compact rows of random dequantised blocks (more than one 120-MB
     stripe, some pad rows) -> (packed, nmb)."""
@@ -192,17 +208,21 @@ def test_cpu_tensors_take_the_plain_versions():
     packed, nmb = _residual_case(0, "cpu")
     RP.expand_residual(packed, None, nmb)
     RD.shape_scan(*_shape_scan_case(0, 5, 2, 64, "cpu"))
+    BQ.df2t(*_biquad_case(0, 2, 64, "cpu"))
+    cur, ref = _fsearch_case(0, "cpu")
+    MS.full_search_mc(cur, ref, 12, *cur.shape[1:])
     assert kernels.counts() == {"mc": 0, "deblock": 0, "intra": 0,
                                 "hpel": 0, "hpel_luma": 0,
                                 "hpel_chroma": 0, "fsearch": 0,
-                                "residual": 0, "shape_scan": 0}
+                                "residual": 0, "shape_scan": 0,
+                                "biquad": 0}
 
 
 @pytest.mark.parametrize("name,replaces", [
     ("mc.cu", "mc_pallas.py"), ("deblock.cu", "deblock_pallas.py"),
     ("intra.cu", "intra_pallas.py"), ("hpel.cu", "me_pallas.py"),
     ("fsearch.cu", "mesearch.py"), ("residual.cu", "residual_pallas.py"),
-    ("shape_scan.cu", "dither.py")])
+    ("shape_scan.cu", "dither.py"), ("biquad.cu", "biquads.py")])
 def test_kernel_sources_carry_their_notes(name, replaces):
     """Each source names the Pallas kernel it replaces and what bounds
     it on the card."""
@@ -772,3 +792,46 @@ def test_metric_on_cuda_equals_the_cpu(metric):
             tol = (1e-5 * a[k] if k.startswith("mse") else
                    1e-3 if k.startswith("psnr") else 1e-5)
             assert abs(a[k] - b[k]) <= tol, (k, a[k], b[k])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["lowpass", "highpass", "equalizer",
+                                  "bass", "allpass"])
+@pytest.mark.parametrize("c,n", [(1, 1), (2, 1023), (2, 127), (6, 5000),
+                                 (9, 300), (2, 0)])
+def test_biquad_kernel(kind, c, n):
+    """Equal by value to the plain recurrence over one call and over
+    two calls carrying the state (1-9 channels, so one and two blocks;
+    lengths off the kernel's chunk and handover sizes)."""
+    dev = _card()
+    x, b, a, z = _biquad_case(11, c, n, dev, kind)
+    y, zk = KB.launch(x, b, a, z)
+    yp, zp = KB.biquad_plain(x, b, a, z)
+    _eq(y, yp, f"biquad {kind} {c}x{n} y")
+    _eq(zk, zp, f"biquad {kind} {c}x{n} z")
+    h = n // 3
+    y1, z1 = KB.launch(x[:, :h].contiguous(), b, a, z)
+    y2, z2 = KB.launch(x[:, h:].contiguous(), b, a, z1)
+    _eq(torch.cat([y1, y2], 1), yp, f"biquad {kind} {c}x{n} in two calls")
+    _eq(z2, zp, f"biquad {kind} {c}x{n} state after two calls")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", [8, 9, 12, 16])
+def test_fsearch_kernel_minterpolate_shape(r):
+    """minterpolate's search on 1088x1920 integer luma planes (a
+    drifting pattern) through mesearch.full_search_mc with the frame as
+    one tile, as minterpolate calls it, equal to the
+    plain search; r = 8 and the instances past 8 (8-MB strips)."""
+    dev = _card()
+    gy, gx = np.mgrid[0:1088, 0:1920]
+    rng = np.random.default_rng(r)
+    base = 128 + 70 * np.sin(gx / 23.0) * np.cos(gy / 17.0)
+    ref = np.clip(base + rng.normal(0, 9, base.shape), 0, 255).round()
+    cur = np.roll(ref, (3, -r + 1), (0, 1))
+    ref_t, cur_t = (torch.from_numpy(a.astype(np.float32))[None].to(dev)
+                    for a in (ref, cur))
+    got = MS.full_search_mc(cur_t, ref_t, r, 1088, 1920)
+    want = motion.full_search_mc_xla(cur_t, ref_t, r, 16, 1)
+    for a, b, name in zip(got, want, ("mv", "cost", "pred")):
+        _eq(a, b, f"fsearch 1088x1920 r={r} {name}")

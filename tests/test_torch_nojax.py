@@ -12,7 +12,9 @@ yuvj420p and encodes one B group (trellis on) and decodes it with the
 port's own MPEG-4 decoder, then runs the audio slice (1 s of WAV ->
 -ar 48000 -c:a aac -b:a 128k -> ADTS), decodes it with the port's AAC
 decoder and imports every audio module, then encodes and decodes one
-MJPEG frame and runs a two-input psnr graph on it.
+MJPEG frame and runs a two-input psnr graph on it. A second child
+imports the filter slice's modules and runs the biquad chain to AAC and
+`-f lavfi` testsrc and sine through the CLI.
 
 The port also reads nothing under librempeg_tpu/ at run time: no path
 into that tree in its Python, CUDA or C++ sources or in chip_smoke.py
@@ -247,3 +249,52 @@ def test_native_library_builds_from_the_ports_copies(tmp_path):
     assert native.available()
     assert all(os.path.getmtime(native._LIB) >= os.path.getmtime(s)
                for s in srcs)
+
+
+_CHILD_FILTERS = _CHILD[:_CHILD.index("from librempeg_tpu_torch.sched")] + r"""
+import librempeg_tpu_torch.codecs.rawvideo
+import librempeg_tpu_torch.filters.biquads
+import librempeg_tpu_torch.filters.color
+import librempeg_tpu_torch.filters.misc
+import librempeg_tpu_torch.filters.misc2
+import librempeg_tpu_torch.filters.sources
+import librempeg_tpu_torch.filters.video2
+import librempeg_tpu_torch.filters.video3
+import librempeg_tpu_torch.formats.lavfi
+import librempeg_tpu_torch.kernels.biquad
+from librempeg_tpu_torch.cli.ffmpeg import main
+
+wav, out = sys.argv[2], sys.argv[3]
+main(["-i", wav, "-af", "highpass=f=80,lowpass=f=12000,"
+      "equalizer=f=3000:g=3:w=1,bass=g=-2,aecho=0.8:0.5:40:0.3,"
+      "afade=t=in:d=1", "-c:a", "aac", "-b:a", "128k", "-device", "cpu",
+      "-y", out + ".f3.aac"])
+main(["-f", "lavfi", "-i", "testsrc=size=64x48:rate=25:duration=0.4",
+      "-c:v", "mpeg4", "-q:v", "4", "-device", "cpu", "-y",
+      out + ".f4.avi"])
+main(["-f", "lavfi", "-i", "sine=frequency=1000:duration=1", "-c:a",
+      "aac", "-b:a", "128k", "-device", "cpu", "-y", out + ".f4.aac"])
+leaked = sorted(m for m in sys.modules if banned(m))
+assert not leaked, leaked
+print("filters ok")
+"""
+
+
+def test_filter_slice_runs_without_jax(tmp_path):
+    """The filter slice's modules import, and F3 (the biquad chain to
+    AAC) and F4 (-f lavfi testsrc to MPEG-4, sine to AAC) run, in a
+    process that refuses to import jax."""
+    wav = tmp_path / "in.wav"
+    write_wav(wav, testgen.s16(testgen.audio_mix(44100, 44100)), 44100)
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    proc = subprocess.run(
+        [sys.executable, "-c", _CHILD_FILTERS, REPO, str(wav),
+         str(tmp_path / "o")],
+        capture_output=True, text=True, env=env, cwd=str(tmp_path),
+        timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "filters ok" in proc.stdout
+    assert (tmp_path / "o.f3.aac").stat().st_size > 10000
+    assert (tmp_path / "o.f4.avi").stat().st_size > 1000
+    assert (tmp_path / "o.f4.aac").stat().st_size > 4000

@@ -41,8 +41,13 @@ Runs the JAX package (the reference) on the CPU:
   VOP types, pts and decoded PSNR per frame (the JAX MPEG-4 decoder,
   against the encoder's input); C's pts and sizes.
 
-Usage: python tools/torch_port_goldens.py [--audio | --jpeg]
-       [--calibrate | --check-port]
+* with --filters, only the filter goldens (filters_goldens): F1-F4 and
+  the graph-API graphs of chip_smoke.py's filters phase through the
+  JAX package, with the ties of the graphs fed by scale=960:544
+  (scaled_ties), into tests/data/torch_port/bench_1080p_filters.npz.
+
+Usage: python tools/torch_port_goldens.py [--audio | --jpeg | --filters]
+       [--calibrate | --check-port] [--graphs]
 
 --calibrate also runs the options transcode through the port on the CPU
 and prints its agreement with the JAX package's: the share of the first
@@ -63,6 +68,7 @@ With --audio or --jpeg, --calibrate also runs chip_smoke.py's audio or
 JPEG checks on the port on the CPU with no limits and prints what they
 read (the numbers the phase's limits come from); --check-port runs them
 with chip_smoke.py's limits against the stored npz and writes nothing.
+With --filters, --graphs keeps to the graph-API graphs.
 The port's JPEG paths take about 6 minutes on an 8-core CPU.
 """
 from __future__ import annotations
@@ -111,6 +117,7 @@ OFF, RS = 3, 7
 OPTIONS_PSNR_TOL_DB = 0.02
 AUDIO_OUT = os.path.join(OUT, "audio_aac.npz")
 JPEG_OUT = os.path.join(OUT, "bench_1080p_mjpeg.npz")
+FILTERS_OUT = os.path.join(OUT, "bench_1080p_filters.npz")
 
 
 def frame_md5(planes) -> str:
@@ -555,6 +562,251 @@ def jpeg_port(limits: bool) -> bool:
     return True
 
 
+def filters_goldens() -> dict:
+    """The JAX package's runs of chip_smoke.py's filter slice: F1-F4
+    (filters_commands) through its CLI parser and Transcoder, and the
+    graph-API graphs (FILTER_GRAPHS) on its decode of the asset. One
+    repair of the reference: boxblur sums in int32 (the exact box mean)
+    where the JAX package's float32 summed-area table loses the low bits
+    of its prefix sums past 2^24 (ROADMAP section 3); the replacement
+    traces, so F1's eq, gblur and boxblur still compile into one XLA
+    program."""
+    import chip_smoke as CS
+    import jax.numpy as jnp
+
+    from librempeg_tpu.cli.ffmpeg import parse_args
+    from librempeg_tpu.codecs.aac.decoder import AacDecoder
+    from librempeg_tpu.core.eval_expr import eval_expr
+    from librempeg_tpu.core.frame import AudioFrame, VideoFrame
+    from librempeg_tpu.core.rational import Rational
+    from librempeg_tpu.core.samplefmt import ChannelLayout
+    from librempeg_tpu.filters import GraphRunner, StreamProps
+    from librempeg_tpu.filters import video2 as V2
+    from librempeg_tpu.ops import motion as JM
+
+    def boxblur_exact(self, frame, pad=0):
+        r = int(eval_expr(str(self.opts["luma_radius"]),
+                          {"w": frame.width, "h": frame.height}))
+        if r <= 0:
+            return [(0, frame)]
+        n = 2 * r + 1
+        planes = []
+        for p in frame.planes:
+            x = jnp.asarray(p).astype(jnp.int32)
+            h, w = x.shape
+            xp = jnp.pad(x, ((r, r), (r, r)), mode="edge")
+            c = jnp.cumsum(jnp.cumsum(jnp.pad(xp, ((1, 0), (1, 0))),
+                                      axis=0), axis=1)
+            s = (c[n:n + h, n:n + w] - c[:h, n:n + w]
+                 - c[n:n + h, :w] + c[:h, :w])
+            y = s.astype(jnp.float32) / float(n * n)
+            planes.append(jnp.clip(jnp.floor(y + 0.5), 0, 255)
+                          .astype(jnp.uint8))
+        return [(0, frame.replace(planes=tuple(planes)))]
+
+    def run(argv, on_input):
+        tc = Transcoder(parse_args(argv)[0])
+        pk, write = [], tc.mux.write
+
+        def rec(p):
+            pk.append((p.pts, bytes(p.data)))
+            write(p)
+
+        tc.mux.write = rec
+        chain = tc.chains[0]
+        name = "encode_async" if getattr(chain, "_pipelined", False) \
+            else "encode"
+        inner = getattr(chain.encoder, name)
+
+        def take(frame, **kw):
+            on_input(frame)
+            return inner(frame, **kw)
+
+        setattr(chain.encoder, name, take)
+        tc.run()
+        return pk
+
+    psnrs, mvs = [], []
+    orig_async = ME.Mpeg4Encoder.encode_async
+
+    def encode_async(self, frame, **kw):
+        h = orig_async(self, frame, **kw)
+        psnrs.append(psnr(h["planes"], self._ref))
+        return h
+
+    orig_search = JM.full_search_mc_xla
+    orig_box = V2.BoxBlurFilter.filter_frame
+
+    def search(cur, ref, *a, **kw):
+        # minterpolate's eager searches (the encoder's run traced)
+        out = orig_search(cur, ref, *a, **kw)
+        if not isinstance(out[0], jax.core.Tracer):
+            mvs.append(CS.digest(out[0]))
+        return out
+
+    gold = {}
+    ME.Mpeg4Encoder.encode_async = encode_async
+    JM.full_search_mc_xla = search
+    V2.BoxBlurFilter.filter_frame = boxblur_exact
+    try:
+        with tempfile.TemporaryDirectory() as td:
+            wav = os.path.join(td, "in.wav")
+            x = CS.write_audio_wav(wav, CS.AUDIO_SECONDS)
+            cmd = CS.filters_commands(td, wav)
+            for name, key in (("F1", "f1"), ("F2", "f2"), ("F4v", "f4v")):
+                psnrs.clear()
+                mvs.clear()
+                ins = []
+                pk = run(cmd[name], lambda f, ins=ins: ins.append(
+                    CS.frame_stats(f.planes, 64,
+                                   len(ins) in CS.FILTER_SAMPLE_FRAMES)))
+                gold.update({
+                    f"{key}_types": "".join(vop_type(d) for _, d in pk),
+                    f"{key}_pts": np.array([p for p, _ in pk], np.int64),
+                    f"{key}_sizes": np.array([len(d) for _, d in pk],
+                                             np.int32),
+                    f"{key}_psnr": np.array(psnrs),
+                    f"{key}_md5": np.stack([np.frombuffer(a, np.uint8)
+                                            for a, _, _ in ins]),
+                    f"{key}_sums": np.array([b for _, b, _ in ins],
+                                            np.int64),
+                    f"{key}_rows": np.stack([c for _, _, c in ins
+                                             if c is not None])})
+                if name == "F2":
+                    gold["f2_mv"] = np.stack([np.frombuffer(m, np.uint8)
+                                              for m in mvs])
+                print(f"{name}: {len(pk)} packets, {len(ins)} frames, "
+                      f"{len(mvs)} searches", flush=True)
+            for name, key in (("F3", "f3"), ("F4a", "f4a")):
+                ins = []
+                pk = run(cmd[name], lambda f, ins=ins: ins.append(
+                    np.asarray(f.data)))
+                data = np.concatenate(ins, 1)
+                d = open_input(cmd[name][-1])
+                dec = AacDecoder(d.streams[0].codecpar)
+                y = np.concatenate([np.asarray(dec.decode(p)[0].data)
+                                    for p in d.packets()], 1)
+                ref = data if data.dtype == np.int16 else \
+                    data.astype(np.float64) * 32768.0
+                gold.update({
+                    f"{key}_in_md5": np.frombuffer(CS.digest(data),
+                                                   np.uint8),
+                    f"{key}_pts": np.array([p for p, _ in pk], np.int64),
+                    f"{key}_sizes": np.array([len(b) for _, b in pk],
+                                             np.int32),
+                    f"{key}_snr": CS.snr_db(ref, y)})
+                print(f"{name}: {len(pk)} packets", flush=True)
+            demux = open_input(ASSET)
+            dec = H264Decoder(demux.streams[0].codecpar, device=0)
+            frames = [f.replace(pts=i, time_base=Rational(1, 25))
+                      for i, f in enumerate(dec.frames(demux.packets()))]
+            graphs = CS.filters_graphs(frames, x, td, {
+                "GraphRunner": GraphRunner, "StreamProps": StreamProps,
+                "Rational": Rational, "VideoFrame": VideoFrame,
+                "AudioFrame": AudioFrame, "ChannelLayout": ChannelLayout,
+                "to_data": lambda a: a})
+    finally:
+        ME.Mpeg4Encoder.encode_async = orig_async
+        JM.full_search_mc_xla = orig_search
+        V2.BoxBlurFilter.filter_frame = orig_box
+    graphs.pop("_scaled")
+    for name, g in graphs.items():
+        k = f"g_{name}"
+        gold.update({f"{k}_md5": np.stack([np.frombuffer(a, np.uint8)
+                                           for a in g["md5"]]),
+                     f"{k}_pts": np.array(g["pts"], np.int64),
+                     f"{k}_sums": np.array(g["sums"], np.int64),
+                     f"{k}_numel": np.array(g["numel"], np.int64)})
+        if g["rows"]:
+            gold[f"{k}_rows"] = np.stack(g["rows"])
+    gold.update(scaled_ties([[np.asarray(p) for p in f.planes]
+                             for f in frames], gold))
+    return gold
+
+
+def scaled_ties(frames, gold) -> dict:
+    """The JAX package's resize matrices of scale=960:544 (scale_m<source
+    size>) and the ties of the graphs it feeds (chip_smoke.py's
+    FILTER_SCALED_GRAPHS): each decoded frame (frames: per frame its
+    planes) scaled exactly (chip_smoke.scale_exact); per output of each
+    graph, each plane's count of ties and the tie mask of its sampled
+    rows. Asserts that the JAX package's outputs in gold are the exact
+    rounding off the ties, and prints how many samples are ties."""
+    import chip_smoke as CS
+
+    from librempeg_tpu.ops.fir import resize_matrix
+
+    out = {f"scale_m{n}": resize_matrix(n, n // 2)
+           for n in (1088, 1920, 544, 960)}
+    exact, ties = [], []
+    for planes in frames:
+        rt = CS.scale_exact(planes, out)
+        exact.append([r.numpy().astype(np.uint8) for r, _ in rt])
+        ties.append([t.numpy() for _, t in rt])
+    n_ties = sum(int(t.sum()) for f in ties for t in f)
+    n_all = sum(t.size for f in ties for t in f)
+    print(f"scale=960:544: {n_ties} of {n_all} scaled samples are ties",
+          flush=True)
+    for name in CS.FILTER_SCALED_GRAPHS:
+        k = f"g_{name}"
+        outs = range(len(gold[f"{k}_pts"]))
+        count = np.array([[int(t.sum()) for t in
+                           CS.scaled_graph_planes(name, ties, i)]
+                          for i in outs], np.int64)
+        sums = np.array([[int(p.astype(np.int64).sum()) for p in
+                          CS.scaled_graph_planes(name, exact, i)]
+                         for i in outs], np.int64)
+        assert (np.abs(gold[f"{k}_sums"] - sums) <= count).all(), name
+        sampled = [i for i in outs if i in CS.FILTER_SAMPLE_FRAMES]
+        tie_rows = [CS.sample_rows(CS.scaled_graph_planes(name, ties, i), 64)
+                    for i in sampled]     # as filters_graphs samples them
+        differ = 0
+        for got, i, t in zip(gold[f"{k}_rows"], sampled, tie_rows):
+            want = CS.sample_rows(CS.scaled_graph_planes(name, exact, i), 64)
+            assert not ((got != want) & ~t).any(), (name, i)
+            differ += int((got != want).sum())
+        print(f"  {name}: the JAX package's sampled rows differ from the "
+              f"exact rounding on {differ} of {sum(t.sum() for t in tie_rows)}"
+              f" ties", flush=True)
+        out.update({f"{k}_ties": count, f"{k}_tie_rows": np.stack(tie_rows)})
+    return out
+
+
+def filters_port(limits: bool, graphs_only: bool = False) -> bool:
+    """chip_smoke.py's filter paths, graphs and checks on the port on
+    the CPU against the stored npz, with its limits (or none); prints
+    what they read. graphs_only: the graph-API graphs alone."""
+    import chip_smoke as CS
+
+    gold = np.load(FILTERS_OUT)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as td:
+        try:
+            if graphs_only:
+                run = {"wav": CS.write_audio_wav(os.path.join(td, "in.wav"),
+                                                 CS.AUDIO_SECONDS)}
+            else:
+                run = CS.filters_paths("cpu", td)
+            graphs = CS.filters_graphs(CS.decoded_frames("cpu"), run["wav"],
+                                       td, CS.port_graph_pkg("cpu"))
+            if graphs_only:
+                r = {"graphs": CS.graph_checks(
+                    graphs, gold, CS.check if limits else lambda ok, w: None)}
+            else:
+                r = CS.filters_checks("cpu", run, gold, graphs,
+                                      limits=limits)
+        except RuntimeError as e:
+            print(f"port filter checks on the CPU: FAIL: {e}")
+            return False
+    print(f"port filter checks on the CPU ({time.perf_counter() - t0:.1f} "
+          f"s, limits {'on' if limits else 'off'}): pass")
+    for key in ("f1", "f2", "f4v", "f3", "f4a"):
+        if key in r:
+            print(f"  {key}: {json.dumps(r[key])}")
+    print(f"  graphs: {json.dumps(r['graphs'])}")
+    return True
+
+
 def main(argv) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--calibrate", action="store_true",
@@ -567,7 +819,31 @@ def main(argv) -> None:
                     help="only the audio goldens (audio_aac.npz)")
     ap.add_argument("--jpeg", action="store_true",
                     help="only the JPEG goldens (bench_1080p_mjpeg.npz)")
+    ap.add_argument("--graphs", action="store_true",
+                    help="with --filters --check-port or --calibrate: the "
+                    "graph-API graphs alone")
+    ap.add_argument("--filters", action="store_true",
+                    help="only the filter goldens (bench_1080p_filters.npz)")
     args = ap.parse_args(argv)
+    if args.filters:
+        if args.check_port:
+            sys.exit(0 if filters_port(True, args.graphs) else 1)
+        os.makedirs(OUT, exist_ok=True)
+        t0 = time.perf_counter()
+        gold = filters_goldens()
+        np.savez_compressed(FILTERS_OUT, **gold)
+        print(f"filter goldens (JAX, CPU, {time.perf_counter() - t0:.1f} s):"
+              f" F1 {gold['f1_types']} {int(gold['f1_sizes'].sum())} bytes "
+              f"{gold['f1_psnr'].mean():.4f} dB; F2 "
+              f"{int(gold['f2_sizes'].sum())} bytes "
+              f"{gold['f2_psnr'].mean():.4f} dB, {len(gold['f2_mv'])} "
+              f"searches; F4 {int(gold['f4v_sizes'].sum())} bytes; F3 SNR "
+              f"{float(gold['f3_snr']):.4f} dB, F4 audio SNR "
+              f"{float(gold['f4a_snr']):.4f} dB; "
+              f"{os.path.getsize(FILTERS_OUT)} bytes")
+        if args.calibrate:
+            filters_port(False, args.graphs)
+        return
     if args.jpeg:
         if args.check_port:
             sys.exit(0 if jpeg_port(limits=True) else 1)

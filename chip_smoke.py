@@ -27,7 +27,13 @@ raises and the script exits non-zero:
    halves hpel_luma and hpel_chroma) the encoder's first I-VOP recon and
    the next scaled frame; the full search (fsearch) the kernel leg's
    first step. All bit-exact, except fsearch on float inputs (see
-   fsearch_phase);
+   fsearch_phase). Then quant_phase: the MPEG-4 quantisers (intra DC
+   and AC, inter, the trellis's first levels) at qscale 3, 5 and 7 on
+   the spec DCT coefficients of the asset's first two frames scaled to
+   1280x720, computed once on the CPU and copied to the card, equal to
+   the CPU's level for level (a division by a Python scalar, which the
+   card takes as a product with the rounded reciprocal, is counted
+   beside them);
 4. slice: the bench transcode (1080p H.264 -> 1280x720 MPEG-4 at 4 Mb/s)
    through Transcoder on the card. Every decoded frame's md5 must match
    the JAX package's (tests/data/torch_port), the AVI must hold 48
@@ -94,8 +100,9 @@ raises and the script exits non-zero:
    (colorspace, eq, gblur, boxblur, lutyuv, drawbox, fade) to MPEG-4 at
    -q:v 4, F2 -vf minterpolate=fps=50 (the full-search kernel once per
    interpolated frame, 47 launches, r = 8), F3 the 10 s WAV through -af
-   F3_AF (four biquads: the biquad kernel once per WAV packet each,
-   1724 launches; aecho, afade) to AAC, F4 -f lavfi testsrc (2 s) to
+   F3_AF (a run of four biquads: the biquad kernel once per WAV packet
+   for all four, 431 launches; aecho, afade) to AAC, F4 -f lavfi
+   testsrc (2 s) to
    MPEG-4 and sine (10 s) to AAC; then the graph-API graphs
    (FILTER_GRAPHS: xfade, the stacks and tile after a scale, lut3d with
    a generated 33^3 cube, concat, reverse, select, thumbnail on the
@@ -109,8 +116,11 @@ raises and the script exits non-zero:
    exact graphs' outputs equal, lut3d within FILT_SUM_TOL and FILT_SHARE,
    the scaled frames equal to the exact scale off ties of its rounding
    (FILT_TIE), each output of the stacks and tile equal to them stacked
-   or tiled and off the JAX package's only at ties. Every biquad launch of F3 is replayed through the plain
-   recurrence, equal by value; the full search equals its plain version
+   or tiled and off the JAX package's only at ties. Every biquad launch
+   of F3 is replayed through the plain cascade
+   (kernels.biquad.biquad_cascade_plain), equal by value, and so is
+   every launch of SINGLE_BIQUAD, a graph-API graph of one biquad on the
+   WAV (a run of one stage); the full search equals its plain version
    on minterpolate's inputs at r = 8 and r = 16;
 10. kernel leg: parallel.transcode_step as bench.py's kernel leg runs it
    (8 testgen frames 1920x1088 -> 1280x720, qscale 4, 4 chained steps),
@@ -188,7 +198,8 @@ KERNELS = {
     # a lax.scan in the JAX package, not a Pallas kernel
     "biquad": ("librempeg_tpu_torch/csrc/biquad.cu",
                "librempeg_tpu/filters/biquads.py:27", "8",
-               "filters (F3: -af highpass,lowpass,equalizer,bass,...)"),
+               "filters (F3: the run -af highpass,lowpass,equalizer,bass "
+               "in one launch a packet)"),
 }
 E2E_KERNELS = tuple(n for n, k in KERNELS.items() if k[3] == "e2e")
 
@@ -260,6 +271,16 @@ AUDIO_SNR_TOL_DB = 0.03
 # cycles of one dependent float operation on the SM (the shortest
 # pipeline latency): the shape_scan kernel's bound is its serial chain
 DEP_OP_CYCLES = 4
+# the biquad run's bound: N samples of one stage's chain (4 dependent
+# operations each), then one handoff a further stage: the next stage's
+# out (one operation) after the round trip of csrc/biquad.cu round_trip
+# (its dependent operations per sample format, rintf counted as one)
+BIQUAD_CHAIN_OPS = 4
+BIQUAD_TRIP_OPS = {"flt": 0, "dbl": 0, "s16": 5, "s32": 4, "u8": 5}
+# the graph-API graph whose launches hold a one-stage run on a path
+SINGLE_BIQUAD = "lowpass=f=3000"
+# the MPEG-4 quantisers' levels on the card against the CPU's
+QUANT_QSCALES = (3, 5, 7)
 
 # the JPEG/MJPEG path (the commands of jpeg_commands), held to
 # tests/data/torch_port/bench_1080p_mjpeg.npz
@@ -2177,8 +2198,8 @@ def filters_paths(dev: str, td: str) -> dict:
     read: each video path's encoder input (digest, plane sums, sampled
     rows of FILTER_SAMPLE_FRAMES), in-loop recon PSNR and packets; F2's
     block searches (each MV field's digest, the first search's inputs);
-    F3's biquad launches (inputs and outputs, for the replay); each audio
-    path's encoder input and AAC stream."""
+    the biquad launches of F3 and F4's audio (inputs and outputs, for the
+    replay); each audio path's encoder input and AAC stream."""
     import numpy as np
 
     from librempeg_tpu_torch.kernels import biquad as KB
@@ -2224,9 +2245,9 @@ def filters_paths(dev: str, td: str) -> dict:
 
         launch = KB.launch
 
-        def recorded(xx, b, a, z, calls=calls):
-            y, zo = launch(xx, b, a, z)
-            calls.append(((xx, tuple(b), tuple(a), z), (y, zo)))
+        def recorded(xx, coefs, z, fmt, calls=calls):
+            y, zo = launch(xx, coefs, z, fmt)
+            calls.append(((xx, tuple(map(tuple, coefs)), z, fmt), (y, zo)))
             return y, zo
 
         KB.launch = recorded
@@ -2512,6 +2533,113 @@ def decoded_frames(dev: str) -> list:
             for i, f in enumerate(frames)]
 
 
+def single_biquad_calls(dev: str, audio) -> list:
+    """SINGLE_BIQUAD, a graph of one biquad, over the WAV's [2, n] int16
+    samples in AUDIO_CHUNK packets on `dev` through the port's
+    GraphRunner: its kernel launches (inputs and outputs, as
+    filters_paths records F3's)."""
+    from librempeg_tpu_torch.kernels import biquad as KB
+
+    pkg = port_graph_pkg(dev)
+    SP, R, CL = pkg["StreamProps"], pkg["Rational"], pkg["ChannelLayout"]
+    props = SP(media="audio", sample_rate=AUDIO_IN_RATE, sample_fmt="s16p",
+               layout=CL.default(2), time_base=R(1, AUDIO_IN_RATE))
+    g = pkg["GraphRunner"](SINGLE_BIQUAD, props)
+    calls, launch = [], KB.launch
+
+    def recorded(xx, coefs, z, fmt):
+        y, zo = launch(xx, coefs, z, fmt)
+        calls.append(((xx, tuple(map(tuple, coefs)), z, fmt), (y, zo)))
+        return y, zo
+
+    KB.launch = recorded
+    try:
+        for s in range(0, audio.shape[1], AUDIO_CHUNK):
+            g.push(pkg["AudioFrame"](
+                data=pkg["to_data"](audio[:, s:s + AUDIO_CHUNK]),
+                sample_rate=AUDIO_IN_RATE, sample_fmt="s16p",
+                layout=CL.default(2), pts=s, time_base=R(1, AUDIO_IN_RATE)))
+        g.finish()
+    finally:
+        KB.launch = launch
+    return calls
+
+
+def biquad_replay(calls, dev: str) -> tuple:
+    """Replay recorded biquad launches through the plain cascade, the
+    calls of one run and length stacked along the channels; each must be
+    equal by value -> (largest error, replays)."""
+    import torch
+
+    from librempeg_tpu_torch.kernels import biquad as KB
+
+    err, groups = 0.0, {}
+    for args, outs in calls:
+        groups.setdefault((args[1], args[3], args[0].shape[1]), []).append(
+            (args, outs))
+    for (coefs, fmt, n), group in groups.items():
+        want = KB.biquad_cascade_plain(
+            torch.cat([g[0][0] for g in group]), coefs,
+            torch.cat([g[0][2] for g in group], 1), fmt)
+        got = (torch.cat([g[1][0] for g in group]),
+               torch.cat([g[1][1] for g in group], 1))
+        sync(dev)
+        e = max_abs_err(got, want)
+        check(e == 0, f"biquad ({len(coefs)} stages, {len(group)} calls of "
+              f"{n} samples, {fmt}) differs from its plain version: {e}")
+        err = max(err, e)
+    return err, len(groups)
+
+
+def quant_phase(dev) -> dict:
+    """The MPEG-4 quantisers on the card against the CPU (ROADMAP
+    section 3, the scalar divisions): the spec DCT coefficients of the
+    asset's first two frames scaled to 1280x720 (intra: frame 0's
+    planes; inter: frame 1 minus frame 0, plane by plane), computed once
+    on the CPU and copied to the card. At each of QUANT_QSCALES,
+    _quant_intra's DC and AC levels, _quant_inter's levels and the
+    trellis's first levels must equal the CPU's; the levels of
+    trunc(c / 2q) with 2q a Python scalar (the form before the repair)
+    are counted beside them."""
+    import torch
+
+    from librempeg_tpu_torch.codecs.mpeg4 import encoder as ME
+    from librempeg_tpu_torch.codecs.mpeg4 import tables as MT
+    from librempeg_tpu_torch.codecs.mpeg4 import trellis as MTR
+    from librempeg_tpu_torch.ops import dct8x8
+    from librempeg_tpu_torch.scale import get_scaler
+
+    _, frames = capture_p_frame(dev)
+    sc = get_scaler("yuv420p", frames[0].width, frames[0].height, "yuv420p",
+                    1280, 720)
+    planes = [sc.scale_planes(tuple(p.cpu() for p in f.planes), device="cpu")
+              for f in frames[:2]]
+
+    def coeffs(ps):
+        return torch.cat([ME._fdct_spec(dct8x8.to_blocks(p))
+                          for p in ps]).contiguous()
+
+    intra = coeffs([p.to(torch.float32) for p in planes[0]])
+    inter = coeffs([a.to(torch.float32) - b.to(torch.float32)
+                    for a, b in zip(planes[1], planes[0])])
+    res = {"blocks": intra.shape[0], "differ": {}, "old_form_differ": {}}
+    for q in QUANT_QSCALES:
+        levels = {}
+        for d in ("cpu", dev):
+            ci, cn = intra.to(d), inter.to(d)
+            dc, ac, _ = ME._quant_intra(ci, q, MT.dc_scaler(q, False))
+            lv, _ = ME._quant_inter(cn, q)
+            levels[d] = [t.cpu() for t in (
+                dc, ac, lv, MTR._base_levels(ci.abs(), q),
+                torch.trunc(ci / (2.0 * q)))]
+        n = [int((a != b).sum()) for a, b in zip(levels["cpu"], levels[dev])]
+        check(n[:4] == [0, 0, 0, 0], f"MPEG-4 levels at qscale {q} differ "
+              f"between the card and the CPU (intra DC, AC, inter, trellis "
+              f"first levels): {n[:4]}")
+        res["differ"][q], res["old_form_differ"][q] = n[:4], n[4]
+    return res
+
+
 def filters_phase(dev: str) -> dict:
     """The filter slice on the card: F1-F4 and the graph-API graphs
     held to the goldens, the biquad kernel replayed through its plain
@@ -2547,47 +2675,52 @@ def filters_phase(dev: str) -> dict:
           f"{len(run['F2']['mvs'])} searches")
     calls = run["F3"]["calls"]
     n_wav = -(-AUDIO_SECONDS * AUDIO_IN_RATE // AUDIO_CHUNK)
-    check(counts["F3"]["biquad"] == len(calls) == 4 * n_wav,
+    check(counts["F3"]["biquad"] == len(calls) == n_wav
+          and all(len(c[0][1]) == 4 for c in calls),
           f"F3: biquad launches {counts['F3']['biquad']}, {len(calls)} "
-          f"calls, for 4 filters x {n_wav} WAV packets")
+          f"calls, for a run of 4 filters over {n_wav} WAV packets")
     check(counts["F4v"]["hpel"] == res["f4v"]["types"].count("P"),
           f"F4: launches {counts['F4v']}")
 
-    # every biquad launch of F3 replayed through the plain version, the
-    # calls of one filter and length stacked along the channels
-    replay_err, groups = 0.0, {}
-    for args, outs in calls:
-        key = (args[1], args[2], args[0].shape[1])
-        groups.setdefault(key, []).append((args, outs))
-    for (b, a, n), group in groups.items():
-        yp, zp = KB.biquad_plain(torch.cat([g[0][0] for g in group]), b, a,
-                                 torch.cat([g[0][3] for g in group]))
-        got = (torch.cat([g[1][0] for g in group]),
-               torch.cat([g[1][1] for g in group]))
-        sync(dev)
-        e = max_abs_err(got, (yp, zp))
-        check(e == 0, f"biquad on F3 ({len(group)} calls of {n} samples) "
-              f"differs from its plain version: {e}")
-        replay_err = max(replay_err, e)
+    # every biquad launch of F3, and of the one-biquad graph, replayed
+    # through the plain cascade
+    single = single_biquad_calls(dev, run["wav"])
+    check(len(single) == n_wav and all(len(c[0][1]) == 1 for c in single),
+          f"{SINGLE_BIQUAD}: {len(single)} launches for {n_wav} packets")
+    replay_err = biquad_replay(calls, dev)
+    replays = biquad_replay(single, dev)
     args = calls[len(calls) // 2][0]
-    n = args[0].shape[1]
-    lat_ms = n * 4 * DEP_OP_CYCLES / sm_clock_hz() * 1e3
-    byte_ms = nbytes(args[0], args[3], args[0], args[3]) / HBM_BYTES_S * 1e3
+    c, n = args[0].shape
+    stages, fmt = len(args[1]), args[3]
+    hz = sm_clock_hz()
+    chain_ms = n * BIQUAD_CHAIN_OPS * DEP_OP_CYCLES / hz * 1e3
+    trip = BIQUAD_TRIP_OPS[fmt.rstrip("p")]
+    hand_ms = (stages - 1) * (1 + trip) * DEP_OP_CYCLES / hz * 1e3
+    byte_ms = nbytes(args[0], args[2], args[0], args[2]) / HBM_BYTES_S * 1e3
+    lat_ms = chain_ms + hand_ms
     biquad = {
-        "max_abs_err": replay_err, "launches": len(calls),
+        "max_abs_err": max(replay_err[0], replays[0]), "launches": len(calls),
         **timed(lambda: KB.launch(*args)),
-        "plain_ms": median_ms(lambda: KB.biquad_plain(*args), runs=3, warm=1),
+        "plain_ms": median_ms(lambda: KB.biquad_cascade_plain(*args),
+                              runs=3, warm=1),
         "bound_ms": max(lat_ms, byte_ms),
         "bound_by": "operations" if lat_ms >= byte_ms else "bytes",
-        "bound_note": f"a serial chain: {n} steps of 4 dependent operations "
-                      f"at {DEP_OP_CYCLES} cycles each and the highest SM "
-                      f"clock; the bytes take {byte_ms:.6f} ms",
+        "bound_chain_ms": chain_ms, "bound_handoff_ms": hand_ms,
+        "bound_note": f"a serial chain: {n} steps of {BIQUAD_CHAIN_OPS} "
+                      f"dependent operations ({chain_ms:.6f} ms) and "
+                      f"{stages - 1} handoffs of {1 + trip} "
+                      f"({hand_ms:.6f} ms), at {DEP_OP_CYCLES} cycles "
+                      f"each and the highest SM clock; the bytes take "
+                      f"{byte_ms:.6f} ms",
         "library_ms": None,
         "library_note": "no single PyTorch call computes a recursive "
                         "(IIR) filter",
-        "shape": f"{args[0].shape[0]} channels x {n} samples (a WAV packet "
-                 f"of F3); equal by value on all {len(calls)} launches of "
-                 f"F3 in {len(groups)} stacked replays"}
+        "single_launches": len(single),
+        "shape": f"a run of {stages} stages, {c} channels x {n} samples "
+                 f"({fmt}, a WAV packet of F3); equal by value on all "
+                 f"{len(calls)} launches of F3 in {replay_err[1]} stacked "
+                 f"replays and on all {len(single)} one-stage launches of "
+                 f"{SINGLE_BIQUAD} in {replays[1]}"}
 
     # the full search on minterpolate's first search inputs, at the
     # path's r and at 16
@@ -2689,6 +2822,12 @@ def main(argv: list[str]) -> int:
     for name in ("deblock", "intra", "mc", "hpel", "residual"):
         log(f"{name} on the card: {kres[name]['launch_check']} "
             f"(torch.profiler, one call)")
+    qr = quant_phase(dev)
+    log(f"quant: MPEG-4 levels on the card equal the CPU's at qscale "
+        f"{list(QUANT_QSCALES)} on {qr['blocks']} blocks a form (intra DC, "
+        f"AC, inter, trellis first levels differ: {qr['differ']}); the "
+        f"division by a Python scalar would move "
+        f"{qr['old_form_differ']} intra AC levels")
 
     with tempfile.TemporaryDirectory() as td:
         s = slice_phase(dev, os.path.join(td, "slice.avi"))
@@ -2780,7 +2919,9 @@ def main(argv: list[str]) -> int:
     log(f"kernel biquad: equal by value, device {kb['device_ms']:.4f} ms, "
         f"back to back {kb['device_ms_b2b']:.4f} ms, wall {kb['ms']:.3f} ms "
         f"vs plain {kb['plain_ms']:.3f} ms, bound {kb['bound_ms']:.4f} ms by "
-        f"{kb['bound_by']} ({kb['bound_note']}; {kb['shape']})")
+        f"{kb['bound_by']} ({kb['bound_note']}; {kb['shape']}); "
+        f"{kb['launches']} launches on F3, {kb['single_launches']} on "
+        f"{SINGLE_BIQUAD}")
     log(f"kernel fsearch (minterpolate): bit-exact, device "
         f"{kf['device_ms']:.4f} ms, back to back {kf['device_ms_b2b']:.4f} "
         f"ms, wall {kf['ms']:.3f} ms vs plain {kf['plain_ms']:.3f} ms, bound "

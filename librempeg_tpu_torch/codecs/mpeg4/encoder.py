@@ -38,6 +38,7 @@ from librempeg_tpu_torch.core.packet import Packet, PktFlags
 from librempeg_tpu_torch.core.rational import NOPTS, Rational
 from librempeg_tpu_torch.device import resolve
 from librempeg_tpu_torch.ops import dct8x8, motion
+from librempeg_tpu_torch.ops.fdiv import fdiv
 
 # ---------------------------------------------------------------------------
 # Device passes
@@ -96,8 +97,8 @@ def _dequant(level: torch.Tensor, qscale: int) -> torch.Tensor:
 
 def _quant_intra(coeffs, qscale: int, dc_scale: int):
     """H.263-style intra quant. Returns (dc_level, ac_levels, recon)."""
-    dc_level = torch.round(coeffs[..., 0, 0] / dc_scale).to(torch.int32)
-    ac_level = torch.trunc(coeffs / (2.0 * qscale)).to(torch.int32) \
+    dc_level = torch.round(fdiv(coeffs[..., 0, 0], dc_scale)).to(torch.int32)
+    ac_level = torch.trunc(fdiv(coeffs, 2.0 * qscale)).to(torch.int32) \
         .clamp(-2047, 2047)
     ac_level[..., 0, 0] = 0
     deq = _dequant(ac_level, qscale)
@@ -107,7 +108,7 @@ def _quant_intra(coeffs, qscale: int, dc_scale: int):
 
 def _quant_inter(coeffs, qscale: int):
     """H.263-style inter quant with dead zone."""
-    mag = torch.trunc((coeffs.abs() - qscale / 2.0) / (2.0 * qscale))
+    mag = torch.trunc(fdiv(coeffs.abs() - qscale / 2.0, 2.0 * qscale))
     level = (torch.sign(coeffs) * mag.clamp(min=0.0)).to(torch.int32) \
         .clamp(-2047, 2047)
     return level, _idct_spec(_dequant(level, qscale))
@@ -167,7 +168,7 @@ def _encode_i_device(y, u, v, qscale: int, dcs_luma: int, dcs_chroma: int,
         dcs = dcs_chroma if i else dcs_luma
         if trellis:
             # DC as in _quant_intra, AC levels from the lattice
-            dc = torch.round(c[..., 0, 0] / dcs).to(torch.int32)
+            dc = torch.round(fdiv(c[..., 0, 0], dcs)).to(torch.int32)
             deq = _dequant_recon(rd[i], qscale)
             deq[:, 0, 0] = dc.reshape(-1).to(torch.float32) * dcs
             recon = _idct_spec(deq).reshape(c.shape)

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from librempeg_tpu_torch.codecs.mpeg4 import tables as T
+from librempeg_tpu_torch.ops.fdiv import fdiv
 from librempeg_tpu_torch.ops.trellis import viterbi_rl
 
 _ESC_BITS = 30          # escape type 3: 7+2+1+6+1+12+1
@@ -57,6 +58,12 @@ def _dequant_mag(alevel, qscale: int):
     return (2 * alevel + 1) * qscale - even
 
 
+def _base_levels(mag: torch.Tensor, qscale: int) -> torch.Tensor:
+    """trunc(|c| / 2q), the lattice's first candidate level, clamped to
+    the escape range."""
+    return torch.trunc(fdiv(mag, 2.0 * qscale)).to(torch.int32).clamp(0, 2047)
+
+
 def quantize_rd(zz: torch.Tensor, qscale: int, intra: bool, first: int):
     """RD-quantize zigzag-ordered DCT coefficients.
 
@@ -78,7 +85,7 @@ def quantize_rd(zz: torch.Tensor, qscale: int, intra: bool, first: int):
 
     b0_tab, b1_tab = _tables_on(intra, zz.device)
     mag = zz.abs()
-    l0 = torch.trunc(mag / (2.0 * qscale)).to(torch.int32).clamp(0, 2047)
+    l0 = _base_levels(mag, qscale)
     # candidates: {L, L-1} when L >= 2, {1} when L <= 1 (coding a below-
     # threshold coefficient as +/-1 is allowed when RD-favorable)
     cands = torch.stack([l0.clamp(min=1), (l0 - 1).clamp(min=1)],

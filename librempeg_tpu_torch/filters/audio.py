@@ -22,7 +22,7 @@ from librempeg_tpu_torch.core.options import Option, OptionTable
 from librempeg_tpu_torch.core.rational import NOPTS, Rational
 from librempeg_tpu_torch.core.samplefmt import ChannelLayout
 from librempeg_tpu_torch.filters.filter import Filter, PadDesc, register_filter
-from librempeg_tpu_torch.filters.video2 import _div
+from librempeg_tpu_torch.ops.fdiv import fdiv
 from librempeg_tpu_torch.resample import DITHER_METHODS, Swr
 
 
@@ -237,7 +237,7 @@ class AMixFilter(Filter):
         for b in self._bufs[1:]:
             mix = mix + b[:, :n]
         if self.opts["normalize"]:
-            mix = _div(mix, float(len(self._bufs)))
+            mix = fdiv(mix, float(len(self._bufs)))
         self._bufs = [b[:, n:] for b in self._bufs]
         return [(0, self._frame(mix, n))]
 
@@ -251,6 +251,6 @@ class AMixFilter(Filter):
         for b in live:
             acc[:, :b.shape[1]] += b
         if self.opts["normalize"]:
-            acc = _div(acc, float(len(self._bufs)))
+            acc = fdiv(acc, float(len(self._bufs)))
         self._bufs = [None] * len(self._bufs)
         return [(0, self._frame(acc, n))]

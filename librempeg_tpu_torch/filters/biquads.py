@@ -4,10 +4,16 @@ allpass, equalizer, bass, treble, biquad.
 Port of librempeg_tpu/filters/biquads.py (af_biquads.c: the RBJ
 Audio-EQ-Cookbook coefficients, direct-form-II-transposed evaluation).
 The coefficient formulas are host code carried over. The recurrence,
-a lax.scan in the JAX package, is csrc/biquad.cu on a CUDA frame (one
-launch a frame) and its plain version on a CPU frame (kernels/biquad.py,
-the same float form). The (z1, z2) state stays on the frame's device
-from frame to frame.
+a lax.scan in the JAX package that each filter calls on its own, runs
+here a run of filters at a time: mark_runs (FilterGraph.configure calls
+it) finds each maximal run of biquad filters linked one to the next,
+whose first filter runs every stage, with the sample format's round
+trip between stages that the frames between the filters would take, and
+whose other filters pass the frame on. That is csrc/biquad.cu on a CUDA
+frame (one launch a run and frame) and its plain version on a CPU frame
+(kernels/biquad.py, the same float form); a lone biquad is a run of
+one. The outputs equal the filters' one by one. Each filter keeps its
+own (z1, z2) state, on the frame's device from frame to frame.
 
 One deviation: for a mono call the JAX scan rounds b0 * x before adding
 z1, where for two or more channels it fuses them into one multiply-add;
@@ -26,13 +32,37 @@ from librempeg_tpu_torch.filters.filter import Filter, PadDesc, register_filter
 from librempeg_tpu_torch.kernels import biquad as K
 
 
-def df2t(x: torch.Tensor, b, a, z: torch.Tensor):
-    """The recurrence over x [C, N] float32 from state z [C, 2]: b (b0,
-    b1, b2) and a (a1, a2) float32 values -> (y [C, N], z'). CPU tensors
-    take the plain version; CUDA tensors launch the kernel."""
+def cascade(x: torch.Tensor, coefs, z: torch.Tensor, fmt: str):
+    """A run of biquads over x [C, N] float32 from the states z [S, C, 2]:
+    coefs, each stage's (b0, b1, b2, a1, a2) float32 values; fmt the
+    frames' sample format -> (y [C, N], z'). CPU tensors take the plain
+    version; CUDA tensors launch the kernel."""
     if x.device.type == "cpu":
-        return K.biquad_plain(x, b, a, z)
-    return K.launch(x.contiguous(), b, a, z.contiguous())
+        return K.biquad_cascade_plain(x, coefs, z, fmt)
+    return K.launch(x.contiguous(), coefs, z.contiguous(), fmt)
+
+
+def mark_runs(nodes) -> None:
+    """Among a configured graph's nodes, in topological order, give the
+    first filter of each maximal run of biquad filters, each linked to
+    the next one's only input, the run (Filter.run: its filters in
+    order) and each other filter of the run an empty one."""
+    used: set[int] = set()
+    for node in nodes:
+        if id(node) in used or not isinstance(node.filter, _BiquadBase):
+            continue
+        run = [node]
+        while True:
+            ln = run[-1].out_links[0]
+            nxt = ln.dst if ln is not None else None
+            if (nxt is None or not isinstance(nxt.filter, _BiquadBase)
+                    or len(nxt.in_links) != 1):
+                break
+            run.append(nxt)
+        used.update(id(n) for n in run)
+        node.filter.run = tuple(n.filter for n in run)
+        for n in run[1:]:
+            n.filter.run = ()
 
 
 class _BiquadBase(Filter):
@@ -44,22 +74,47 @@ class _BiquadBase(Filter):
         self.out_props = [in_props[0].copy()]
         self._z = None
         self._ba = None
+        #: the filters whose stages this one runs (mark_runs); empty
+        #: where an earlier filter of its run runs its stage
+        self.run = (self,)
+        self._zrun = None       # the run's last states [S, C, 2] ...
+        self._zviews = ()       # ... and the views the filters hold
         return self.out_props
 
     def _coeffs(self, sample_rate: int):
         raise NotImplementedError
 
-    def filter_frame(self, frame, pad=0):
+    def _stage(self, sample_rate: int):
+        """(b0, b1, b2, a1, a2) as float32 values, from the first frame's
+        rate."""
         if self._ba is None:
-            b, a = self._coeffs(frame.sample_rate)
+            b, a = self._coeffs(sample_rate)
             a0 = a[0]
-            self._ba = (tuple(np.float32(c / a0) for c in b),
-                        (np.float32(a[1] / a0), np.float32(a[2] / a0)))
+            self._ba = tuple(np.float32(c / a0) for c in b) + (
+                np.float32(a[1] / a0), np.float32(a[2] / a0))
+        return self._ba
+
+    def _states(self, x: torch.Tensor) -> torch.Tensor:
+        """The run's states [S, C, 2]: what the last call left, unless a
+        filter's own state was set since (or the first frame: zeros)."""
+        zs = [f._z for f in self.run]
+        if self._zrun is not None and all(
+                a is b for a, b in zip(zs, self._zviews)):
+            return self._zrun
+        return torch.stack([
+            z if z is not None else torch.zeros(
+                (x.shape[0], 2), dtype=torch.float32, device=x.device)
+            for z in zs])
+
+    def filter_frame(self, frame, pad=0):
+        if not self.run:
+            return [(0, frame)]
+        coefs = [f._stage(frame.sample_rate) for f in self.run]
         x = to_float(torch.as_tensor(frame.data), frame.sample_fmt)
-        if self._z is None:
-            self._z = torch.zeros((x.shape[0], 2), dtype=torch.float32,
-                                  device=x.device)
-        y, self._z = df2t(x, self._ba[0], self._ba[1], self._z)
+        y, self._zrun = cascade(x, coefs, self._states(x), frame.sample_fmt)
+        self._zviews = self._zrun.unbind(0)
+        for f, z in zip(self.run, self._zviews):
+            f._z = z
         return [(0, frame.replace(data=from_float(y, frame.sample_fmt)))]
 
 

@@ -13,7 +13,7 @@ off the JAX package): output columns 0 and 1 sum the three rounded
 products left to right, column 2 is a chain of fused multiply-adds,
 fma(a2, m2, fma(a1, m1, a0 * m0)), each computed as a float64 sum
 rounded once to float32. Nothing here goes through a GEMM, so TF32
-cannot enter. Divisions by a constant go through video2._div (a
+cannot enter. Divisions by a constant go through ops.fdiv (a
 correctly rounded division on the card too).
 
 The transfer functions' powers are the one inexact part: XLA's CPU
@@ -34,7 +34,8 @@ import torch
 from librempeg_tpu_torch.core.errors import InvalidData
 from librempeg_tpu_torch.core.options import Option, OptionTable
 from librempeg_tpu_torch.filters.filter import Filter, register_filter
-from librempeg_tpu_torch.filters.video2 import _div, _fma
+from librempeg_tpu_torch.filters.video2 import _fma
+from librempeg_tpu_torch.ops.fdiv import fdiv
 
 # ---------------------------------------------------------------------------
 # .cube parsing (Adobe/Resolve format, vf_lut3d.c parse_cube role)
@@ -147,7 +148,7 @@ def apply_lut3d(rgb: torch.Tensor, table, dmin, dmax,
 
 
 def _to_rgb_unit(frame) -> torch.Tensor:
-    return _div(torch.as_tensor(frame.planes[0]).to(torch.float32), 255.0)
+    return fdiv(torch.as_tensor(frame.planes[0]).to(torch.float32), 255.0)
 
 
 def _quant(a: torch.Tensor) -> torch.Tensor:
@@ -290,8 +291,8 @@ def _pow(x: torch.Tensor, e: float) -> torch.Tensor:
 
 
 def _bt709_to_lin(v):
-    return torch.where(v < 4.5 * _BT709_BETA, _div(v, 4.5),
-                       _pow(_div(v + (_BT709_ALPHA - 1), _BT709_ALPHA),
+    return torch.where(v < 4.5 * _BT709_BETA, fdiv(v, 4.5),
+                       _pow(fdiv(v + (_BT709_ALPHA - 1), _BT709_ALPHA),
                             1 / 0.45))
 
 
@@ -302,8 +303,8 @@ def _bt709_from_lin(lin):
 
 
 def _srgb_to_lin(v):
-    return torch.where(v <= 0.04045, _div(v, 12.92),
-                       _pow(_div(v + 0.055, 1.055), 2.4))
+    return torch.where(v <= 0.04045, fdiv(v, 12.92),
+                       _pow(fdiv(v + 0.055, 1.055), 2.4))
 
 
 def _srgb_from_lin(lin):
@@ -421,13 +422,13 @@ class ColorspaceFilter(Filter):
             v = v.repeat_interleave(2, 0).repeat_interleave(2, 1)[
                 :y.shape[0], :y.shape[1]]
         if self._ifull:
-            yn = _div(y, 255.0)
+            yn = fdiv(y, 255.0)
             c = 255.0
         else:
-            yn = _div(y - 16.0, 219.0)
+            yn = fdiv(y - 16.0, 219.0)
             c = 224.0
-        un = _div(u - 128.0, c)
-        vn = _div(v - 128.0, c)
+        un = fdiv(u - 128.0, c)
+        vn = fdiv(v - 128.0, c)
         rgb = mat3(torch.stack([yn, un, vn], -1), self._dec).clamp(0.0, 1.0)
         lin = self._to_lin(rgb)
         if not self._same_prim:

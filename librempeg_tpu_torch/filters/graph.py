@@ -7,7 +7,8 @@ device fusion: the JAX package's FusedChain and _FusedAdapter compile
 a run of PURE filters into one jax.jit program, and PyTorch runs
 eagerly, so each filter here runs as its own node. configure still
 marks the chains the JAX package fuses (video2.mark_fused), whose float
-filters then take XLA's fused forms.
+filters then take XLA's fused forms, and the runs of biquad filters
+(biquads.mark_runs), each of which runs in one kernel launch a frame.
 
 Simplifications vs the reference, by design:
 * Scheduling is synchronous topological push (the reference's activate
@@ -37,6 +38,7 @@ from librempeg_tpu_torch.filters.filter import (
     StreamProps,
     find_filter,
 )
+from librempeg_tpu_torch.filters.biquads import mark_runs
 from librempeg_tpu_torch.filters.video2 import mark_fused
 
 Frame = Any
@@ -136,6 +138,7 @@ class FilterGraph:
                 if ln is not None:
                     ln.props = outs[pad]
         mark_fused(self._topo())
+        mark_runs(self._topo())
         self._configured = True
 
     # -- execution ----------------------------------------------------

@@ -32,6 +32,7 @@ import torch.nn.functional as F
 from librempeg_tpu_torch.core.eval_expr import eval_expr
 from librempeg_tpu_torch.core.options import Option, OptionTable
 from librempeg_tpu_torch.filters.filter import Filter, register_filter
+from librempeg_tpu_torch.ops.fdiv import fdiv
 
 
 def _fma(a, b, c) -> torch.Tensor:
@@ -42,13 +43,6 @@ def _fma(a, b, c) -> torch.Tensor:
     b = b.to(f64) if isinstance(b, torch.Tensor) else float(b)
     c = c.to(f64) if isinstance(c, torch.Tensor) else float(c)
     return (a * b + c).to(torch.float32)
-
-
-def _div(a: torch.Tensor, d: float) -> torch.Tensor:
-    """a / d rounded once, on any device: PyTorch's CUDA division by a
-    Python scalar multiplies by the scalar's reciprocal, which rounds
-    twice, so the divisor goes in as a 0-dim tensor on a's device."""
-    return a / torch.tensor(d, dtype=a.dtype, device=a.device)
 
 
 def mark_fused(nodes) -> None:
@@ -165,7 +159,7 @@ class BoxBlurFilter(Filter):
             xp = _edge_pad2(x.to(torch.float32), r).to(torch.int32)
             rows = xp.unfold(1, n, 1).sum(-1, dtype=torch.int32)
             s = rows.unfold(0, n, 1).sum(-1, dtype=torch.int32)
-            planes.append(_quant(_div(s.to(torch.float32), float(n * n))))
+            planes.append(_quant(fdiv(s.to(torch.float32), float(n * n))))
         return [(0, frame.replace(planes=tuple(planes)))]
 
 

@@ -36,7 +36,7 @@ from librempeg_tpu_torch.filters.filter import (
     StreamProps,
     register_filter,
 )
-from librempeg_tpu_torch.filters.video2 import _div
+from librempeg_tpu_torch.ops.fdiv import fdiv
 
 _XFADE_TRANSITIONS = ("fade", "wipeleft", "wiperight", "wipeup",
                       "wipedown", "dissolve")
@@ -138,12 +138,12 @@ class XFadeFilter(Filter):
             if kind == "dissolve":
                 mask = self._dissolve_noise(xa.shape, dev) < p32
             elif kind in ("wipeleft", "wiperight"):
-                xs = _div(torch.arange(w, device=dev, dtype=torch.float32)[
+                xs = fdiv(torch.arange(w, device=dev, dtype=torch.float32)[
                     None, :], float(max(1, w - 1)))
                 mask = xs < p32 if kind == "wipeleft" else \
                     xs > float(np.float32(1 - p))
             else:                                  # wipeup / wipedown
-                ys = _div(torch.arange(h, device=dev, dtype=torch.float32)[
+                ys = fdiv(torch.arange(h, device=dev, dtype=torch.float32)[
                     :, None], float(max(1, h - 1)))
                 mask = ys < p32 if kind == "wipedown" else \
                     ys > float(np.float32(1 - p))

@@ -1,17 +1,23 @@
-"""Binding of csrc/biquad.cu (the direct-form-II-transposed biquad, one
-thread per channel) and its plain version."""
+"""Binding of csrc/biquad.cu (a run of direct-form-II-transposed biquads,
+all stages and channels in one launch) and its plain versions."""
 from __future__ import annotations
 
 import ctypes
 
 import torch
 
+from librempeg_tpu_torch.codecs.pcm import from_float, to_float
 from librempeg_tpu_torch.kernels import _build as B
 
 NAME = "biquad"
 SOURCE = "biquad"
-#: kernel launches since the last reset (one per call)
+#: kernel launches since the last reset (one per call of at most SMAX
+#: stages)
 LAUNCHES = 0
+#: stages one launch runs (csrc/biquad.cu SMAX); a longer run is split
+SMAX = 32
+#: the kernel's round trip between stages for each base sample format
+FORMATS = {"flt": 0, "dbl": 0, "s16": 1, "s32": 2, "u8": 3}
 
 
 def _lib():
@@ -19,35 +25,50 @@ def _lib():
     fn = lib.biquad
     if not fn.argtypes:
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 \
-            + [ctypes.c_float] * 5 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 \
+            + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
     return lib
 
 
-def launch(x, b, a, z):
-    """x [C, N] f32, b (b0, b1, b2) and a (a1, a2) float32 values, z
-    [C, 2] f32 (z1, z2) -> (y [C, N] f32, z' [C, 2] f32)."""
+def launch(x, coefs, z, fmt: str):
+    """x [C, N] f32; coefs the run's stages, each (b0, b1, b2, a1, a2)
+    float32 values; z [S, C, 2] f32 each stage's (z1, z2); fmt the run's
+    sample format -> (y [C, N] f32, z' [S, C, 2] f32), as
+    biquad_cascade_plain (a run longer than SMAX takes one launch for
+    each SMAX stages, the output of one the input of the next)."""
     global LAUNCHES
     c, n = x.shape
+    s = len(coefs)
+    if s == 0:
+        raise ValueError("biquad: a run has at least one stage")
     B.require(x, "x", torch.float32, (c, n))
-    B.require(z, "z", torch.float32, (c, 2))
-    y = torch.empty_like(x)
+    B.require(z, "z", torch.float32, (s, c, 2))
+    code = FORMATS[fmt.rstrip("p")]
     zo = torch.empty_like(z)
-    err = _lib().biquad(B.ptr(x), B.ptr(z), B.ptr(y), B.ptr(zo), c, n,
-                        *(float(v) for v in (*b, *a)), B.stream_ptr(x))
-    B.check(NAME, err)
-    LAUNCHES += 1
+    for s0 in range(0, s, SMAX):
+        s1 = min(s, s0 + SMAX)
+        if s0:
+            x = y
+        y = torch.empty_like(x)
+        flat = (ctypes.c_float * (5 * (s1 - s0)))(
+            *(float(v) for st in coefs[s0:s1] for v in st))
+        err = _lib().biquad(B.ptr(x), B.ptr(z[s0:s1]), B.ptr(y),
+                            B.ptr(zo[s0:s1]), c, n, s1 - s0, flat, code,
+                            B.stream_ptr(x))
+        B.check(NAME, err)
+        LAUNCHES += 1
     return y, zo
 
 
 def biquad_plain(x, b, a, z):
-    """Plain version of the kernel (same contract as launch), on any
-    device: a loop over samples, vectorised over channels, in the float
-    form of csrc/biquad.cu. Each fused multiply-add is the float64 sum
-    of the exact float64 product and the addend, rounded once to
-    float32; that rounds twice and can differ from fmaf where the float64
-    sum is itself rounded onto a float32 tie (no such sample was found in
-    1.4 million: four filter kinds, 44,100 samples at 2 and 6 channels)."""
+    """Plain version of one stage (x [C, N] f32, b (b0, b1, b2) and a
+    (a1, a2) float32 values, z [C, 2] f32 -> (y, z')), on any device: a
+    loop over samples, vectorised over channels, in the float form of
+    csrc/biquad.cu. Each fused multiply-add is the float64 sum of the
+    exact float64 product and the addend, rounded once to float32; that
+    rounds twice and can differ from fmaf where the float64 sum is itself
+    rounded onto a float32 tie (no such sample was found in 1.4 million:
+    four filter kinds, 44,100 samples at 2 and 6 channels)."""
     b0, b1, b2 = (float(v) for v in b)
     a1, a2 = (float(v) for v in a)
 
@@ -65,3 +86,17 @@ def biquad_plain(x, b, a, z):
         z2 = f32(b2 * xi - f32(a2 * out))
         y[:, i] = out
     return y, torch.stack([z1, z2], 1).to(torch.float32)
+
+
+def biquad_cascade_plain(x, coefs, z, fmt: str):
+    """Plain version of the kernel (same contract as launch), on any
+    device: each stage's biquad_plain, and after each stage the sample
+    format's round trip of codecs/pcm.py, as the filter graph hands one
+    biquad filter's output frame to the next. y is the last stage's
+    output round-tripped: its from_float is the last filter's frame."""
+    zs = []
+    for b0, b1, b2, a1, a2 in coefs:
+        y, zn = biquad_plain(x, (b0, b1, b2), (a1, a2), z[len(zs)])
+        x = to_float(from_float(y, fmt), fmt)
+        zs.append(zn)
+    return x, torch.stack(zs)

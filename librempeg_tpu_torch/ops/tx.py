@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 import librempeg_tpu_torch.device  # noqa: F401  (TF32 off)
+from librempeg_tpu_torch.ops.fdiv import fdiv
 
 # Above this length the FFT forms replace the O(N^2) product.
 _MATMUL_MAX_N = 4096
@@ -213,7 +214,7 @@ def _mdct_fft(x: torch.Tensor) -> torch.Tensor:
 def _imdct_fft(x: torch.Tensor) -> torch.Tensor:
     n = x.shape[-1]
     h = n // 2
-    y = dct_iv(x) / n  # DCT-IV self-inverse (up to 2N); 2/N output scale
+    y = fdiv(dct_iv(x), n)  # DCT-IV self-inverse (up to 2N); 2/N output scale
     u, v = y[..., :h], y[..., h:]
     # unfold: [v, -v_r, -u_r, -u]
     return torch.cat([v, -v.flip(-1), -u.flip(-1), -u], dim=-1)

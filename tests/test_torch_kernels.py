@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from librempeg_tpu_torch import kernels
+from librempeg_tpu_torch.codecs.pcm import from_float, to_float
 from librempeg_tpu_torch.codecs.h264 import deblock_pallas as DP
 from librempeg_tpu_torch.codecs.h264 import device_recon as DR
 from librempeg_tpu_torch.codecs.h264 import intra_pallas as IP
@@ -208,7 +209,8 @@ def test_cpu_tensors_take_the_plain_versions():
     packed, nmb = _residual_case(0, "cpu")
     RP.expand_residual(packed, None, nmb)
     RD.shape_scan(*_shape_scan_case(0, 5, 2, 64, "cpu"))
-    BQ.df2t(*_biquad_case(0, 2, 64, "cpu"))
+    x, b, a, z = _biquad_case(0, 2, 64, "cpu")
+    BQ.cascade(x, [(*b, *a)] * 2, torch.stack([z, z]), "s16p")
     cur, ref = _fsearch_case(0, "cpu")
     MS.full_search_mc(cur, ref, 12, *cur.shape[1:])
     assert kernels.counts() == {"mc": 0, "deblock": 0, "intra": 0,
@@ -800,20 +802,135 @@ def test_metric_on_cuda_equals_the_cpu(metric):
 @pytest.mark.parametrize("c,n", [(1, 1), (2, 1023), (2, 127), (6, 5000),
                                  (9, 300), (2, 0)])
 def test_biquad_kernel(kind, c, n):
-    """Equal by value to the plain recurrence over one call and over
-    two calls carrying the state (1-9 channels, so one and two blocks;
-    lengths off the kernel's chunk and handover sizes)."""
+    """A run of one stage: equal by value to the plain recurrence over
+    one call and over two calls carrying the state (1-9 channels, so one
+    and two blocks; lengths off the kernel's block and handover
+    sizes)."""
     dev = _card()
     x, b, a, z = _biquad_case(11, c, n, dev, kind)
-    y, zk = KB.launch(x, b, a, z)
+    coefs = [(*b, *a)]
+    y, zk = KB.launch(x, coefs, z[None], "flt")
     yp, zp = KB.biquad_plain(x, b, a, z)
     _eq(y, yp, f"biquad {kind} {c}x{n} y")
-    _eq(zk, zp, f"biquad {kind} {c}x{n} z")
+    _eq(zk[0], zp, f"biquad {kind} {c}x{n} z")
     h = n // 3
-    y1, z1 = KB.launch(x[:, :h].contiguous(), b, a, z)
-    y2, z2 = KB.launch(x[:, h:].contiguous(), b, a, z1)
+    y1, z1 = KB.launch(x[:, :h].contiguous(), coefs, z[None], "flt")
+    y2, z2 = KB.launch(x[:, h:].contiguous(), coefs, z1, "flt")
     _eq(torch.cat([y1, y2], 1), yp, f"biquad {kind} {c}x{n} in two calls")
-    _eq(z2, zp, f"biquad {kind} {c}x{n} state after two calls")
+    _eq(z2[0], zp, f"biquad {kind} {c}x{n} state after two calls")
+
+
+_BIQUAD_KINDS = ("highpass", "lowpass", "equalizer", "bass", "allpass",
+                 "treble", "bandpass", "bandreject")
+
+
+def _cascade_case(seed, s, c, n, dev, fmt):
+    """A run's inputs: s stages of mixed kinds, frequencies and gains
+    (boosts that drive the integer formats past full scale), samples on
+    the format's grid, carried states."""
+    rng = np.random.default_rng(seed)
+    coefs = []
+    for i in range(s):
+        b, a = BQ._rbj(_BIQUAD_KINDS[(seed + i) % len(_BIQUAD_KINDS)],
+                       float(rng.uniform(60, 12000)), 44100, 0.707,
+                       float(rng.uniform(-6, 9)))
+        coefs.append(tuple(np.float32(v / a[0]) for v in b)
+                     + (np.float32(a[1] / a[0]), np.float32(a[2] / a[0])))
+    x = torch.from_numpy(np.clip(rng.normal(0, 0.4, (c, n)), -1, 1)
+                         .astype(np.float32))
+    if fmt != "fltp":
+        x = to_float(from_float(x, fmt), fmt)
+    z = rng.uniform(-0.05, 0.05, (s, c, 2)).astype(np.float32)
+    return x.to(dev), coefs, torch.from_numpy(z).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1, 2, 4, 8])
+@pytest.mark.parametrize("c", [1, 2, 6, 9])
+@pytest.mark.parametrize("n", [0, 1, 127, 1023, 5000])
+def test_biquad_cascade_kernel(s, c, n):
+    """A run of s stages in one launch equal by value to
+    biquad_cascade_plain, in one call and in two calls carrying the
+    states (one or more blocks of channels; lengths off the kernel's
+    lag, block and handover sizes; the sample format varies with the
+    case)."""
+    dev = _card()
+    fmt = ("s16p", "fltp", "u8", "s32p")[(s + c + n) % 4]
+    x, coefs, z = _cascade_case(100 * s + 10 * c + n % 7, s, c, n, dev, fmt)
+    kernels.reset_counts()
+    y, zk = KB.launch(x, coefs, z, fmt)
+    assert kernels.counts()["biquad"] == 1
+    yp, zp = KB.biquad_cascade_plain(x, coefs, z, fmt)
+    what = f"biquad run of {s}, {c}x{n} {fmt}"
+    _eq(y, yp, f"{what} y")
+    _eq(zk, zp, f"{what} z")
+    h = n // 3
+    y1, z1 = KB.launch(x[:, :h].contiguous(), coefs, z, fmt)
+    y2, z2 = KB.launch(x[:, h:].contiguous(), coefs, z1, fmt)
+    _eq(torch.cat([y1, y2], 1), yp, f"{what} in two calls")
+    _eq(z2, zp, f"{what} states after two calls")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["u8", "s16p", "s32", "fltp", "dbl"])
+@pytest.mark.parametrize("s", [4, 40])
+def test_biquad_cascade_kernel_formats(fmt, s):
+    """Every sample format's round trip between stages, and a run longer
+    than one launch takes (split into launches of the same kernel)."""
+    dev = _card()
+    x, coefs, z = _cascade_case(s, s, 3, 1500, dev, fmt)
+    kernels.reset_counts()
+    y, zk = KB.launch(x, coefs, z, fmt)
+    assert kernels.counts()["biquad"] == -(-s // KB.SMAX)
+    yp, zp = KB.biquad_cascade_plain(x, coefs, z, fmt)
+    _eq(y, yp, f"biquad run of {s} {fmt} y")
+    _eq(zk, zp, f"biquad run of {s} {fmt} z")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q", [3, 5, 7])
+def test_mpeg4_quantisers_match_the_cpu(q):
+    """The MPEG-4 quantisers divide once on the card, as on the CPU and
+    in the JAX package: on the spec DCT coefficients of the bench
+    asset's first two frames scaled to 1280x720, computed once on the
+    CPU and copied to the card, the intra DC and AC levels, the inter
+    levels and the trellis's first levels equal the CPU's."""
+    dev = _card()
+    from librempeg_tpu_torch.codecs.h264.codec import H264Decoder
+    from librempeg_tpu_torch.codecs.mpeg4 import encoder as ME
+    from librempeg_tpu_torch.codecs.mpeg4 import tables as MT
+    from librempeg_tpu_torch.codecs.mpeg4 import trellis as MTR
+    from librempeg_tpu_torch.formats.api import open_input
+    from librempeg_tpu_torch.ops import dct8x8
+    from librempeg_tpu_torch.scale import get_scaler
+
+    demux = open_input(os.path.join(os.path.dirname(os.path.dirname(CSRC)),
+                                    "assets", "bench_1080p.264"))
+    dec = H264Decoder(demux.streams[0].codecpar, device=dev, prefetch=0)
+    frames = []
+    for pkt in demux.packets():
+        frames += dec.decode(pkt)
+        if len(frames) >= 2:
+            break
+    frames += dec.flush()
+    demux.close()
+    sc = get_scaler("yuv420p", frames[0].width, frames[0].height, "yuv420p",
+                    1280, 720)
+    planes = [[p.to(torch.float32) for p in sc.scale_planes(
+        tuple(p.cpu() for p in f.planes), device="cpu")] for f in frames[:2]]
+    intra = torch.cat([ME._fdct_spec(dct8x8.to_blocks(p))
+                       for p in planes[0]])
+    inter = torch.cat([ME._fdct_spec(dct8x8.to_blocks(a - b))
+                       for a, b in zip(planes[1], planes[0])])
+    got = {}
+    for d in ("cpu", dev):
+        ci, cn = intra.to(d), inter.to(d)
+        dc, ac, _ = ME._quant_intra(ci, q, MT.dc_scaler(q, False))
+        lv, _ = ME._quant_inter(cn, q)
+        got[d] = (dc, ac, lv, MTR._base_levels(ci.abs(), q))
+    for name, a, b in zip(("intra DC", "intra AC", "inter", "trellis l0"),
+                          got["cpu"], got[dev]):
+        _eq(b, a, f"qscale {q} {name} levels")
 
 
 @pytest.mark.cuda

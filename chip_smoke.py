@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--profile DIR]
 
-It drives six paths and ten kernels. Phases, in order; any failure
+It drives seven paths and ten kernels. Phases, in order; any failure
 raises and the script exits non-zero:
 
 1. device: the card's name and power limit (nvidia-smi);
@@ -122,7 +122,35 @@ raises and the script exits non-zero:
    every launch of SINGLE_BIQUAD, a graph-API graph of one biquad on the
    WAV (a run of one stage); the full search equals its plain version
    on minterpolate's inputs at r = 8 and r = 16;
-10. kernel leg: parallel.transcode_step as bench.py's kernel leg runs it
+10. containers: the container layer, -ss/-t, checkpoint/resume and the
+   profiler through cli.ffmpeg's parser and Transcoder
+   (containers_commands), held to
+   tests/data/torch_port/bench_1080p_containers.json (the JAX package's
+   runs of the same command lines on the CPU): the asset stream-copied
+   into MP4, Matroska and MPEG-TS (each file's md5 and its ffprobe
+   -show_streams -show_format -show_packets JSON equal to the JAX
+   package's); each of the four sources decoded to framemd5 (the text
+   equal to the JAX package's, the 48 hashes those of
+   bench_1080p_frames.md5, mc, intra and deblock 44 launches a run);
+   -ss 0.5 -t 1.0 from each (frames 13-37 of its decode, the text equal
+   to the JAX package's where that package can seek); the Matroska copy
+   to 1280x720 MPEG-4 -q:v 5 in MP4 (VOP types and pts exact, bytes and
+   mean recon PSNR within FILT_BYTES_REL / FILT_PSNR_TOL_DB, the MP4's
+   packets the encoder's byte for byte, the first CONT_READBACK VOPs
+   read back by the vendored decoder within PSNR_TOL_DB of the JAX
+   package's read-back PSNR, hpel once per P-VOP); the WAV to 48 kHz
+   AAC in MP4 and Matroska (pts exact, bytes and SNR within the audio
+   limits); checkpoint/resume on the card (that
+   MPEG-4 transcode from Matroska and from MP4 snapshotted after packet
+   CONT_CUT, an IDR, and restored into a fresh Transcoder: the rest of
+   its packets equal the uninterrupted run's byte for byte; the dithered
+   WAV snapshotted after CONT_DITHER_CUT packets: the resumed samples
+   equal the uninterrupted run's, shape_scan once a packet on both sides
+   of the cut); and utils.profiler.device_trace over one decode, in a
+   fresh process, whose Chrome trace must count as many mc, intra and
+   deblock kernels as the launch counters, with the card's busy time and
+   idle share read from it;
+11. kernel leg: parallel.transcode_step as bench.py's kernel leg runs it
    (8 testgen frames 1920x1088 -> 1280x720, qscale 4, 4 chained steps),
    held to the JAX package's goldens (tests/data/torch_port/
    kernel_leg.npz); fsearch must launch once per step; then one warm
@@ -2753,6 +2781,417 @@ def filters_phase(dev: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# containers: remux, decode through each container, seek, transcode into
+# containers, checkpoint/resume, the profiler's trace
+# ---------------------------------------------------------------------------
+
+CONT_GOLD = "bench_1080p_containers.json"
+CONT_SOURCES = ("264", "mp4", "mkv", "ts")
+CONT_SEEK = (13, 38)       # -ss 0.5 -t 1.0: frames 13-37 of the decode
+CONT_CUT = 24              # packets before the video snapshot (an IDR)
+CONT_DITHER_CUT = 200      # WAV packets before the dithered snapshot
+CONT_READBACK = 12         # VOPs of the MPEG-4 MP4 the vendored decoder reads
+CONT_TRACE_KERNELS = {"mc": "mc_kernel", "intra": "intra_kernel",
+                      "deblock": "deblock_rows_kernel"}
+# the repaired fields of an H.264 stream in MPEG-TS (the JAX package's
+# demuxer leaves them 0; ROADMAP section 3b)
+CONT_TS_REPAIRED = {"width": 1920, "height": 1088}
+
+
+def containers_commands(td: str, wav: str) -> dict:
+    """The containers phase's command lines (cli.ffmpeg; the JAX
+    package's CLI takes the same), with outputs in td: R_* stream-copy
+    the asset into MP4, Matroska and MPEG-TS; D_* decode each source to
+    framemd5, S_* the same after -ss 0.5 -t 1.0; V the Matroska copy to
+    1280x720 MPEG-4 -q:v 5 in MP4; A_* the WAV to 48 kHz AAC in MP4 and
+    Matroska; DITHER the WAV through the noise shaper to s16 PCM."""
+    j = os.path.join
+    src = {"264": ASSET, **{e: j(td, f"bench.{e}") for e in CONT_SOURCES[1:]}}
+    cmd = {f"R_{e}": ["-i", ASSET, "-c:v", "copy", "-y", src[e]]
+           for e in CONT_SOURCES[1:]}
+    for s, path in src.items():
+        cmd[f"D_{s}"] = ["-i", path, "-f", "framemd5", "-y",
+                         j(td, f"d_{s}.md5")]
+        cmd[f"S_{s}"] = ["-ss", "0.5", "-i", path, "-t", "1.0", "-f",
+                         "framemd5", "-y", j(td, f"s_{s}.md5")]
+    cmd["V"] = ["-i", src["mkv"], "-s", "1280x720", "-c:v", "mpeg4", "-q:v",
+                "5", "-y", j(td, "v.mp4")]
+    for e in ("mp4", "mkv"):
+        cmd[f"A_{e}"] = ["-i", wav, "-ar", "48000", "-c:a", "aac", "-b:a",
+                         "128k", "-y", j(td, f"a.{e}")]
+    cmd["DITHER"] = ["-i", wav, "-af",
+                     "aresample=48000:dither_method=lipshitz", "-c:a",
+                     "pcm_s16le", "-y", j(td, "dither.wav")]
+    return cmd
+
+
+def probe_json(ffprobe, path: str) -> dict:
+    """`ffprobe -show_streams -show_format -show_packets -of json` of
+    path by the given package's cli.ffprobe, the file's name made its
+    base name."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        check(ffprobe.main(["-show_streams", "-show_format",
+                            "-show_packets", "-of", "json", path]) == 0,
+              f"ffprobe {path}")
+    info = json.loads(buf.getvalue())
+    info["format"]["filename"] = os.path.basename(path)
+    return info
+
+
+def md5_lines(text: str) -> tuple[list, list]:
+    """A framemd5 text's header lines and frame lines."""
+    lines = text.splitlines()
+    return ([ln for ln in lines if ln.startswith("#")],
+            [ln for ln in lines if not ln.startswith("#")])
+
+
+def demuxed(path: str) -> list:
+    """(pts, bytes) of every packet of a file, by the port's demuxer."""
+    from librempeg_tpu_torch.formats.api import open_input
+
+    d = open_input(path)
+    out = [(p.pts, bytes(p.data)) for p in d.packets()]
+    d.close()
+    return out
+
+
+def resumed_run(argv: list[str], out: str, dev: str, cut: int) -> dict:
+    """argv (its output replaced by out) through Transcoder: `cut`
+    packets, a snapshot, and the rest in a fresh Transcoder restored from
+    it. Returns the restored run's packets (pts, bytes, key) as the muxer
+    receives them and the kernels' launches before and after the cut."""
+    from librempeg_tpu_torch import kernels
+    from librempeg_tpu_torch.cli.ffmpeg import parse_args
+    from librempeg_tpu_torch.core.packet import PktFlags
+    from librempeg_tpu_torch.sched import checkpoint
+    from librempeg_tpu_torch.sched.pipeline import Transcoder
+
+    root, ext = os.path.splitext(out)
+    spec, _ = parse_args(argv[:-1] + [root + ".head" + ext, "-device", dev])
+    head = Transcoder(spec)
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    for i, pkt in enumerate(head.demux.packets()):
+        head.chains[pkt.stream_index].send_packet(pkt, head.mux)
+        if i + 1 == cut:
+            break
+    blob = checkpoint.snapshot(head)
+    before = kernels.counts()
+    for chain in head.chains.values():
+        if hasattr(chain, "_join_encodes"):
+            chain._join_encodes()
+    head.demux.close()
+    spec, _ = parse_args(argv[:-1] + [out, "-device", dev])
+    tc = Transcoder(spec)
+    checkpoint.restore(tc, blob)
+    pk, write = [], tc.mux.write
+
+    def rec(p):
+        pk.append((p.pts, bytes(p.data), bool(p.flags & PktFlags.KEY)))
+        write(p)
+
+    tc.mux.write = rec
+    kernels.reset_counts()
+    tc.run()
+    sync(dev)
+    return {"packets": pk, "before": before, "after": kernels.counts(),
+            "blob_bytes": len(blob), "wall_s": time.perf_counter() - t0}
+
+
+def trace_child(argv_json: str, trace: str, dev: str) -> None:
+    """Run one command line under profiler.device_trace in this process
+    (a fresh one: a second torch.profiler window in a process may record
+    no device events) and print the kernels' launch counts as JSON."""
+    import torch
+
+    from librempeg_tpu_torch import kernels
+    from librempeg_tpu_torch.utils import profiler
+
+    argv = json.loads(argv_json)
+    cli_run(argv, dev)                     # warm: the kernels load
+    kernels.reset_counts()
+    with profiler.device_trace(trace):
+        # a window's first device event can go unrecorded: open it with a
+        # short sleep kernel, dropped from the counts
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        run = cli_run(argv, dev)
+    print(json.dumps({"launches": run["launches"], "wall_s": run["wall_s"]}))
+
+
+def trace_stats(trace: str) -> dict:
+    """From a Chrome trace: each traced kernel's launches, and the card's
+    busy time (the union of its kernel and copy intervals) and idle share
+    over the window from the first to the last event of the trace."""
+    ev = [e for e in json.load(open(trace))["traceEvents"]
+          if e.get("ph") == "X" and "dur" in e]
+    dev_ev = [e for e in ev if e.get("cat") in ("kernel", "gpu_memcpy",
+                                                "gpu_memset")
+              and "spin_kernel" not in e.get("name", "")]
+    counts = {k: sum(name in e["name"] for e in dev_ev
+                     if e.get("cat") == "kernel")
+              for k, name in CONT_TRACE_KERNELS.items()}
+    busy, end = 0.0, -math.inf
+    for e in sorted(dev_ev, key=lambda e: e["ts"]):
+        s, t = e["ts"], e["ts"] + e["dur"]
+        busy += max(0.0, t - max(s, end))
+        end = max(end, t)
+    t0 = min(e["ts"] for e in ev)
+    t1 = max(e["ts"] + e["dur"] for e in ev)
+    return {"launches": counts, "busy_ms": busy / 1e3,
+            "window_ms": (t1 - t0) / 1e3,
+            "idle_share": 1 - busy / (t1 - t0),
+            "device_events": len(dev_ev)}
+
+
+def containers_phase(dev: str) -> dict:
+    """Remux, framemd5 through each container, -ss/-t, transcodes into
+    MP4 and Matroska, checkpoint/resume and the profiler's trace, held to
+    tests/data/torch_port/bench_1080p_containers.json (the JAX package's
+    runs of the same command lines on the CPU)."""
+    import numpy as np
+
+    from librempeg_tpu_torch import kernels
+    from librempeg_tpu_torch.cli import ffprobe
+    from librempeg_tpu_torch.codecs.mpeg4._decoder import Mpeg4Decoder
+    from librempeg_tpu_torch.core.packet import Packet
+
+    gold = json.load(open(os.path.join(GOLD, CONT_GOLD)))
+    frames_md5 = open(os.path.join(GOLD, "bench_1080p_frames.md5")).read(
+        ).split()
+    t_phase = time.perf_counter()
+    res = {"wall_s": {}, "rate": {}, "split_s": {}, "launches": {}}
+    total = dict.fromkeys(KERNELS, 0)
+
+    def run(name, argv, **kw):
+        r = cli_run(argv, dev, **kw)
+        res["wall_s"][name] = r["wall_s"]
+        res["split_s"][name] = {k: round(v, 4) for k, v in
+                                r["split_s"].items()}
+        res["launches"][name] = {k: v for k, v in r["launches"].items()
+                                 if v}
+        for k, v in r["launches"].items():
+            total[k] += v
+        return r
+
+    with tempfile.TemporaryDirectory() as td:
+        wav = os.path.join(td, "in.wav")
+        write_audio_wav(wav, AUDIO_SECONDS)
+        cmd = containers_commands(td, wav)
+
+        # 1. remux, ffprobe
+        for e in CONT_SOURCES[1:]:
+            run(f"R_{e}", cmd[f"R_{e}"])
+            path = cmd[f"R_{e}"][-1]
+            md5 = hashlib.md5(open(path, "rb").read()).hexdigest()
+            check(md5 == gold["remux_md5"][e],
+                  f"remux {e}: md5 {md5} is not the JAX package's")
+            info = probe_json(ffprobe, path)
+            if e == "ts":
+                for s in info["streams"]:
+                    check({k: s[k] for k in CONT_TS_REPAIRED} ==
+                          CONT_TS_REPAIRED, f"ffprobe ts: {s}")
+                    s.update(dict.fromkeys(CONT_TS_REPAIRED, 0))
+            check(info == gold["ffprobe"][e],
+                  f"ffprobe {e}: differs from the JAX package's")
+        log(f"containers remux: md5 and ffprobe JSON (streams, format, "
+            f"{len(gold['ffprobe']['mp4']['packets'])} packets) equal the "
+            f"JAX package's for {list(CONT_SOURCES[1:])}")
+
+        # 2. decode through each container to framemd5
+        full = {}
+        for s in CONT_SOURCES:
+            r = run(f"D_{s}", cmd[f"D_{s}"])
+            text = open(cmd[f"D_{s}"][-1]).read()
+            full[s] = md5_lines(text)
+            res["rate"][f"D_{s}"] = 48 / r["wall_s"]
+            want = gold["framemd5"][s]
+            if s == "ts":
+                # the JAX package's MPEG-TS demuxer leaves the size 0x0
+                text = text.replace(
+                    "#dimensions 0: {width}x{height}\n".format(
+                        **CONT_TS_REPAIRED), "#dimensions 0: 0x0\n", 1)
+            check(text == want,
+                  f"framemd5 of {s}: differs from the JAX package's")
+            hashes = [ln.split(", ")[-1] for ln in full[s][1]]
+            check(hashes == frames_md5, f"framemd5 of {s}: the 48 hashes "
+                  f"are not bench_1080p_frames.md5")
+            check(all(r["launches"][k] == 44 for k in E2E_KERNELS[:3]),
+                  f"decode of {s}: launches {r['launches']}")
+        log(f"containers decode: framemd5 equal to the JAX package's from "
+            f"{list(CONT_SOURCES)}; the 48 hashes are "
+            f"bench_1080p_frames.md5; mc, intra, deblock 44 a run")
+
+        # 3. -ss 0.5 -t 1.0
+        a, b = CONT_SEEK
+        for s in CONT_SOURCES:
+            r = run(f"S_{s}", cmd[f"S_{s}"])
+            text = open(cmd[f"S_{s}"][-1]).read()
+            res["rate"][f"S_{s}"] = (b - a) / r["wall_s"]
+            head, lines = md5_lines(text)
+            check(head == full[s][0] and lines == full[s][1][a:b],
+                  f"seek {s}: not frames {a}-{b - 1} of its decode")
+            if gold["seek"][s] is None:
+                # the JAX package refuses this seek (section 3b)
+                check("SPS/PPS" in gold["seek_error"][s], gold["seek_error"])
+            else:
+                check(text == gold["seek"][s],
+                      f"seek {s}: differs from the JAX package's")
+        seek_launches = {s: res["launches"][f"S_{s}"] for s in CONT_SOURCES}
+        check(len({json.dumps(v, sort_keys=True)
+                   for v in seek_launches.values()}) == 1,
+              f"seek launches differ by source: {seek_launches}")
+        seekable = [s for s in CONT_SOURCES if gold["seek"][s] is not None]
+        log(f"containers seek: frames {a}-{b - 1} from every source, equal "
+            f"to the JAX package's from {seekable} (its MPEG-TS seek "
+            f"fails: {gold['seek_error']['ts']!r}); launches "
+            f"{seek_launches['264']}")
+
+        # 4. transcodes into containers: MPEG-4 in MP4
+        inputs, enc = [], []
+
+        def on_input(frame):
+            if len(inputs) < CONT_READBACK:
+                inputs.append(tuple(host(p) for p in frame.planes))
+
+        def prepare(tc):
+            tc.chains[0].encoder.recon_psnr = []
+            enc.append(tc.chains[0].encoder)
+
+        v = run("V", cmd["V"], on_input=on_input, prepare=prepare)
+        res["rate"]["V"] = 48 / v["wall_s"]
+        gv = gold["v"]
+        types = "".join(vop_type(d) for _, d, _ in v["packets"])
+        nbytes = sum(len(d) for _, d, _ in v["packets"])
+        ps = enc[0].recon_psnr
+        dem = demuxed(cmd["V"][-1])
+        dec = Mpeg4Decoder()
+        back = [f for p, d in dem[:CONT_READBACK]
+                for f in dec.decode(Packet(data=d, pts=p))] + dec.flush()
+        check(len(back) == CONT_READBACK and back[0].planes[0].shape ==
+              (720, 1280), f"V: read back {len(back)} frames")
+        dpsnr = statistics.fmean(planes_psnr_db(x, f.planes)
+                                 for x, f in zip(inputs, back))
+        res["v"] = {"types": types, "bytes": nbytes,
+                    "bytes_rel": abs(nbytes - sum(gv["sizes"]))
+                    / sum(gv["sizes"]),
+                    "recon_psnr": statistics.fmean(ps),
+                    "psnr_gap": statistics.fmean(ps)
+                    - statistics.fmean(gv["recon_psnr"]),
+                    "readback_psnr": dpsnr,
+                    "readback_gap": dpsnr - gv["readback_psnr"]}
+        log("containers V: " + json.dumps(res["v"]))
+        check(types == gv["types"] and [p for p, _, _ in v["packets"]] ==
+              gv["pts"] and [p for p, _ in dem] == gv["file_pts"],
+              "V: VOP types or pts differ from the JAX package's")
+        check([d for _, d in dem] == [d for _, d, _ in v["packets"]],
+              "V: the MP4's packets are not the encoder's")
+        check(res["v"]["bytes_rel"] <= FILT_BYTES_REL, "V: bytes")
+        check(abs(res["v"]["psnr_gap"]) <= FILT_PSNR_TOL_DB,
+              "V: recon PSNR mean")
+        check(abs(res["v"]["readback_gap"]) <= PSNR_TOL_DB,
+              "V: the vendored decoder's read-back PSNR")
+        check(v["launches"]["hpel"] == types.count("P") and all(
+            v["launches"][k] == 44 for k in E2E_KERNELS[:3]),
+            f"V: launches {v['launches']}")
+
+        # AAC in MP4 and Matroska
+        for e in ("mp4", "mkv"):
+            ins = []
+            r = run(f"A_{e}", cmd[f"A_{e}"],
+                    on_input=lambda f, ins=ins: ins.append(host(f.data)))
+            res["rate"][f"A_{e}"] = AUDIO_SECONDS / r["wall_s"]
+            ga = gold["aac"][e]
+            dem = demuxed(cmd[f"A_{e}"][-1])
+            adts = os.path.join(td, f"a_{e}.aac")
+            with open(adts, "wb") as f:
+                f.write(b"".join(d for _, d in dem))
+            x = np.concatenate(ins, 1)
+            snr = aac_snr(dev, adts, x if x.dtype == np.int16
+                          else x.astype(np.float64) * 32768.0)
+            nb = sum(len(d) for _, d, _ in r["packets"])
+            res[f"a_{e}"] = {"bytes": nb, "bytes_rel": abs(
+                nb - sum(ga["sizes"])) / sum(ga["sizes"]), "snr_db": snr,
+                "snr_gap": snr - ga["snr_db"]}
+            log(f"containers A_{e}: " + json.dumps(res[f"a_{e}"]))
+            check([p for p, _, _ in r["packets"]] == ga["pts"] and
+                  [p for p, _ in dem] == ga["file_pts"],
+                  f"A_{e}: pts differ from the JAX package's")
+            check(res[f"a_{e}"]["bytes_rel"] <= AUDIO_BYTES_TOL,
+                  f"A_{e}: bytes")
+            check(abs(res[f"a_{e}"]["snr_gap"]) <= AUDIO_SNR_TOL_DB,
+                  f"A_{e}: decoded SNR")
+
+        # 5. checkpoint on the card: MPEG-4 from Matroska and MP4, cut at
+        # the IDR of packet 24; the dithered WAV after 200 packets
+        want = [(d, k) for _, d, k in v["packets"][CONT_CUT:]]
+        for s in ("mkv", "mp4"):
+            argv = ["-i", cmd[f"D_{s}"][1]] + cmd["V"][2:]
+            ck = resumed_run(argv, os.path.join(td, f"ck_{s}.mp4"), dev,
+                             CONT_CUT)
+            res[f"ck_{s}"] = {"packets": len(ck["packets"]),
+                              "snapshot_bytes": ck["blob_bytes"],
+                              "wall_s": ck["wall_s"],
+                              "before": {k: n for k, n in
+                                         ck["before"].items() if n},
+                              "after": {k: n for k, n in
+                                        ck["after"].items() if n}}
+            log(f"containers checkpoint {s}: " + json.dumps(res[f"ck_{s}"]))
+            check([(d, k) for _, d, k in ck["packets"]] == want,
+                  f"checkpoint {s}: the resumed packets differ from the "
+                  f"uninterrupted run's")
+            check(all(ck["before"][k] + ck["after"][k] == v["launches"][k]
+                      for k in E2E_KERNELS), f"checkpoint {s}: launches")
+        d = run("DITHER", cmd["DITHER"])
+        ck = resumed_run(cmd["DITHER"], os.path.join(td, "ck_d.wav"), dev,
+                         CONT_DITHER_CUT)
+        _, x_full = read_wav(cmd["DITHER"][-1])
+        _, x_tail = read_wav(os.path.join(td, "ck_d.wav"))
+        res["ck_dither"] = {"samples": int(x_tail.shape[1]),
+                            "before": ck["before"]["shape_scan"],
+                            "after": ck["after"]["shape_scan"],
+                            "uninterrupted": d["launches"]["shape_scan"],
+                            "wall_s": ck["wall_s"]}
+        log("containers checkpoint dither: " + json.dumps(res["ck_dither"]))
+        check(x_tail.shape[1] > 0 and np.array_equal(
+            x_full[:, x_full.shape[1] - x_tail.shape[1]:], x_tail),
+            "checkpoint dither: the resumed samples differ from the "
+            "uninterrupted run's")
+        check(ck["before"]["shape_scan"] == CONT_DITHER_CUT and
+              ck["before"]["shape_scan"] + ck["after"]["shape_scan"] ==
+              d["launches"]["shape_scan"], "checkpoint dither: launches")
+
+        # 6. the profiler's trace, in a fresh process
+        trace = os.path.join(td, "trace.json")
+        t0 = time.perf_counter()
+        child = subprocess.run(
+            [sys.executable, "-c", "import sys, chip_smoke; "
+             "chip_smoke.trace_child(*sys.argv[1:])",
+             json.dumps(cmd["D_mp4"]), trace, dev],
+            capture_output=True, text=True, cwd=ROOT, timeout=600)
+        check(child.returncode == 0, child.stderr[-3000:])
+        counted = json.loads(child.stdout.strip().splitlines()[-1])
+        ts = trace_stats(trace)
+        ts["counters"] = {k: counted["launches"][k]
+                          for k in CONT_TRACE_KERNELS}
+        ts["run_wall_s"] = counted["wall_s"]
+        ts["child_s"] = time.perf_counter() - t0
+        res["trace"] = ts
+        log("containers trace: " + json.dumps(ts))
+        check(ts["launches"] == ts["counters"] and
+              all(n == 44 for n in ts["counters"].values()),
+              f"trace: kernels {ts['launches']} against the launch counters "
+              f"{ts['counters']}")
+    res["phase_s"] = time.perf_counter() - t_phase
+    res["total_launches"] = total
+    return res
+
+
 def main(argv: list[str]) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch "
                                  "port on one NVIDIA card.")
@@ -2927,6 +3366,21 @@ def main(argv: list[str]) -> int:
         f"ms, wall {kf['ms']:.3f} ms vs plain {kf['plain_ms']:.3f} ms, bound "
         f"{kf['bound_ms']:.4f} ms by {kf['bound_by']} ({kf['shape']})")
 
+    c = containers_phase(dev)
+    log(f"containers: wall s "
+        f"{json.dumps({k: round(v, 3) for k, v in c['wall_s'].items()})}")
+    log(f"containers: frames/s (audio: realtime factor) "
+        f"{json.dumps({k: round(v, 3) for k, v in c['rate'].items()})}")
+    for name, split in c["split_s"].items():
+        log(f"containers {name} split: " + json.dumps(split))
+    log(f"containers launches: {json.dumps(c['launches'])}")
+    tr = c["trace"]
+    log(f"containers trace of D_mp4 (profiler.device_trace, a fresh "
+        f"process): kernels {tr['launches']} equal the launch counters; "
+        f"device busy {tr['busy_ms']:.3f} ms of {tr['window_ms']:.3f} ms, "
+        f"idle share {tr['idle_share']:.4f}")
+    log(f"containers phase: {c['phase_s']:.1f} s")
+
     k = kernel_leg_phase(dev, leg, profile_dir)
     log(f"kernel leg: {LEG_BATCH}x{LEG_H}x{LEG_W} -> {LEG_DH}x{LEG_DW}, "
         f"{LEG_ITERS} chained steps; launches {k['launches']}; MVs equal "
@@ -2951,6 +3405,7 @@ def main(argv: list[str]) -> int:
          "launches_options": o["launches"][name],
          "launches_jpeg": j["launches"][name],
          "launches_filters": fl["launches"][name],
+         "launches_containers": c["total_launches"][name],
          **{k: kres[name][k] for k in (
              "max_abs_err", "ms", "device_ms", "device_ms_b2b", "plain_ms",
              "bound_ms",

@@ -3,8 +3,9 @@
 A thin wrapper over sched.pipeline.Transcoder that accepts only the
 options the slices implement:
 
-    python -m librempeg_tpu_torch.cli.ffmpeg [-f FMT] -i IN
-        [-s WxH] [-vf GRAPH] [-pix_fmt F] [-c:v mpeg4|mjpeg|copy]
+    python -m librempeg_tpu_torch.cli.ffmpeg [-f FMT] [INPUT OPTIONS] -i IN
+        [-ss T] [-t T] [-metadata K=V] [-r RATE]
+        [-s WxH] [-vf GRAPH] [-pix_fmt F] [-c:v mpeg4|mjpeg|rawvideo|copy]
         [-b:v N | -q:v N] [-g N] [-bf N] [-trellis N] [-frames:v N]
         [-c:a aac|pcm_s16le] [-b:a N] [-ar RATE] [-ac N] [-af CHAIN]
         [-frames:a N] [-vn] [-an] [-device cuda|cpu] [-y] [-f FMT] OUT
@@ -12,11 +13,20 @@ options the slices implement:
 Video: H.264, MJPEG (in AVI, raw .mjpeg, or image2 files such as
 thumb_%03d.jpg), or a source filter graph (-f lavfi -i
 "testsrc=size=1920x1088:duration=2", "sine=frequency=1000:duration=10")
-in; MPEG-4 or MJPEG in AVI, raw MJPEG (-f mjpeg) or
-image2 (-f image2, one file per frame) out. -f before -i names the
+in, each also from MP4/MOV, Matroska, MPEG-TS, Y4M or raw video; MPEG-4
+or MJPEG in AVI, MP4, Matroska or MPEG-TS, raw MJPEG (-f mjpeg), image2
+(-f image2, one file per frame), Y4M, raw video, or the hash muxers
+(-f framemd5, framecrc, md5, crc, null) out. -f before -i names the
 input format, after it the output's. Without -c:v the output format
-picks the codec (mjpeg for image2 and mjpeg, mpeg4 otherwise); -c:v
-copy passes the packets through. -vf takes a filter graph (crop, pad,
+picks the codec (mjpeg for image2 and mjpeg; rawvideo for the hash
+muxers, yuv4mpegpipe and rawvideo; mpeg4 otherwise); -c:v copy passes
+the packets through (H.264 and HEVC into MP4 and Matroska as avcC and
+hvcC). Before -i, -s, -r/-framerate, -pix_fmt, -ar, -ac/-channels and
+-ch_layout describe a headerless input (-f rawvideo, -f s16le). -ss T
+seeks the input (the container to the keyframe at or before T, then an
+exact decode-and-drop), -t T stops after T seconds of it (T in seconds
+or HH:MM:SS.mmm), -metadata key=value tags the output, -r RATE after
+-i appends fps=RATE to the -vf chain. -vf takes a filter graph (crop, pad,
 hflip, vflip, transpose, fps, trim, setpts, scale, format, colorspace,
 eq, gblur, boxblur, lutyuv, drawbox, fade, minterpolate, ...), -af an
 audio one (highpass, lowpass, equalizer, bass, aecho, afade, ...). -q:v
@@ -50,6 +60,8 @@ import os
 import sys
 import time
 
+from librempeg_tpu_torch.core.rational import Rational
+from librempeg_tpu_torch.core.samplefmt import ChannelLayout
 from librempeg_tpu_torch.sched.pipeline import (
     StreamMap,
     TranscodeSpec,
@@ -69,10 +81,19 @@ def _int(s: str) -> int:
     return int(s)
 
 
+def _parse_time(s: str) -> float:
+    """'12.5' or 'HH:MM:SS.mmm'."""
+    t = 0.0
+    for part in s.split(":"):
+        t = t * 60 + float(part)
+    return t
+
+
 def parse_args(argv: list[str]) -> tuple[TranscodeSpec, bool]:
     smap = StreamMap()
     audio = StreamMap(codec="pcm_s16le")
     kw: dict = {"input_url": None, "output_url": None}
+    in_opts: dict = {}               # options before -i, for the demuxer
     overwrite = False
     fmt = None                       # -f: for the next -i or the output
     i = 0
@@ -97,16 +118,38 @@ def parse_args(argv: list[str]) -> tuple[TranscodeSpec, bool]:
             raise CliError(f"option {a} needs an argument")
         v = argv[i + 1]
         i += 2
+        pre_input = kw["input_url"] is None
         if a == "-i":
             kw["input_url"] = v
             kw["input_format"], fmt = fmt, None
+            kw["input_opts"], in_opts = in_opts, {}
         elif a == "-f":
             fmt = v
         elif a in ("-c:v", "-vcodec", "-codec:v"):
             smap.codec = v
-        elif a == "-s":
-            w, _, h = v.partition("x")
-            smap.width, smap.height = int(w), int(h)
+        elif a in ("-s", "-video_size", "-s:v"):
+            w, _, h = v.lower().partition("x")
+            if pre_input:
+                in_opts["width"], in_opts["height"] = int(w), int(h)
+            else:
+                smap.width, smap.height = int(w), int(h)
+        elif a in ("-r", "-framerate", "-r:v"):
+            rate = (Rational(*map(int, v.split("/"))) if "/" in v
+                    else Rational.from_float(float(v)))
+            if pre_input:
+                in_opts["framerate"] = rate
+            else:
+                f = f"fps={rate.num}/{rate.den}"
+                smap.filters = f"{smap.filters},{f}" if smap.filters else f
+        elif a == "-ss":
+            kw["seek"] = _parse_time(v)
+        elif a == "-t":
+            kw["duration"] = _parse_time(v)
+        elif a == "-metadata":
+            if "=" not in v:
+                raise CliError("-metadata needs key=value")
+            key, _, val = v.partition("=")
+            kw.setdefault("metadata", {})[key] = val
         elif a in ("-vf", "-filter:v"):
             smap.filters = v
         elif a in ("-b:v", "-b"):
@@ -118,7 +161,10 @@ def parse_args(argv: list[str]) -> tuple[TranscodeSpec, bool]:
         elif a == "-trellis":
             smap.codec_opts["trellis"] = int(v)
         elif a == "-pix_fmt":
-            smap.pix_fmt = v
+            if pre_input:
+                in_opts["pix_fmt"] = v
+            else:
+                smap.pix_fmt = v
         elif a in ("-q:v", "-qscale:v"):
             smap.codec_opts["quality_scale"] = float(v)
         elif a in ("-frames:v", "-vframes"):
@@ -128,9 +174,17 @@ def parse_args(argv: list[str]) -> tuple[TranscodeSpec, bool]:
         elif a == "-b:a":
             audio.codec_opts["bit_rate"] = _int(v)
         elif a == "-ar":
-            audio.sample_rate = int(v)
-        elif a in ("-ac", "-channels"):
-            audio.channels = int(v)
+            if pre_input:
+                in_opts["sample_rate"] = int(v)
+            else:
+                audio.sample_rate = int(v)
+        elif a in ("-ac", "-channels", "-ch_layout"):
+            n = (ChannelLayout.from_string(v).nb_channels
+                 if a == "-ch_layout" else int(v))
+            if pre_input:
+                in_opts["channels"] = n
+            else:
+                audio.channels = n
         elif a in ("-af", "-filter:a"):
             audio.filters = v
         elif a in ("-frames:a", "-aframes"):

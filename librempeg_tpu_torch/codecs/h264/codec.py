@@ -275,6 +275,18 @@ class H264Decoder(Decoder):
             base = 0
         return max(base, self._reorder_depth)
 
+    def drain(self):
+        """The frames of every packet submitted so far, the stream kept
+        open: the decode-ahead queue is emptied and its worker keeps
+        running. Frames held for display reordering stay held. A
+        checkpoint calls this so that its snapshot covers every packet
+        the demuxer has given out."""
+        frames = []
+        if self._da is not None:
+            while self._da.inflight > 0:
+                frames.extend(self._consume(*self._da.next_result()))
+        return frames
+
     def flush(self):
         frames = []
         if self._da is not None:

@@ -307,16 +307,8 @@ def muxers() -> dict[str, type[Muxer]]:
 
 
 def _ensure_registered() -> None:
-    """Import the port's container modules (H.264 ES and the lavfi
-    device in; AVI, raw MJPEG, image2, WAV and ADTS in and out)."""
-    from librempeg_tpu_torch.formats import (  # noqa: F401
-        adts,
-        avi,
-        image2,
-        lavfi,
-        rawes,
-        wav,
-    )
+    """Import every container module of the port (formats/registry.py)."""
+    from librempeg_tpu_torch.formats import registry  # noqa: F401
 
 
 def probe_format(buf: bytes, filename: str = "") -> tuple[type[Demuxer] | None, int]:

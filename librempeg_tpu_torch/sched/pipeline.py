@@ -7,11 +7,18 @@ video chain runs the filter graph between them (-s appends scale=,
 -pix_fmt format=) and maps -q:v onto what the encoder declares (quality
 for mjpeg, qscale for mpeg4); `-c:v copy` passes the demuxer's packets
 to the muxer with no decode. Without -c:v the output format picks the
-codec (mjpeg for image2 and raw MJPEG, mpeg4 otherwise). An audio
+codec (mjpeg for image2 and raw MJPEG; rawvideo for the hash muxers,
+yuv4mpegpipe and rawvideo; mpeg4 otherwise). An audio
 stream is decoded, run through its filter graph (-ar appends
 aresample=, -ac aformat=channel_layouts=) and encoded to AAC or PCM.
 Every device stage runs on `device` (default "cuda"; a missing card
 raises).
+
+-ss seeks as the JAX package does: the container seeks on its first
+seekable stream (video first) to the keyframe at or before the time,
+measured from the input's earliest start time, and both chains decode
+and drop what ends before it; -t stops at the first packet at or past
+seek + duration. A subtitle stream is not mapped (the run logs it).
 
 As in the JAX package, a worker thread overlaps the fetch of frame i's
 compacted levels and its host VLC packing with the decode of frame
@@ -30,12 +37,15 @@ from typing import Any
 
 from librempeg_tpu_torch.codecs.api import find_decoder, find_encoder
 from librempeg_tpu_torch.core.errors import InvalidData, Unsupported
-from librempeg_tpu_torch.core.rational import Rational
+from librempeg_tpu_torch.core.log import Logger
+from librempeg_tpu_torch.core.rational import NOPTS, Rational
 from librempeg_tpu_torch.core.samplefmt import ChannelLayout
 from librempeg_tpu_torch.device import resolve
 from librempeg_tpu_torch.filters import GraphRunner, StreamProps
 from librempeg_tpu_torch.formats.api import open_input, open_output
 from librempeg_tpu_torch.utils.stagetimer import stage
+
+log = Logger("transcode")
 
 
 @dataclass
@@ -58,16 +68,36 @@ class TranscodeSpec:
     input_url: str
     output_url: str
     input_format: str | None = None
+    input_opts: dict = field(default_factory=dict)  # options before -i
     output_format: str | None = None
     video: StreamMap | None = None
     audio: StreamMap | None = None
     no_video: bool = False           # -vn
     no_audio: bool = False           # -an
+    duration: float = 0.0            # -t, seconds
+    seek: float = 0.0                # -ss, seconds
+    metadata: dict = field(default_factory=dict)    # -metadata key=value
     device: str = "cuda"
 
 
 #: the video codec an output format takes when no -c:v names one
-_DEFAULT_VIDEO_CODEC = {"image2": "mjpeg", "mjpeg": "mjpeg"}
+_DEFAULT_VIDEO_CODEC = {
+    "image2": "mjpeg", "mjpeg": "mjpeg",
+    **dict.fromkeys(("framecrc", "framemd5", "md5", "crc", "null",
+                     "yuv4mpegpipe", "rawvideo"), "rawvideo"),
+}
+
+
+def _discard(frame, until: float, media: str) -> bool:
+    """-ss's exact decode-and-drop: a video frame before `until` by its
+    pts, an audio frame by its end."""
+    if not until or frame.pts == NOPTS or not frame.time_base.valid \
+            or not frame.time_base.num:
+        return False
+    t = frame.pts * frame.time_base.num / frame.time_base.den
+    if media == "audio":
+        t += frame.nb_samples / max(1, frame.sample_rate)
+    return t < until - 1e-9
 
 
 def _translate_codec_opts(enc_cls, codec_opts: dict) -> dict:
@@ -104,6 +134,7 @@ class _StreamChain:
         par = in_stream.codecpar
         self.smap = smap
         self.frames_done = 0
+        self.discard_until = 0.0     # -ss: decode and drop before this
         self.eof = False
         self.copy = smap.codec == "copy"
         self._pipelined = False
@@ -144,6 +175,15 @@ class _StreamChain:
             self._pworker = threading.Thread(target=self._drain_encodes,
                                              daemon=True)
             self._pworker.start()
+
+    def drain(self, mux) -> None:
+        """Push the frames the decoder holds for packets already sent
+        (its decode-ahead queue) through the graph and the encoder,
+        keeping the stream open."""
+        if not self.copy and not self.eof and \
+                hasattr(self.decoder, "drain"):
+            for frame in self.decoder.drain():
+                self._through_graph(frame, mux)
 
     def _drain_encodes(self) -> None:
         while True:
@@ -191,6 +231,9 @@ class _StreamChain:
             self._through_graph(frame, mux)
 
     def _through_graph(self, frame, mux, flush=False) -> None:
+        if frame is not None and _discard(frame, self.discard_until,
+                                          "video"):
+            return
         with stage("video.graph"):
             outs = self.graph.push(frame) if frame is not None else []
             if flush:
@@ -235,6 +278,7 @@ class _AudioChain:
         par = in_stream.codecpar
         self.smap = smap
         self.frames_done = 0
+        self.discard_until = 0.0     # -ss: decode and drop before this
         self.eof = False
         dec_cls = find_decoder(par.codec_id)
         if dec_cls.INFO.codec_type != "audio":
@@ -298,6 +342,9 @@ class _AudioChain:
     def _through_graph(self, frame, mux, flush=False) -> None:
         if frame is not None and not self._rate_locked:
             self._lock_rate(frame, mux)
+        if frame is not None and _discard(frame, self.discard_until,
+                                          "audio"):
+            return
         with stage("audio.graph"):
             outs = self.graph.push(frame) if frame is not None else []
             if flush:
@@ -331,11 +378,16 @@ class Transcoder:
     def __init__(self, spec: TranscodeSpec):
         self.spec = spec
         device = resolve(spec.device)
-        self.demux = open_input(spec.input_url, spec.input_format)
+        self.demux = open_input(spec.input_url, spec.input_format,
+                                **spec.input_opts)
         self.mux = open_output(spec.output_url, spec.output_format)
+        self.mux.metadata.update(spec.metadata)
         self.chains: dict[int, Any] = {}
         for st in self.demux.streams:
             media = st.codecpar.codec_type
+            if media == "subtitle":
+                log.warning("stream %d: subtitles are not mapped", st.index)
+                continue
             if media not in type(self.mux).SUPPORTED_TYPES:
                 continue
             if media == "video" and not spec.no_video:
@@ -352,17 +404,67 @@ class Transcoder:
         if not self.chains:
             raise InvalidData("no streams selected for transcoding")
 
+    def _start(self) -> float:
+        """The input's earliest start time in seconds (an MPEG-TS from
+        elsewhere may start at a nonzero pts; ffmpeg_opts.c seek math)."""
+        start = 0.0
+        for st in self.demux.streams:
+            if st.start_time != NOPTS and st.time_base.valid \
+                    and st.time_base.num:
+                t0 = st.start_time * st.time_base.num / st.time_base.den
+                start = t0 if start == 0.0 else min(start, t0)
+        return start
+
+    def _seek(self, start: float) -> None:
+        """-ss: the container seek on the first seekable stream (video
+        first, for keyframe snapping), relative to the input's start;
+        the chains then decode and drop up to the exact time (the JAX
+        package's Transcoder.run, fftools/ffmpeg_demux.c + ffmpeg_dec.c
+        roles)."""
+        for st in sorted(self.demux.streams,
+                         key=lambda s: s.codecpar.codec_type != "video"):
+            try:
+                self.demux.read_seek(st.index, int(
+                    (start + self.spec.seek) * st.time_base.den
+                    / st.time_base.num))
+                break
+            except NotImplementedError:
+                continue          # without a seek, read from the start
+        for chain in self.chains.values():
+            chain.discard_until = start + self.spec.seek
+
+    def _past_end(self, pkt, end: float) -> bool:
+        """-t: a packet at or past `end` seconds on its own clock (end
+        counts from the input's start; the JAX package counts from 0)."""
+        return pkt.pts != NOPTS and pkt.time_base.valid and \
+            bool(pkt.time_base.num) and \
+            pkt.pts * pkt.time_base.num / pkt.time_base.den >= end
+
     def run(self) -> dict:
+        spec = self.spec
+        start = self._start() if spec.seek or spec.duration else 0.0
+        if spec.seek:
+            self._seek(start)
+        end = start + spec.seek + spec.duration if spec.duration else 0.0
         n_packets = 0
+        cut = set()                   # chains stopped by -t, flushed below
         for pkt in self.demux.packets():
             chain = self.chains.get(pkt.stream_index)
             if chain is None:
+                continue
+            if end and self._past_end(pkt, end):
+                chain.eof = True
+                cut.add(pkt.stream_index)
+                if all(c.eof for c in self.chains.values()):
+                    break
                 continue
             chain.send_packet(pkt, self.mux)
             n_packets += 1
             if all(c.eof for c in self.chains.values()):
                 break
-        for chain in self.chains.values():
+        for i, chain in self.chains.items():
+            if i in cut:
+                chain.eof = False
             chain.finish(self.mux)
         self.mux.close()
         self.demux.close()

@@ -298,3 +298,70 @@ def test_filter_slice_runs_without_jax(tmp_path):
     assert (tmp_path / "o.f3.aac").stat().st_size > 10000
     assert (tmp_path / "o.f4.avi").stat().st_size > 1000
     assert (tmp_path / "o.f4.aac").stat().st_size > 4000
+
+
+_PRELUDE = _CHILD[:_CHILD.index("from librempeg_tpu_torch.sched")]
+_CHILD_CONTAINERS = _PRELUDE + r"""
+import contextlib, io
+
+from librempeg_tpu_torch.cli import ffprobe
+from librempeg_tpu_torch.cli.ffmpeg import main
+from librempeg_tpu_torch.formats import registry
+from librempeg_tpu_torch.formats.api import open_input
+from librempeg_tpu_torch.sched import checkpoint
+from librempeg_tpu_torch.sched.pipeline import (StreamMap, TranscodeSpec,
+                                                Transcoder)
+from librempeg_tpu_torch.utils import profiler
+
+src, out = sys.argv[2], sys.argv[3]
+for ext in ("mp4", "mkv", "ts"):
+    main(["-i", src, "-c:v", "copy", "-device", "cpu", "-y",
+          f"{out}.{ext}"])
+    d = open_input(f"{out}.{ext}")
+    n = len(list(d.packets()))
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        ffprobe.main(["-show_streams", "-show_format", "-of", "json",
+                      f"{out}.{ext}"])
+    print(ext, d.NAME, n, '"width": 96' in buf.getvalue())
+
+
+def spec(o):
+    return TranscodeSpec(input_url=f"{out}.mkv", output_url=o, device="cpu",
+                         video=StreamMap(codec="mpeg4",
+                                         codec_opts={"quality_scale": 5}))
+
+
+tc = Transcoder(spec(out + ".a.avi"))
+for i, pkt in enumerate(tc.demux.packets()):
+    tc.chains[pkt.stream_index].send_packet(pkt, tc.mux)
+    if i == 5:
+        break
+blob = checkpoint.snapshot(tc)
+tc2 = Transcoder(spec(out + ".b.avi"))
+checkpoint.restore(tc2, blob)
+with profiler.scoped("resume"):
+    st = tc2.run()
+leaked = sorted(m for m in sys.modules if banned(m))
+assert not leaked, leaked
+print("resumed", st["frames"][0], list(profiler.report()))
+"""
+
+
+def test_containers_run_without_jax(tmp_path):
+    """A process that refuses to import jax copies an H.264 clip into
+    MP4, Matroska and MPEG-TS, demuxes and ffprobes each, and snapshots
+    and restores an MPEG-4 transcode of the Matroska file at its IDR."""
+    src = tmp_path / "clip.264"
+    make_clip(src)
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    proc = subprocess.run(
+        [sys.executable, "-c", _CHILD_CONTAINERS, REPO, str(src),
+         str(tmp_path / "o")],
+        capture_output=True, text=True, env=env, cwd=str(tmp_path),
+        timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    for line in ("mp4 mov 12 True", "matroska 12 True", "ts mpegts 12 True",
+                 "resumed 12 ['resume']"):
+        assert line in proc.stdout, proc.stdout

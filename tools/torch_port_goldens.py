@@ -118,6 +118,7 @@ OPTIONS_PSNR_TOL_DB = 0.02
 AUDIO_OUT = os.path.join(OUT, "audio_aac.npz")
 JPEG_OUT = os.path.join(OUT, "bench_1080p_mjpeg.npz")
 FILTERS_OUT = os.path.join(OUT, "bench_1080p_filters.npz")
+CONTAINERS_OUT = os.path.join(OUT, "bench_1080p_containers.json")
 
 
 def frame_md5(planes) -> str:
@@ -807,6 +808,152 @@ def filters_port(limits: bool, graphs_only: bool = False) -> bool:
     return True
 
 
+
+def jax_cli_run(argv: list[str], on_input=None, prepare=None) -> dict:
+    """One command line through the JAX package's CLI parser and
+    Transcoder, with the packets the muxer receives (pts, size), each
+    frame the encoder takes passed to on_input, prepare(transcoder)
+    before the run; an exception is returned as its text."""
+    from librempeg_tpu.cli.ffmpeg import parse_args
+
+    spec, _ = parse_args(argv)
+    tc = Transcoder(spec)
+    pk, write = [], tc.mux.write
+
+    def rec(p):
+        pk.append((int(p.pts), len(p.data)))
+        write(p)
+
+    tc.mux.write = rec
+    chain = tc.chains[0]
+    if on_input is not None:
+        name = "encode_async" if getattr(chain, "_pipelined", False) \
+            else "encode"
+        enc = getattr(chain.encoder, name)
+
+        def take(frame, **kw):
+            on_input(frame)
+            return enc(frame, **kw)
+
+        setattr(chain.encoder, name, take)
+    if prepare is not None:
+        prepare(tc)
+    try:
+        tc.run()
+    except Exception as e:          # the goldens record the refusal
+        return {"error": f"{type(e).__name__}: {e}", "packets": pk}
+    return {"packets": pk}
+
+
+def containers_goldens() -> dict:
+    """The JAX package's runs of chip_smoke.py's containers commands."""
+    import chip_smoke as CS
+
+    from librempeg_tpu.cli import ffprobe
+    from librempeg_tpu.codecs.aac.decoder import AacDecoder
+    from librempeg_tpu.codecs.mpeg4.decoder import Mpeg4Decoder
+    from librempeg_tpu.core.packet import Packet
+    from librempeg_tpu.core.rational import NOPTS
+    from librempeg_tpu.formats import api as FA
+    from librempeg_tpu.utils import testgen
+
+    x = testgen.s16(testgen.audio_mix(CS.AUDIO_IN_RATE,
+                                      CS.AUDIO_IN_RATE * CS.AUDIO_SECONDS))
+    gold: dict = {"remux_md5": {}, "ffprobe": {}, "framemd5": {},
+                  "seek": {}, "seek_error": {}, "aac": {}}
+
+    def file_packets(path):
+        d = FA.open_input(path)
+        out = [(None if p.pts == NOPTS else int(p.pts), bytes(p.data))
+               for p in d.packets()]
+        d.close()
+        return out
+
+    with tempfile.TemporaryDirectory() as td:
+        wav = os.path.join(td, "in.wav")
+        mux = FA.open_output(wav)
+        mux.add_stream(FA.CodecParameters(
+            codec_type="audio", codec_id="pcm_s16le",
+            sample_rate=CS.AUDIO_IN_RATE, nb_channels=2))
+        mux.write(Packet(data=np.ascontiguousarray(x.T).tobytes(), pts=0))
+        mux.close()
+        cmd = CS.containers_commands(td, wav)
+        for e in CS.CONT_SOURCES[1:]:
+            jax_cli_run(cmd[f"R_{e}"])
+            path = cmd[f"R_{e}"][-1]
+            gold["remux_md5"][e] = hashlib.md5(
+                open(path, "rb").read()).hexdigest()
+            gold["ffprobe"][e] = CS.probe_json(ffprobe, path)
+        frames_md5 = open(os.path.join(OUT, "bench_1080p_frames.md5")
+                          ).read().split()
+        for s in CS.CONT_SOURCES:
+            r = jax_cli_run(cmd[f"D_{s}"])
+            assert "error" not in r, r
+            text = open(cmd[f"D_{s}"][-1]).read()
+            assert [ln.split(", ")[-1] for ln in CS.md5_lines(text)[1]] \
+                == frames_md5, s
+            gold["framemd5"][s] = text
+            r = jax_cli_run(cmd[f"S_{s}"])
+            gold["seek"][s] = (None if "error" in r else
+                               open(cmd[f"S_{s}"][-1]).read())
+            gold["seek_error"][s] = r.get("error")
+        # MPEG-4 in MP4: VOP types, pts, sizes, recon PSNR, and the
+        # decoded PSNR of the first VOPs against the encoder's input
+        psnrs, inputs = [], []
+        orig = ME.Mpeg4Encoder.encode_async
+
+        def encode_async(self, frame, **kw):
+            h = orig(self, frame, **kw)
+            psnrs.append(psnr(h["planes"], self._ref))
+            return h
+
+        def on_input(frame):
+            if len(inputs) < CS.CONT_READBACK:
+                inputs.append([np.asarray(p) for p in frame.planes])
+
+        ME.Mpeg4Encoder.encode_async = encode_async
+        try:
+            r = jax_cli_run(cmd["V"], on_input=on_input)
+        finally:
+            ME.Mpeg4Encoder.encode_async = orig
+        assert "error" not in r, r
+        fp = file_packets(cmd["V"][-1])
+        dec = Mpeg4Decoder()
+        back = [f for p, d in fp[:CS.CONT_READBACK]
+                for f in dec.decode(Packet(data=d, pts=p))] + dec.flush()
+        gold["v"] = {
+            "types": "".join(vop_type(d) for _, d in fp),
+            "pts": [p for p, _ in r["packets"]],
+            "sizes": [n for _, n in r["packets"]],
+            "file_pts": [p for p, _ in fp],
+            "recon_psnr": psnrs,
+            "readback_psnr": float(np.mean([
+                CS.planes_psnr_db(a, f.planes)
+                for a, f in zip(inputs, back)]))}
+        # AAC in MP4 and Matroska: pts, sizes, the JAX decoder's SNR on
+        # its own stream against the encoder's input
+        for e in ("mp4", "mkv"):
+            ins = []
+            r = jax_cli_run(cmd[f"A_{e}"],
+                            on_input=lambda f: ins.append(np.asarray(f.data)))
+            fp = file_packets(cmd[f"A_{e}"][-1])
+            adts = os.path.join(td, f"a_{e}.aac")
+            with open(adts, "wb") as f:
+                f.write(b"".join(d for _, d in fp))
+            d = FA.open_input(adts)
+            dec = AacDecoder(d.streams[0].codecpar)
+            y = np.concatenate([np.asarray(dec.decode(p)[0].data)
+                                for p in d.packets()], 1)
+            xin = np.concatenate(ins, 1)
+            ref = xin if xin.dtype == np.int16 else \
+                xin.astype(np.float64) * 32768.0
+            gold["aac"][e] = {"pts": [p for p, _ in r["packets"]],
+                              "sizes": [n for _, n in r["packets"]],
+                              "file_pts": [p for p, _ in fp],
+                              "snr_db": CS.snr_db(ref, y)}
+    return gold
+
+
 def main(argv) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--calibrate", action="store_true",
@@ -824,7 +971,24 @@ def main(argv) -> None:
                     "graph-API graphs alone")
     ap.add_argument("--filters", action="store_true",
                     help="only the filter goldens (bench_1080p_filters.npz)")
+    ap.add_argument("--containers", action="store_true",
+                    help="only the containers goldens "
+                    "(bench_1080p_containers.json)")
     args = ap.parse_args(argv)
+    if args.containers:
+        t0 = time.perf_counter()
+        gold = containers_goldens()
+        with open(CONTAINERS_OUT, "w") as f:
+            json.dump(gold, f, indent=0, sort_keys=True)
+        print(f"containers goldens (JAX, CPU, "
+              f"{time.perf_counter() - t0:.1f} s): remux md5 "
+              f"{gold['remux_md5']}; seek errors {gold['seek_error']}; V "
+              f"{gold['v']['types']} {sum(gold['v']['sizes'])} bytes, recon "
+              f"{np.mean(gold['v']['recon_psnr']):.4f} dB, read back "
+              f"{gold['v']['readback_psnr']:.4f} dB; AAC "
+              f"{ {e: round(a['snr_db'], 4) for e, a in gold['aac'].items()} }"
+              f" dB; {os.path.getsize(CONTAINERS_OUT)} bytes")
+        return
     if args.filters:
         if args.check_port:
             sys.exit(0 if filters_port(True, args.graphs) else 1)

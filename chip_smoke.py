@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--profile DIR]
 
-It drives seven paths and ten kernels. Phases, in order; any failure
+It drives eight paths and ten kernels. Phases, in order; any failure
 raises and the script exits non-zero:
 
 1. device: the card's name and power limit (nvidia-smi);
@@ -150,7 +150,25 @@ raises and the script exits non-zero:
    fresh process, whose Chrome trace must count as many mc, intra and
    deblock kernels as the launch counters, with the card's busy time and
    idle share read from it;
-11. kernel leg: parallel.transcode_step as bench.py's kernel leg runs it
+11. encoders: the H.264 and MPEG-2 encoders, the CAVLC -> CABAC bsf and
+   the MPEG-1/2 decoder through cli.ffmpeg's parser and Transcoder
+   (encoders_commands) at 1920x1088, held to
+   tests/data/torch_port/bench_1080p_encoders.json (the JAX package's
+   runs on the CPU): E1, the asset's first ENC_E1_FRAMES frames to
+   -c:v h264 -qp 26 -sr 4 -bf 1 in MP4 (I0 P2 B1 P3): every packet's
+   md5, size, pts, dts and flags, the SPS/PPS and the ffprobe JSON the
+   JAX package's; e1.mp4 decoded on the card to the JAX decode's md5s,
+   each reference frame equal to the encoder's deblocked recon, mc,
+   intra and deblock once per P frame; E2, E1's packets through h264_cavlc2cabac,
+   the JAX bsf's bytes, decoded on the card to E1's frames; E3, the
+   first ENC_E3_FRAMES frames to -c:v mpeg2video -q:v 5 -f mpegts: the
+   PMT says 0x02, the file reads back to the encoder's packets, the
+   card's decode equals the encoder's recon, and the packets are the
+   JAX package's (or, where MPEG-2's float64 DCT rounds a tie the other
+   way on this host, within the sizes and PSNR limits set beside
+   ENC_E3_FRAMES). Wall time, frames/s and the stage split of E1 and E3
+   print beside the card's name and power limit;
+12. kernel leg: parallel.transcode_step as bench.py's kernel leg runs it
    (8 testgen frames 1920x1088 -> 1280x720, qscale 4, 4 chained steps),
    held to the JAX package's goldens (tests/data/torch_port/
    kernel_leg.npz); fsearch must launch once per step; then one warm
@@ -3192,6 +3210,267 @@ def containers_phase(dev: str) -> dict:
     return res
 
 
+ENC_GOLD = "bench_1080p_encoders.json"
+ENC_E1_FRAMES = 4          # E1: I0 P2 B1 P3 in coding order
+ENC_E1_P = 2               # E1's P frames: mc, intra, deblock once each
+ENC_E3_FRAMES = 6          # E3: I P P P P P
+# E3's rule, set before its first card run: MPEG-2's DCT is float64
+# (D @ b @ D.T, then np.round), so a BLAS that sums in another order may
+# round a .5 tie the other way. E3 passes with every packet identical to
+# the JAX package's; or else with each packet's size within
+# FILT_BYTES_REL and each frame's decoded PSNR (against the encoder's
+# input) within FILT_PSNR_TOL_DB of the JAX package's, the count of
+# identical packets printed. The card's decode of E3 equals the port's
+# own recon exactly either way.
+
+
+def encoders_commands(td: str) -> dict:
+    """The encoders phase's command lines (cli.ffmpeg), outputs in td:
+    E1 the asset's first frames to H.264 in MP4 (one B frame between
+    references), E3 to MPEG-2 video in MPEG-TS."""
+    j = os.path.join
+    return {
+        "E1": ["-i", ASSET, "-frames:v", str(ENC_E1_FRAMES), "-c:v", "h264",
+               "-qp", "26", "-sr", "4", "-bf", "1", "-y", j(td, "e1.mp4")],
+        "E3": ["-i", ASSET, "-frames:v", str(ENC_E3_FRAMES), "-c:v",
+               "mpeg2video", "-q:v", "5", "-f", "mpegts", "-y",
+               j(td, "e3.ts")],
+    }
+
+
+def ts_stream_types(path: str) -> list[int]:
+    """The stream_type of every elementary stream in an MPEG-TS file's
+    first PMT (ISO 13818-1 2.4.4.8)."""
+    data = open(path, "rb").read()
+    pmt_pids = set()
+    for off in range(0, len(data) - 187, 188):
+        pid = ((data[off + 1] & 0x1F) << 8) | data[off + 2]
+        if not data[off + 1] & 0x40:
+            continue
+        q = off + 4
+        if (data[off + 3] >> 4) & 2:          # adaptation field
+            q += 1 + data[q]
+        q += 1 + data[q]                       # pointer field
+        if pid == 0 and data[q] == 0x00:       # PAT
+            slen = ((data[q + 1] & 0x0F) << 8) | data[q + 2]
+            for i in range(q + 8, q + 3 + slen - 4, 4):
+                if (data[i] << 8) | data[i + 1]:
+                    pmt_pids.add(((data[i + 2] & 0x1F) << 8) | data[i + 3])
+        elif pid in pmt_pids and data[q] == 0x02:
+            slen = ((data[q + 1] & 0x0F) << 8) | data[q + 2]
+            r = q + 12 + (((data[q + 10] & 0x0F) << 8) | data[q + 11])
+            types = []
+            while r + 5 <= q + 3 + slen - 4:
+                types.append(data[r])
+                r += 5 + (((data[r + 3] & 0x0F) << 8) | data[r + 4])
+            return types
+    raise AssertionError(f"{path}: no PMT")
+
+
+def packet_record(p) -> list:
+    """A packet's [md5, size, pts, dts, key] (the goldens' form)."""
+    return [hashlib.md5(bytes(p.data)).hexdigest(), len(p.data), int(p.pts),
+            int(p.dts), bool(p.flags & 1)]
+
+
+def encoders_phase(dev: str) -> dict:
+    """E1-E3 through cli.ffmpeg's parser and Transcoder at 1920x1088,
+    held to tests/data/torch_port/bench_1080p_encoders.json (the JAX
+    package's runs on the CPU)."""
+    import numpy as np
+
+    from librempeg_tpu_torch import kernels
+    from librempeg_tpu_torch.cli import ffprobe
+    from librempeg_tpu_torch.codecs.bsf import find_bsf
+    from librempeg_tpu_torch.codecs.h264.codec import H264Decoder
+    from librempeg_tpu_torch.codecs.mpeg12.decoder import Mpeg12Decoder
+    from librempeg_tpu_torch.core.packet import Packet
+    from librempeg_tpu_torch.formats.api import CodecParameters, open_input
+
+    gold = json.load(open(os.path.join(GOLD, ENC_GOLD)))
+    t_phase = time.perf_counter()
+    res = {"wall_s": {}, "fps": {}, "split_s": {}, "launches": {}}
+    total = dict.fromkeys(KERNELS, 0)
+
+    def count(name, launches):
+        res["launches"][name] = {k: v for k, v in launches.items() if v}
+        for k, v in launches.items():
+            total[k] += v
+
+    def encode(name, argv, frames, recon):
+        """argv through cli_run; the packets as the muxer gets them and
+        the encoder's recon after each frame it codes as a reference
+        (recon(encoder, hook) wraps the encoder's reference step)."""
+        got = {"pkts": [], "refs": {}}
+
+        def prepare(tc):
+            enc = tc.chains[0].encoder
+            got["par"] = enc.codec_parameters()
+            recon(enc, got["refs"])
+            write = tc.mux.write
+
+            def rec(p):
+                got["pkts"].append(p)
+                write(p)
+
+            tc.mux.write = rec
+
+        r = cli_run(argv, dev, keep_input=True, prepare=prepare)
+        res["wall_s"][name] = r["wall_s"]
+        res["fps"][name] = frames / r["wall_s"]
+        split = {k: round(v, 4) for k, v in r["split_s"].items()}
+        split["video.enc_per_packet"] = round(
+            r["split_s"].get("video.enc", 0.0) / max(1, len(got["pkts"])), 4)
+        res["split_s"][name] = split
+        count(name, r["launches"])
+        check(len(r["inputs"]) == frames, f"{name}: {len(r['inputs'])} "
+              f"frames reached the encoder")
+        return got, r
+
+    def decode(name, dec, packets):
+        """Every frame of `packets` through `dec`, on the card, with the
+        launches of the decode."""
+        kernels.reset_counts()
+        sync(dev)
+        t0 = time.perf_counter()
+        out = [f for p in packets for f in dec.decode(p)] + dec.flush()
+        sync(dev)
+        res["wall_s"][name] = time.perf_counter() - t0
+        count(name, kernels.counts())
+        if hasattr(dec, "close"):
+            dec.close()
+        return out
+
+    def hook_h264(enc, refs):
+        code_ref = enc._code_ref
+
+        def step(y, u, v, disp, pts, is_idr):
+            pkt = code_ref(y, u, v, disp, pts, is_idr)
+            refs[disp] = [p.copy() for p in enc._ref]
+            return pkt
+
+        enc._code_ref = step
+
+    def hook_mpeg2(enc, refs):
+        enc_frame = enc.encode
+
+        def step(frame):
+            pkts = enc_frame(frame)
+            refs[enc._idx - 1] = [p.copy() for p in enc._ref]
+            return pkts
+
+        enc.encode = step
+
+    with tempfile.TemporaryDirectory() as td:
+        cmd = encoders_commands(td)
+
+        # E1: H.264 (I0 P2 B1 P3) into MP4
+        e1, r1 = encode("E1", cmd["E1"], ENC_E1_FRAMES, hook_h264)
+        g1 = gold["e1"]
+        recs = [packet_record(p) for p in e1["pkts"]]
+        res["e1_bytes"] = sum(n for _, n, *_ in recs)
+        check(hashlib.md5(e1["par"].extradata).hexdigest() ==
+              g1["extradata_md5"], "E1: the SPS/PPS differ from the JAX "
+              "package's")
+        check(recs == g1["packets"], f"E1: packets {recs} are not the JAX "
+              f"package's {g1['packets']}")
+        check(sorted(e1["refs"]) == [0, 2, 3], f"E1: references coded "
+              f"{sorted(e1['refs'])}")
+        info = probe_json(ffprobe, cmd["E1"][-1])
+        check(info == g1["ffprobe"], "E1: ffprobe JSON of e1.mp4 differs "
+              "from the JAX package's")
+        d = open_input(cmd["E1"][-1])
+        dec = H264Decoder(d.streams[0].codecpar, device=dev)
+        frames = decode("E1_decode", dec, list(d.packets()))
+        d.close()
+        md5s = [frame_md5(f.planes) for f in frames]
+        check(md5s == g1["decoded_md5"], f"E1: decoded md5s {md5s} are not "
+              f"the JAX decode's")
+        for i, ref in e1["refs"].items():
+            check(all(np.array_equal(host(a), b)
+                      for a, b in zip(frames[i].planes, ref)),
+                  f"E1: decoded frame {i} is not the encoder's recon")
+        ld = res["launches"]["E1_decode"]
+        check(all(ld.get(k, 0) == ENC_E1_P for k in E2E_KERNELS[:3]),
+              f"E1 decode: launches {ld} (mc, intra and deblock once per "
+              f"P frame)")
+        check(all(res["launches"]["E1"].get(k, 0) > 0
+                  for k in E2E_KERNELS[:3]),
+              f"E1: the asset's decode launched {res['launches']['E1']}")
+
+        # E2: E1's packets through h264_cavlc2cabac, decoded on the card
+        par = CodecParameters(codec_type="video", codec_id="h264",
+                              width=e1["par"].width,
+                              height=e1["par"].height,
+                              extradata=e1["par"].extradata)
+        bsf = find_bsf("h264_cavlc2cabac")(par)
+        t0 = time.perf_counter()
+        cabac = [q for p in e1["pkts"] for q in bsf.filter(p)]
+        res["wall_s"]["E2_bsf"] = time.perf_counter() - t0
+        g2 = gold["e2"]
+        res["e2_bytes"] = sum(len(p.data) for p in cabac)
+        check(hashlib.md5(par.extradata).hexdigest() == g2["extradata_md5"]
+              and [packet_record(p) for p in cabac] == g2["packets"],
+              "E2: the CABAC stream is not the JAX bsf's")
+        dec = H264Decoder(par, device=dev)
+        frames2 = decode("E2_decode", dec, cabac)
+        check([frame_md5(f.planes) for f in frames2] == md5s,
+              "E2: the CABAC stream does not decode to E1's frames")
+
+        # E3: MPEG-2 video into MPEG-TS
+        e3, r3 = encode("E3", cmd["E3"], ENC_E3_FRAMES, hook_mpeg2)
+        g3 = gold["e3"]
+        recs = [packet_record(p) for p in e3["pkts"]]
+        res["e3_bytes"] = sum(n for _, n, *_ in recs)
+        types = ts_stream_types(cmd["E3"][-1])
+        check(types == [0x02], f"E3: PMT stream types {types}")
+        d = open_input(cmd["E3"][-1])
+        tb, etb = d.streams[0].time_base, e3["pkts"][0].time_base
+
+        def rescale(t):                 # 90 kHz -> the encoder's clock
+            return t * tb.num * etb.den // (tb.den * etb.num)
+
+        back = [(rescale(p.pts), rescale(p.dts), bytes(p.data),
+                 bool(p.flags & 1)) for p in d.packets()]
+        d.close()
+        check(back == [(p.pts, p.dts, bytes(p.data), bool(p.flags & 1))
+                       for p in e3["pkts"]],
+              "E3: the MPEG-TS does not read back to the encoder's packets")
+        dec = Mpeg12Decoder(device=dev)
+        frames3 = decode("E3_decode", dec, [
+            Packet(data=d, pts=pts, dts=dts) for pts, dts, d, _ in back])
+        check(len(frames3) == ENC_E3_FRAMES, f"E3: {len(frames3)} frames")
+        for i, f in enumerate(frames3):
+            check(all(np.array_equal(host(a), b[:a.shape[0], :a.shape[1]])
+                      for a, b in zip(f.planes, e3["refs"][i])),
+                  f"E3: decoded frame {i} is not the encoder's recon")
+        same = sum(a == b for a, b in zip(recs, g3["packets"]))
+        res["e3_identical"] = same
+        psnrs = [planes_psnr_db([host(p) for p in x.planes],
+                                [host(p) for p in f.planes])
+                 for x, f in zip(r3["inputs"], frames3)]
+        res["e3_psnr"] = psnrs
+        md5s3 = [frame_md5(f.planes) for f in frames3]
+        check([(p[2], p[3], p[4]) for p in recs] ==
+              [(p[2], p[3], p[4]) for p in g3["packets"]],
+              "E3: pts, dts or flags differ from the JAX package's")
+        if same == len(g3["packets"]) == len(recs):
+            check(md5s3 == g3["decoded_md5"], "E3: decoded md5s differ "
+                  "from the JAX decode's of identical packets")
+        else:
+            rel = max(abs(a[1] - b[1]) / b[1]
+                      for a, b in zip(recs, g3["packets"]))
+            gap = max(abs(a - b) for a, b in zip(psnrs, g3["psnr"]))
+            res["e3_size_rel_max"], res["e3_psnr_gap_max"] = rel, gap
+            check(len(recs) == len(g3["packets"]) and
+                  rel <= FILT_BYTES_REL and gap <= FILT_PSNR_TOL_DB,
+                  f"E3: {same} of {len(recs)} packets identical; sizes "
+                  f"{rel:.6f} and PSNR {gap:.5f} dB off the JAX package's")
+    res["phase_s"] = time.perf_counter() - t_phase
+    res["total_launches"] = total
+    return res
+
+
 def main(argv: list[str]) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch "
                                  "port on one NVIDIA card.")
@@ -3381,6 +3660,25 @@ def main(argv: list[str]) -> int:
         f"idle share {tr['idle_share']:.4f}")
     log(f"containers phase: {c['phase_s']:.1f} s")
 
+    e = encoders_phase(dev)
+    card = smi.splitlines()[0]
+    for name in ("E1", "E3"):
+        log(f"encoders {name} ({card}): {e['wall_s'][name]:.3f} s, "
+            f"{e['fps'][name]:.3f} frames/s; split "
+            + json.dumps(e["split_s"][name]))
+    log(f"encoders ({card}): E1 {e['e1_bytes']} bytes, packets, pts, dts, "
+        f"flags, SPS/PPS and ffprobe JSON the JAX package's, decode on the "
+        f"card {e['wall_s']['E1_decode']:.3f} s equal to the JAX decode and "
+        f"each reference to the encoder's recon; E2 (h264_cavlc2cabac) "
+        f"{e['e2_bytes']} bytes the JAX bsf's, bsf {e['wall_s']['E2_bsf']:.3f}"
+        f" s, decode {e['wall_s']['E2_decode']:.3f} s to E1's frames; E3 "
+        f"{e['e3_bytes']} bytes, PMT type 0x02, {e['e3_identical']} of "
+        f"{ENC_E3_FRAMES} packets identical to the JAX package's, decode "
+        f"{e['wall_s']['E3_decode']:.3f} s equal to the recon, PSNR "
+        f"{[round(x, 4) for x in e['e3_psnr']]} dB")
+    log(f"encoders launches: {json.dumps(e['launches'])}; phase "
+        f"{e['phase_s']:.1f} s")
+
     k = kernel_leg_phase(dev, leg, profile_dir)
     log(f"kernel leg: {LEG_BATCH}x{LEG_H}x{LEG_W} -> {LEG_DH}x{LEG_DW}, "
         f"{LEG_ITERS} chained steps; launches {k['launches']}; MVs equal "
@@ -3406,6 +3704,7 @@ def main(argv: list[str]) -> int:
          "launches_jpeg": j["launches"][name],
          "launches_filters": fl["launches"][name],
          "launches_containers": c["total_launches"][name],
+         "launches_encoders": e["total_launches"][name],
          **{k: kres[name][k] for k in (
              "max_abs_err", "ms", "device_ms", "device_ms_b2b", "plain_ms",
              "bound_ms",

@@ -1,20 +1,25 @@
 """ffmpeg-style command line for the port's transcode slices.
 
-A thin wrapper over sched.pipeline.Transcoder that accepts only the
-options the slices implement:
+A thin wrapper over sched.pipeline.Transcoder that accepts the options
+the slices implement and passes any other -name value to the codecs:
 
     python -m librempeg_tpu_torch.cli.ffmpeg [-f FMT] [INPUT OPTIONS] -i IN
-        [-ss T] [-t T] [-metadata K=V] [-r RATE]
-        [-s WxH] [-vf GRAPH] [-pix_fmt F] [-c:v mpeg4|mjpeg|rawvideo|copy]
+        [-ss T] [-t T | -to T] [-metadata K=V] [-r RATE]
+        [-s WxH] [-vf GRAPH] [-pix_fmt F]
+        [-c:v h264|mpeg4|mpeg2video|mpeg1video|mjpeg|rawvideo|copy]
         [-b:v N | -q:v N] [-g N] [-bf N] [-trellis N] [-frames:v N]
         [-c:a aac|pcm_s16le] [-b:a N] [-ar RATE] [-ac N] [-af CHAIN]
-        [-frames:a N] [-vn] [-an] [-device cuda|cpu] [-y] [-f FMT] OUT
+        [-frames:a N] [-vn] [-an] [-NAME[:v|:a] VALUE]
+        [-device cuda|cpu] [-y] [-f FMT] OUT
 
 Video: H.264, MJPEG (in AVI, raw .mjpeg, or image2 files such as
 thumb_%03d.jpg), or a source filter graph (-f lavfi -i
 "testsrc=size=1920x1088:duration=2", "sine=frequency=1000:duration=10")
-in, each also from MP4/MOV, Matroska, MPEG-TS, Y4M or raw video; MPEG-4
-or MJPEG in AVI, MP4, Matroska or MPEG-TS, raw MJPEG (-f mjpeg), image2
+in, each also from MP4/MOV, Matroska, MPEG-TS, Y4M or raw video, and
+MPEG-1/2 video (raw .m1v/.m2v/.mpgv, MPEG-TS, Matroska); H.264 (raw
+.264 or in MP4, Matroska, MPEG-TS), MPEG-1/2 video (raw .m1v/.m2v or in
+MPEG-TS, stream type 0x01/0x02, or Matroska), MPEG-4 or MJPEG in AVI,
+MP4, Matroska or MPEG-TS, raw MJPEG (-f mjpeg), image2
 (-f image2, one file per frame), Y4M, raw video, or the hash muxers
 (-f framemd5, framecrc, md5, crc, null) out. -f before -i names the
 input format, after it the output's. Without -c:v the output format
@@ -25,7 +30,10 @@ hvcC). Before -i, -s, -r/-framerate, -pix_fmt, -ar, -ac/-channels and
 -ch_layout describe a headerless input (-f rawvideo, -f s16le). -ss T
 seeks the input (the container to the keyframe at or before T, then an
 exact decode-and-drop), -t T stops after T seconds of it (T in seconds
-or HH:MM:SS.mmm), -metadata key=value tags the output, -r RATE after
+or HH:MM:SS.mmm), -to T stops at position T (after an -ss on its side
+of -i, or an output -ss, the run lasts T - ss; after an input -ss the
+output's timestamps restart at 0 and -to acts as -t; -t wins; -to at
+or before -ss raises), -metadata key=value tags the output, -r RATE after
 -i appends fps=RATE to the -vf chain. -vf takes a filter graph (crop, pad,
 hflip, vflip, transpose, fps, trim, setpts, scale, format, colorspace,
 eq, gblur, boxblur, lutyuv, drawbox, fade, minterpolate, ...), -af an
@@ -34,7 +42,17 @@ is the MPEG-4 qscale, or for mjpeg a quality of 100 - 3.1 q (the JAX
 package's rule). -pix_fmt appends format=F after the scale (e.g.
 yuvj420p, a range change); -bf sets the B-VOPs between anchors (0-4);
 -trellis the RD quantisation of MPEG-4 I/P-VOPs or of the JPEG AC
-levels (0-2).
+levels (0-2). -g and -bf reach H.264's g and bf and MPEG-1/2's g. Any
+other -NAME VALUE after -i is a private codec option (-qp 26 -sr 4
+-cabac 1 -variety 1 -pcm 0 for h264): -NAME:v / -NAME:a for the video
+or audio encoder, which must declare it, and unscoped for every
+encoder that declares it (one that none declares raises); before -i it
+goes to the demuxer. For example
+
+    python -m librempeg_tpu_torch.cli.ffmpeg -i in.264 -c:v h264 -qp 26 \
+        -bf 1 -y out.mp4
+    python -m librempeg_tpu_torch.cli.ffmpeg -i in.264 -c:v mpeg2video \
+        -q:v 5 -f mpegts -y out.ts
 
 Audio (PCM WAV or ADTS AAC in; AAC in ADTS, or s16 PCM in WAV or AVI,
 out): -ar appends aresample=RATE to the -af chain, -ac appends
@@ -96,6 +114,8 @@ def parse_args(argv: list[str]) -> tuple[TranscodeSpec, bool]:
     in_opts: dict = {}               # options before -i, for the demuxer
     overwrite = False
     fmt = None                       # -f: for the next -i or the output
+    to = None                        # -to: a position, before or after -i
+    to_input = ss_input = False
     i = 0
     while i < len(argv):
         a = argv[i]
@@ -143,8 +163,11 @@ def parse_args(argv: list[str]) -> tuple[TranscodeSpec, bool]:
                 smap.filters = f"{smap.filters},{f}" if smap.filters else f
         elif a == "-ss":
             kw["seek"] = _parse_time(v)
+            ss_input = pre_input
         elif a == "-t":
             kw["duration"] = _parse_time(v)
+        elif a == "-to":
+            to, to_input = _parse_time(v), pre_input
         elif a == "-metadata":
             if "=" not in v:
                 raise CliError("-metadata needs key=value")
@@ -191,11 +214,39 @@ def parse_args(argv: list[str]) -> tuple[TranscodeSpec, bool]:
             audio.frames_limit = int(v)
         elif a == "-device":
             kw["device"] = v
+        elif pre_input:
+            in_opts[a[1:]] = v       # a demuxer option; unknown ones raise
+        elif a.endswith(":v"):
+            smap.codec_opts[a[1:-2]] = v
+        elif a.endswith(":a"):
+            audio.codec_opts[a[1:-2]] = v
         else:
-            raise CliError(f"option {a} is not supported by the port")
+            # a private codec option for every encoder that declares it
+            # (ffmpeg_opt.c's AVDictionary pass-through); the Transcoder
+            # raises if none does
+            kw.setdefault("codec_opts", {})[a[1:]] = v
     if not kw["input_url"] or not kw["output_url"]:
         raise CliError("usage: -i INPUT [options] OUTPUT")
+    if to is not None and "duration" not in kw:
+        kw["duration"] = _to_duration(to, to_input, kw.get("seek", 0.0),
+                                      ss_input)
     return TranscodeSpec(video=smap, audio=audio, **kw), overwrite
+
+
+def _to_duration(to: float, to_input: bool, ss: float,
+                 ss_input: bool) -> float:
+    """-to as ffmpeg reads it: a position on the timeline of the side it
+    is given on. After an -ss, the run lasts to - ss, except that an
+    input -ss with an output -to starts the output's timestamps again
+    at 0, so there -to is the duration. (The JAX package reads
+    every -to as a duration.)"""
+    if ss and not (ss_input and not to_input):
+        if to <= ss:
+            raise CliError(f"-to {to} is not after -ss {ss}")
+        return to - ss
+    if to <= 0:
+        raise CliError(f"-to {to} must be positive")
+    return to
 
 
 def main(argv: list[str] | None = None) -> int:

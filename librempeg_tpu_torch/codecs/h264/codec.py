@@ -1,6 +1,10 @@
-"""H.264 decoder: host entropy + tensor P-frame reconstruction.
+"""H.264 encoder (host) and decoder: host entropy + tensor P-frame
+reconstruction.
 
-Port of the H264Decoder of librempeg_tpu/codecs/h264/codec.py. The host
+H264Encoder is a copy of the JAX package's (librempeg_tpu/codecs/h264/
+codec.py; host code, numpy and the native library), imports rewritten;
+it fetches each plane of a frame once, from whatever device it is on.
+The decoder is a port of the H264Decoder there. The host
 logic (slice decode, DPB, POC, reference lists, output reorder and the
 decode-ahead entropy thread) is carried over unchanged; the device seam
 is rewritten: P frames the tensor path can express run through
@@ -14,7 +18,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from librempeg_tpu_torch.codecs.api import CodecInfo, Decoder, register_decoder
+from librempeg_tpu_torch.codecs.api import (
+    CodecInfo,
+    Decoder,
+    Encoder,
+    register_decoder,
+    register_encoder,
+)
+from librempeg_tpu_torch.codecs.h264 import intra as I
 from librempeg_tpu_torch.codecs.h264.parse import (
     NalUnit,
     parse_pps,
@@ -25,14 +36,206 @@ from librempeg_tpu_torch.codecs.h264.parse import (
 from librempeg_tpu_torch.core.errors import InvalidData, Unsupported
 from librempeg_tpu_torch.core.frame import VideoFrame
 from librempeg_tpu_torch.core.options import Option, OptionTable
-from librempeg_tpu_torch.core.packet import Packet
-from librempeg_tpu_torch.core.rational import Rational
+from librempeg_tpu_torch.core.packet import Packet, PktFlags
+from librempeg_tpu_torch.core.rational import NOPTS, Rational
 from librempeg_tpu_torch.device import resolve
 from librempeg_tpu_torch.ops.conceal import conceal_blocks
 
 # frames with more intra MBs than this (IDR refreshes) take the host
 # path -- the sequential intra pass stops paying off
 _INTRA_CAP_MAX = 1024
+
+
+@register_encoder
+class H264Encoder(Encoder):
+    """Baseline-profile encoder: IDR I_16x16 frames + P frames
+    (P_L0_16x16 / P_SKIP / intra-in-P) with full-search + quarter-pel
+    motion estimation, CAVLC, in-loop deblocking. The reconstruction
+    loop shares the decoder's integer primitives, so encoder recon ==
+    decoder output == reference-decoder output (asserted in tests)."""
+
+    INFO = CodecInfo(name="h264", long_name="H.264 / AVC",
+                     codec_type="video")
+    OPTIONS = OptionTable(
+        Option("qp", int, 26, min=0, max=51),
+        Option("g", int, 12, min=1, max=300,
+               help="GOP size (IDR interval)"),
+        Option("sr", int, 8, min=1, max=16, help="ME search range (pels)"),
+        Option("bf", int, 0, min=0, max=4,
+               help="B frames between references (-bf analog; "
+                    "non-reference B_16x16/B_Bi prediction)"),
+        Option("variety", int, 0, min=0, max=1,
+               help="cycle all partition/intra shapes (conformance "
+                    "torture streams)"),
+        Option("pcm", int, 1, min=0, max=1,
+               help="allow I_PCM macroblocks in variety streams "
+                    "(lossless escape; CABAC recode cannot carry them)"),
+        Option("cabac", int, 0, min=0, max=1,
+               help="CABAC entropy coding (-coder 1 analog): the CAVLC "
+                    "frame is entropy-recoded through the native CABAC "
+                    "engine"),
+    )
+
+    def __init__(self, width=0, height=0, pix_fmt="yuv420p",
+                 framerate: Rational = Rational(25, 1), device=None,
+                 **opts):
+        # a host encoder: `device` is where the frames come from, and
+        # each plane is fetched once per frame (encode)
+        super().__init__(**opts)
+        if width % 2 or height % 2:
+            raise Unsupported("h264: 4:2:0 dimensions must be even "
+                              "(SPS crop units are 2 luma samples)")
+        self.width, self.height = width, height
+        # coded size is the next MB multiple; the SPS crops back
+        self._cw = (width + 15) // 16 * 16
+        self._ch = (height + 15) // 16 * 16
+        self.framerate = framerate
+        self.time_base = Rational(framerate.den, framerate.num)
+        self._idx = 0
+        self._next_pts = 0
+        self._ref = None          # deblocked recon of last ref frame
+        self._frame_num = 0
+        self._etc = None          # CABAC entropy recoder (coder=cabac)
+        self._gop_start = 0       # display idx of the current IDR
+        self._pending = []        # buffered (planes, disp_idx, pts) for B
+        self._pts_hist = []       # display pts by display index
+        self._coded = 0           # packets emitted (coding order)
+
+    def codec_parameters(self):
+        from librempeg_tpu_torch.formats.api import CodecParameters
+
+        extradata = self._headers()
+        if self.opts["cabac"]:
+            from librempeg_tpu_torch.codecs.h264.entropy_transcode import (
+                EntropyTranscoder,
+            )
+
+            extradata = EntropyTranscoder().feed(extradata)
+        return CodecParameters(
+            codec_type="video", codec_id="h264",
+            width=self.width, height=self.height, pix_fmt="yuv420p",
+            framerate=self.framerate, extradata=extradata)
+
+    def _headers(self) -> bytes:
+        reorder = 1 if self.opts["bf"] else 0
+        return I.build_sps(self._cw // 16, self._ch // 16,
+                           reorder=reorder,
+                           crop_r=self._cw - self.width,
+                           crop_b=self._ch - self.height) + I.build_pps()
+
+    def _mk_packet(self, data: bytes, pts, is_idr: bool) -> Packet:
+        """dts: with B frames the k-th coded packet gets the (k-1)-th
+        display pts (1-frame reorder delay; dts <= pts, monotonic)."""
+        if self.opts["bf"]:
+            k = self._coded
+            dts = self._pts_hist[k - 1] if k >= 1 \
+                else self._pts_hist[0] - 1
+        else:
+            dts = pts
+        self._coded += 1
+        if self.opts["cabac"]:
+            if self._etc is None:
+                from librempeg_tpu_torch.codecs.h264.entropy_transcode import (
+                    EntropyTranscoder,
+                )
+
+                self._etc = EntropyTranscoder()
+            data = self._etc.feed(data)
+        return Packet(data=data, pts=pts, dts=dts, duration=1,
+                      flags=PktFlags.KEY if is_idr else 0,
+                      time_base=self.time_base)
+
+    def _code_ref(self, y, u, v, disp, pts, is_idr: bool) -> Packet:
+        """Encode a reference frame (IDR I or P), update the recon ref."""
+        from librempeg_tpu_torch.codecs.h264.inter_enc import FrameEncoder
+        from librempeg_tpu_torch.native import build as native
+
+        mb_w, mb_h = self._cw // 16, self._ch // 16
+        fe = FrameEncoder(mb_w, mb_h, self.opts["qp"],
+                          search_range=self.opts["sr"],
+                          variety=bool(self.opts["variety"]),
+                          variety_pcm=bool(self.opts["pcm"])
+                          and not self.opts["cabac"])
+        data = b""
+        if is_idr:
+            if self._coded == 0:
+                data += self._headers()
+            self._gop_start = disp
+            self._frame_num = 0
+            nal, recon = fe.encode(y, u, v, None, 0, idr_pic_id=disp,
+                                   poc_lsb=0)
+        else:
+            poc = 2 * (disp - self._gop_start)
+            nal, recon = fe.encode(y, u, v, self._ref, self._frame_num,
+                                   poc_lsb=poc)
+        data += nal
+        # in-loop deblock of the recon -> reference for later frames
+        dy = np.ascontiguousarray(recon[0])
+        du = np.ascontiguousarray(recon[1])
+        dv = np.ascontiguousarray(recon[2])
+        native.h264_deblock_frame(dy, du, dv, fe.kind, fe.qp_arr,
+                                  fe.mv_arr, fe.ref_arr, fe.ncoef,
+                                  mb_w, mb_h)
+        self._ref = (dy, du, dv)
+        self._frame_num = (self._frame_num + 1) % 16
+        return self._mk_packet(data, pts, is_idr)
+
+    def _code_b(self, y, u, v, disp, pts, ref0, ref1) -> Packet:
+        """Encode a non-reference B frame between two decoded refs."""
+        from librempeg_tpu_torch.codecs.h264.inter_enc import BFrameEncoder
+
+        mb_w, mb_h = self._cw // 16, self._ch // 16
+        fe = BFrameEncoder(mb_w, mb_h, self.opts["qp"],
+                           search_range=self.opts["sr"])
+        poc = 2 * (disp - self._gop_start)
+        nal = fe.encode_b(y, u, v, ref0, ref1, self._frame_num, poc)
+        return self._mk_packet(nal, pts, False)
+
+    def encode(self, frame: VideoFrame):
+        if frame.format not in ("yuv420p", "yuvj420p"):
+            raise Unsupported("h264: input must be yuv420p")
+        y, u, v = frame.to_host().planes
+        if self._cw != self.width or self._ch != self.height:
+            py, px = self._ch - self.height, self._cw - self.width
+            y = np.pad(y, ((0, py), (0, px)), mode="edge")
+            u = np.pad(u, ((0, py // 2), (0, px // 2)), mode="edge")
+            v = np.pad(v, ((0, py // 2), (0, px // 2)), mode="edge")
+        disp = self._idx
+        self._idx += 1
+        pts = frame.pts if frame.pts != NOPTS else self._next_pts
+        self._next_pts = pts + 1
+        self._pts_hist.append(pts)
+        is_idr = disp % self.opts["g"] == 0
+        bf = self.opts["bf"]
+        if not bf:
+            return [self._code_ref(y, u, v, disp, pts, is_idr)]
+
+        pkts = []
+        if is_idr:
+            # close the GOP: trailing buffered frames become P refs
+            for (py_, pu_, pv_), pd, ppts in self._pending:
+                pkts.append(self._code_ref(py_, pu_, pv_, pd, ppts,
+                                           False))
+            self._pending.clear()
+            pkts.append(self._code_ref(y, u, v, disp, pts, True))
+        elif len(self._pending) >= bf:
+            ref0 = self._ref
+            pkts.append(self._code_ref(y, u, v, disp, pts, False))
+            ref1 = self._ref
+            for (by_, bu_, bv_), bd, bpts in self._pending:
+                pkts.append(self._code_b(by_, bu_, bv_, bd, bpts,
+                                         ref0, ref1))
+            self._pending.clear()
+        else:
+            self._pending.append(((y, u, v), disp, pts))
+        return pkts
+
+    def flush(self):
+        """Drain buffered frames at EOF as a trailing P chain."""
+        pkts = [self._code_ref(py_, pu_, pv_, pd, ppts, False)
+                for (py_, pu_, pv_), pd, ppts in self._pending]
+        self._pending.clear()
+        return pkts
 
 
 class _DecodeAhead:

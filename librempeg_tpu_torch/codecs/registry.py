@@ -18,6 +18,8 @@ _MODULES = (
     "librempeg_tpu_torch.codecs.aac.codec",
     "librempeg_tpu_torch.codecs.aac.decoder",
     "librempeg_tpu_torch.codecs.h264.codec",
+    "librempeg_tpu_torch.codecs.mpeg12.decoder",
+    "librempeg_tpu_torch.codecs.mpeg12.encoder",
 )
 
 for _mod in _MODULES:

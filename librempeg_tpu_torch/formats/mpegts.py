@@ -33,6 +33,10 @@ _STREAM_TYPES = {
     "mpeg4": 0x10,
     "h264": 0x1B,
     "hevc": 0x24,
+    # the JAX package has no entry for these and writes them as 0x06,
+    # which neither demuxer maps back to a video codec
+    "mpeg1video": 0x01,
+    "mpeg2video": 0x02,
     "aac": 0x0F,     # ADTS
     "mjpeg": 0x06,   # private PES
     "pcm_s16le": 0x06,

@@ -1,7 +1,7 @@
-"""Raw video elementary-stream containers: h264 (annex-B) in, mjpeg in
-and out.
+"""Raw video elementary-stream containers: h264 (annex-B), mjpeg and
+MPEG-1/2 video in and out.
 
-Copies of the H.264 demuxer and the MJPEG muxer and demuxer of
+Copies of the H.264, MJPEG and MPEG-1/2 muxers and demuxers of
 librempeg_tpu/formats/rawes.py (host code, no JAX), imports rewritten.
 
 Analog of libavformat/rawenc.c (one-call passthrough
@@ -26,17 +26,45 @@ from librempeg_tpu_torch.formats.api import (
 )
 
 
-@register_muxer
-class MJpegESMuxer(Muxer):
+class _RawESMuxer(Muxer):
     """Concatenate packet payloads (rawenc.c ff_raw_write_packet)."""
 
+    INTERLEAVE = False
+    CODEC_ID = ""
+
+    def write_header(self):
+        super().write_header()
+        self._first = True
+
+    def write_packet(self, pkt: Packet):
+        if self._first:
+            self._first = False
+            extra = bytes(self.streams[pkt.stream_index].codecpar.extradata)
+            # prepend out-of-band config unless already inline
+            if extra and not bytes(pkt.data).startswith(extra):
+                self.io.write(extra)
+        self.io.write(pkt.data)
+
+
+@register_muxer
+class H264Muxer(_RawESMuxer):
+    NAME = "h264"
+    LONG_NAME = "raw H.264 video (annex B)"
+    EXTENSIONS = ("h264", "264", "avc")
+
+
+@register_muxer
+class MpegVideoMuxer(_RawESMuxer):
+    NAME = "mpegvideo"
+    LONG_NAME = "raw MPEG-1/2 video"
+    EXTENSIONS = ("m1v", "m2v", "mpgv")
+
+
+@register_muxer
+class MJpegESMuxer(_RawESMuxer):
     NAME = "mjpeg"
     LONG_NAME = "raw MJPEG video"
     EXTENSIONS = ("mjpeg", "mjpg")
-    INTERLEAVE = False
-
-    def write_packet(self, pkt: Packet):
-        self.io.write(pkt.data)
 
 
 class _RawESDemuxer(Demuxer):
@@ -155,3 +183,81 @@ class MJpegESDemuxer(_RawESDemuxer):
             frames.append(data[soi:eoi + 2])
             pos = eoi + 2
         return b"", frames
+
+
+@register_demuxer
+class Mpeg12ESDemuxer(_RawESDemuxer):
+    """Raw MPEG-1/2 video ES: one packet per coded picture (the
+    mpegvideo raw demuxer analog, libavformat/mpegvideodec.c)."""
+
+    NAME = "mpegvideo"
+    LONG_NAME = "raw MPEG-1/2 video"
+    EXTENSIONS = ("m1v", "m2v", "mpgv")
+    CODEC_ID = "mpeg2video"
+
+    @classmethod
+    def probe(cls, buf: bytes, filename: str = "") -> int:
+        if buf.startswith(b"\x00\x00\x01\xb3"):
+            return 51
+        return 0
+
+    def _split(self, data: bytes) -> tuple[bytes, list[bytes]]:
+        # split at picture starts; sequence/GOP headers prepend to the
+        # following picture
+        frames: list[bytes] = []
+        extradata = b""
+        # find all start codes
+        idx = []
+        i = data.find(b"\x00\x00\x01")
+        while i != -1:
+            idx.append(i)
+            i = data.find(b"\x00\x00\x01", i + 3)
+        starts = []                 # byte offsets where pictures begin
+        pending = 0                 # offset of pending seq/gop prefix
+        have_prefix = False
+        for k, off in enumerate(idx):
+            code = data[off + 3] if off + 3 < len(data) else 0xFF
+            if code in (0xB3, 0xB8):
+                if not have_prefix:
+                    pending = off
+                    have_prefix = True
+            elif code == 0x00:      # picture header
+                starts.append(pending if have_prefix else off)
+                have_prefix = False
+            elif code == 0xB7:      # sequence end: drop
+                pass
+        if not extradata and starts and starts[0] > 0:
+            extradata = data[:starts[0]]
+        for k, st in enumerate(starts):
+            end = starts[k + 1] if k + 1 < len(starts) else len(data)
+            frames.append(data[st:end])
+        if self._dims == (0, 0):
+            seq = data.find(b"\x00\x00\x01\xb3")
+            if seq != -1 and seq + 7 < len(data):
+                w = (data[seq + 4] << 4) | (data[seq + 5] >> 4)
+                h = ((data[seq + 5] & 15) << 8) | data[seq + 6]
+                self._dims = (w, h)
+        return extradata, frames
+
+    def read_packet(self) -> Packet:
+        # key flag from picture_coding_type; pts from the GOP-relative
+        # temporal_reference (display order), dts in coding order
+        pkt = super().read_packet()
+        d = pkt.data
+        if not hasattr(self, "_gop_base"):
+            self._gop_base = 0
+            self._coded = 0
+        flags = 0
+        p = d.find(b"\x00\x00\x01\x00")
+        if p != -1 and p + 5 < len(d):
+            tref = (d[p + 4] << 2) | (d[p + 5] >> 6)
+            ptype = (d[p + 5] >> 3) & 7
+            if ptype == 1:
+                flags = PktFlags.KEY
+            if b"\x00\x00\x01\xb8" in d[:p] or \
+                    d[:4] == b"\x00\x00\x01\xb3":
+                self._gop_base = self._coded
+            pkt.pts = self._gop_base + tref
+        self._coded += 1
+        pkt.flags = flags
+        return pkt

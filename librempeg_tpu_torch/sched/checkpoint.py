@@ -38,6 +38,10 @@ _JAX_MAGIC = b"LTCKPT1\n"
 #: index, next pts; AAC: MDCT overlap, pending samples, frame count)
 _ENCODER_ATTRS = ("_ref", "_frame_idx", "_next_pts", "_frame_no", "_pend",
                   "_hist", "_total", "_total_in")
+#: encoders whose state the snapshot does not capture (H.264's GOP,
+#: frame_num and B-frame queue; MPEG-1/2's GOP index): a snapshot of a
+#: chain that encodes to them would not resume, so it is refused
+_UNCOVERED_ENCODERS = ("h264", "mpeg1video", "mpeg2video")
 _RESAMPLER_ATTRS = ("_buf", "_buf_start", "_next_origin", "_out_count",
                     "_total_in", "_keep")
 _DITHER_ATTRS = ("_pos", "_hp_last", "_err")
@@ -153,6 +157,12 @@ def snapshot(tc) -> bytes:
     through the graph and the encoder, and the encode worker packs and
     muxes every dispatched frame, before the encoder's fields are read;
     so the snapshot covers every packet the demuxer has given out."""
+    for idx, chain in tc.chains.items():
+        enc = getattr(chain, "encoder", None)
+        if enc is not None and enc.INFO.name in _UNCOVERED_ENCODERS:
+            raise NotImplementedError(
+                f"snapshot: stream {idx} encodes to {enc.INFO.name}, whose "
+                "encoder state a snapshot does not hold")
     chains = {}
     for idx, chain in tc.chains.items():
         if hasattr(chain, "drain"):

@@ -2,7 +2,8 @@
 
 Port of librempeg_tpu/sched/pipeline.py, cut to the slices. Both
 chains take their decoder and encoder from the codec registry
-(codecs/registry.py: h264, mpeg4, mjpeg, rawvideo; aac, pcm_*). The
+(codecs/registry.py: h264, mpeg4, mjpeg, mpeg1video, mpeg2video,
+rawvideo; aac, pcm_*). The
 video chain runs the filter graph between them (-s appends scale=,
 -pix_fmt format=) and maps -q:v onto what the encoder declares (quality
 for mjpeg, qscale for mpeg4); `-c:v copy` passes the demuxer's packets
@@ -18,7 +19,14 @@ raises).
 seekable stream (video first) to the keyframe at or before the time,
 measured from the input's earliest start time, and both chains decode
 and drop what ends before it; -t stops at the first packet at or past
-seek + duration. A subtitle stream is not mapped (the run logs it).
+seek + duration (the CLI turns -to into this duration). A subtitle
+stream is not mapped (the run logs it).
+
+Codec options: a StreamMap's codec_opts go to its encoder, and each
+must be one the encoder declares (or -q:v, -g, -bf, which map onto
+what it declares); the spec's codec_opts (the CLI's unscoped private
+options, -qp 26) go to every encoder that declares them, and one that
+no encoder of the run declares raises.
 
 As in the JAX package, a worker thread overlaps the fetch of frame i's
 compacted levels and its host VLC packing with the decode of frame
@@ -77,6 +85,7 @@ class TranscodeSpec:
     duration: float = 0.0            # -t, seconds
     seek: float = 0.0                # -ss, seconds
     metadata: dict = field(default_factory=dict)    # -metadata key=value
+    codec_opts: dict = field(default_factory=dict)  # -name value, unscoped
     device: str = "cuda"
 
 
@@ -100,16 +109,32 @@ def _discard(frame, until: float, media: str) -> bool:
     return t < until - 1e-9
 
 
+#: CLI-level names and the short names some encoders declare instead
+#: (-g, -bf: H.264's g and bf, MPEG-1/2's g)
+_SHORT_NAMES = {"gop_size": "g", "max_b_frames": "bf"}
+
+
+def _declared(enc_cls, codec_opts: dict) -> dict:
+    """The options of `codec_opts` that `enc_cls` declares."""
+    return {k: v for k, v in codec_opts.items() if enc_cls.OPTIONS.get(k)}
+
+
 def _translate_codec_opts(enc_cls, codec_opts: dict) -> dict:
     """Map CLI-level options onto what the encoder declares
     (ffmpeg_opt.c's per-codec AVDictionary filtering analog): -q:v's
     1..31 qscale (`quality_scale`) stays qscale where the encoder has
     one and becomes JPEG-style quality where it has that, by the JAX
-    package's rule. Options the encoder does not declare raise, and so
-    does a -q:v with a fraction for an encoder whose qscale is an
+    package's rule; gop_size and max_b_frames become g and bf for an
+    encoder that declares only the short names (the JAX package drops
+    them with a warning). Options the encoder does not declare raise,
+    and so does a -q:v with a fraction for an encoder whose qscale is an
     integer."""
     out = {}
     for k, v in codec_opts.items():
+        short = _SHORT_NAMES.get(k)
+        if short and not enc_cls.OPTIONS.get(k) and \
+                enc_cls.OPTIONS.get(short):
+            k = short
         if k == "quality_scale":
             if enc_cls.OPTIONS.get("qscale"):
                 if v != int(v):
@@ -130,7 +155,8 @@ class _StreamChain:
     """decode -> filter -> encode for the video stream, or a stream copy
     (packets straight from the demuxer to the muxer)."""
 
-    def __init__(self, in_stream, smap: StreamMap, out_mux, device):
+    def __init__(self, in_stream, smap: StreamMap, out_mux, device,
+                 shared_opts: dict):
         par = in_stream.codecpar
         self.smap = smap
         self.frames_done = 0
@@ -161,7 +187,9 @@ class _StreamChain:
             raise Unsupported(f"-c:v {smap.codec} is not a video encoder")
         self.encoder = enc_cls(
             width=out.width, height=out.height, pix_fmt=out.pix_fmt,
-            device=device, **_translate_codec_opts(enc_cls, smap.codec_opts))
+            device=device, **{**_declared(enc_cls, shared_opts),
+                              **_translate_codec_opts(enc_cls,
+                                                      smap.codec_opts)})
         self.out_stream = out_mux.add_stream(
             self.encoder.codec_parameters(), out.time_base or Rational(1, 25))
         # pipelined encode: the worker fetches and packs frame i while
@@ -268,13 +296,15 @@ class _StreamChain:
         if hasattr(self.decoder, "close"):
             self.decoder.close()
         # the trailing anchor group of a B-frame stream
-        self._write(self.encoder.flush(), mux)
+        with stage("video.enc"):
+            self._write(self.encoder.flush(), mux)
 
 
 class _AudioChain:
     """decode -> filter -> encode for one audio stream, synchronous."""
 
-    def __init__(self, in_stream, smap: StreamMap, out_mux, device):
+    def __init__(self, in_stream, smap: StreamMap, out_mux, device,
+                 shared_opts: dict):
         par = in_stream.codecpar
         self.smap = smap
         self.frames_done = 0
@@ -304,7 +334,8 @@ class _AudioChain:
         if enc_cls.INFO.codec_type != "audio":
             raise Unsupported(f"-c:a {smap.codec} is not an audio encoder")
         self._make_encoder = lambda rate, ch: enc_cls(
-            sample_rate=rate, channels=ch, device=device, **smap.codec_opts)
+            sample_rate=rate, channels=ch, device=device,
+            **{**_declared(enc_cls, shared_opts), **smap.codec_opts})
         out = self.graph.output_props
         self.encoder = self._make_encoder(
             out.sample_rate, out.layout.nb_channels if out.layout else 2)
@@ -395,14 +426,20 @@ class Transcoder:
                 if not smap.codec:
                     smap.codec = _DEFAULT_VIDEO_CODEC.get(
                         type(self.mux).NAME, "mpeg4")
-                self.chains[st.index] = _StreamChain(st, smap, self.mux,
-                                                     device)
+                self.chains[st.index] = _StreamChain(
+                    st, smap, self.mux, device, spec.codec_opts)
             elif media == "audio" and not spec.no_audio:
                 smap = spec.audio or StreamMap(codec="pcm_s16le")
-                self.chains[st.index] = _AudioChain(st, smap, self.mux,
-                                                    device)
+                self.chains[st.index] = _AudioChain(
+                    st, smap, self.mux, device, spec.codec_opts)
         if not self.chains:
             raise InvalidData("no streams selected for transcoding")
+        unused = sorted(k for k in spec.codec_opts if not any(
+            c.encoder.OPTIONS.get(k) for c in self.chains.values()
+            if hasattr(c, "encoder")))
+        if unused:
+            raise Unsupported(f"codec option(s) {', '.join(unused)} not "
+                              "declared by any encoder of this run")
 
     def _start(self) -> float:
         """The input's earliest start time in seconds (an MPEG-TS from

@@ -14,7 +14,10 @@ port's own MPEG-4 decoder, then runs the audio slice (1 s of WAV ->
 decoder and imports every audio module, then encodes and decodes one
 MJPEG frame and runs a two-input psnr graph on it. A second child
 imports the filter slice's modules and runs the biquad chain to AAC and
-`-f lavfi` testsrc and sine through the CLI.
+`-f lavfi` testsrc and sine through the CLI; a third copies a clip into
+the containers and resumes a snapshot; a fourth encodes two frames with
+the port's own H.264 encoder and runs the bitstream filters, MPEG-2 in
+MPEG-TS and its decoder on them.
 
 The port also reads nothing under librempeg_tpu/ at run time: no path
 into that tree in its Python, CUDA or C++ sources or in chip_smoke.py
@@ -365,3 +368,71 @@ def test_containers_run_without_jax(tmp_path):
     for line in ("mp4 mov 12 True", "matroska 12 True", "ts mpegts 12 True",
                  "resumed 12 ['resume']"):
         assert line in proc.stdout, proc.stdout
+
+
+_CHILD_ENCODERS = _PRELUDE + r"""
+import librempeg_tpu_torch.codecs.h264.syngen
+import librempeg_tpu_torch.codecs.parsers
+import librempeg_tpu_torch.core.hash
+import librempeg_tpu_torch.core.sidedata
+from librempeg_tpu_torch.cli.ffmpeg import main
+from librempeg_tpu_torch.codecs.bsf import find_bsf
+from librempeg_tpu_torch.codecs.h264.codec import H264Decoder, H264Encoder
+from librempeg_tpu_torch.codecs.mpeg12.decoder import Mpeg12Decoder
+from librempeg_tpu_torch.core.frame import VideoFrame
+from librempeg_tpu_torch.formats.api import open_input
+from librempeg_tpu_torch.sched import checkpoint
+from librempeg_tpu_torch.sched.pipeline import Transcoder
+from librempeg_tpu_torch.cli.ffmpeg import parse_args
+from librempeg_tpu_torch.utils import testgen
+
+out = sys.argv[2]
+enc = H264Encoder(width=64, height=48, qp=26)
+pkts = []
+for i in range(2):
+    pkts += enc.encode(VideoFrame(planes=testgen.video_yuv420(64, 48, i),
+                                  format="yuv420p", width=64, height=48,
+                                  pts=i))
+with open(out + ".264", "wb") as f:
+    f.write(b"".join(bytes(p.data) for p in pkts))
+cabac = find_bsf("h264_cavlc2cabac")(enc.codec_parameters())
+dec = H264Decoder(device="cpu")
+n = len([f for p in pkts for q in cabac.filter(p) for f in dec.decode(q)]
+        + dec.flush())
+dec.close()
+main(["-i", out + ".264", "-c:v", "mpeg2video", "-q:v", "5", "-f",
+      "mpegts", "-device", "cpu", "-y", out + ".ts"])
+main(["-i", out + ".264", "-c:v", "h264", "-qp", "30", "-bf", "1",
+      "-device", "cpu", "-y", out + ".mp4"])
+d = open_input(out + ".ts")
+m2 = Mpeg12Decoder(device="cpu")
+n2 = len([f for p in d.packets() for f in m2.decode(p)] + m2.flush())
+spec, _ = parse_args(["-i", out + ".264", "-c:v", "h264", "-device", "cpu",
+                      out + ".b.264"])
+try:
+    checkpoint.snapshot(Transcoder(spec))
+    refused = False
+except NotImplementedError:
+    refused = True
+leaked = sorted(m for m in sys.modules if banned(m))
+assert not leaked, leaked
+print("encoders", len(pkts), n, d.streams[0].codecpar.codec_id, n2,
+      len(list(open_input(out + ".mp4").packets())), refused)
+"""
+
+
+def test_encoders_run_without_jax(tmp_path):
+    """A process that refuses to import jax imports the bitstream layer
+    and the new codecs, encodes two frames to H.264 with the port's own
+    encoder (so no stream needs the JAX package), recodes them to CABAC
+    and decodes that, transcodes the stream to MPEG-2 in MPEG-TS and
+    back to H.264 with a B frame in MP4, and sees a snapshot of an
+    H.264-encoding chain refused."""
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    proc = subprocess.run(
+        [sys.executable, "-c", _CHILD_ENCODERS, REPO, str(tmp_path / "o")],
+        capture_output=True, text=True, env=env, cwd=str(tmp_path),
+        timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "encoders 2 2 mpeg2video 2 2 True" in proc.stdout, proc.stdout

@@ -46,8 +46,24 @@ Runs the JAX package (the reference) on the CPU:
   JAX package, with the ties of the graphs fed by scale=960:544
   (scaled_ties), into tests/data/torch_port/bench_1080p_filters.npz.
 
-Usage: python tools/torch_port_goldens.py [--audio | --jpeg | --filters]
-       [--calibrate | --check-port] [--graphs]
+* with --containers, only the containers goldens
+  (tests/data/torch_port/bench_1080p_containers.json).
+
+* with --encoders, only the encoders goldens: chip_smoke.py's encoders
+  commands (encoders_commands) through the JAX package's CLI parser and
+  Transcoder, into tests/data/torch_port/bench_1080p_encoders.json: E1
+  (H.264, -qp 26 -sr 4 -bf 1 in MP4; the JAX CLI drops -bf, so its
+  encoder is given bf=1 itself) every packet's md5, size, pts, dts and
+  key flag, the SPS/PPS md5, ffprobe's JSON of the MP4 and the JAX
+  decoder's md5 of every frame; E2 (E1's packets through
+  h264_cavlc2cabac) the same for the CABAC stream, whose JAX decode must
+  give E1's md5s; E3 (MPEG-2 -q:v 5 in MPEG-TS) the packets, the PMT's
+  stream types (the JAX muxer's 0x06), the JAX decoder's md5s and the
+  PSNR of each decoded frame against the encoder's input. About two
+  minutes on an 8-core CPU (E1's encode at 1920x1088).
+
+Usage: python tools/torch_port_goldens.py [--audio | --jpeg | --filters |
+       --containers | --encoders] [--calibrate | --check-port] [--graphs]
 
 --calibrate also runs the options transcode through the port on the CPU
 and prints its agreement with the JAX package's: the share of the first
@@ -119,6 +135,7 @@ AUDIO_OUT = os.path.join(OUT, "audio_aac.npz")
 JPEG_OUT = os.path.join(OUT, "bench_1080p_mjpeg.npz")
 FILTERS_OUT = os.path.join(OUT, "bench_1080p_filters.npz")
 CONTAINERS_OUT = os.path.join(OUT, "bench_1080p_containers.json")
+ENCODERS_OUT = os.path.join(OUT, "bench_1080p_encoders.json")
 
 
 def frame_md5(planes) -> str:
@@ -954,6 +971,87 @@ def containers_goldens() -> dict:
     return gold
 
 
+def jax_encode_run(argv: list[str], codec_opts: dict) -> dict:
+    """One command line through the JAX package's CLI parser and
+    Transcoder, with `codec_opts` given to the video encoder directly;
+    returns the packets the muxer receives, the encoder's codec
+    parameters and the frames it takes."""
+    from librempeg_tpu.cli.ffmpeg import parse_args
+
+    spec, _ = parse_args(argv)
+    spec.video.codec_opts.update(codec_opts)
+    tc = Transcoder(spec)
+    got = {"pkts": [], "inputs": []}
+    write = tc.mux.write
+
+    def rec(p):
+        got["pkts"].append(p)
+        write(p)
+
+    tc.mux.write = rec
+    enc = tc.chains[0].encoder
+    encode = enc.encode
+
+    def take(frame):
+        got["inputs"].append([np.asarray(p) for p in frame.planes])
+        return encode(frame)
+
+    enc.encode = take
+    got["par"] = enc.codec_parameters()
+    tc.run()
+    return got
+
+
+def encoders_goldens() -> dict:
+    """The JAX package's runs of chip_smoke.py's encoders commands."""
+    import chip_smoke as CS
+
+    from librempeg_tpu.cli import ffprobe
+    from librempeg_tpu.codecs.bsf import find_bsf
+    from librempeg_tpu.codecs.mpeg12.decoder import Mpeg12Decoder
+    from librempeg_tpu.formats.api import CodecParameters
+
+    gold: dict = {}
+    with tempfile.TemporaryDirectory() as td:
+        cmd = CS.encoders_commands(td)
+        # E1: the JAX CLI stores -bf as max_b_frames, which its pipeline
+        # drops with a warning (the fault ROADMAP section 3b names); the
+        # encoder is given bf itself so that it codes the B frame
+        e1 = jax_encode_run(cmd["E1"], {"bf": "1"})
+        demux = open_input(cmd["E1"][-1])
+        dec = H264Decoder(demux.streams[0].codecpar, device=0)
+        md5s = [frame_md5(f.planes) for f in dec.frames(demux.packets())]
+        gold["e1"] = {
+            "extradata_md5": hashlib.md5(e1["par"].extradata).hexdigest(),
+            "packets": [CS.packet_record(p) for p in e1["pkts"]],
+            "ffprobe": CS.probe_json(ffprobe, cmd["E1"][-1]),
+            "decoded_md5": md5s}
+        # E2: the same packets through h264_cavlc2cabac
+        par = CodecParameters(codec_type="video", codec_id="h264",
+                              width=e1["par"].width,
+                              height=e1["par"].height,
+                              extradata=e1["par"].extradata)
+        bsf = find_bsf("h264_cavlc2cabac")(par)
+        cabac = [q for p in e1["pkts"] for q in bsf.filter(p)]
+        dec = H264Decoder(par, device=0)
+        assert [frame_md5(f.planes) for f in dec.frames(cabac)] == md5s
+        gold["e2"] = {
+            "extradata_md5": hashlib.md5(par.extradata).hexdigest(),
+            "packets": [CS.packet_record(p) for p in cabac]}
+        # E3: MPEG-2 in MPEG-TS; the JAX muxer's PMT says 0x06
+        e3 = jax_encode_run(cmd["E3"], {})
+        dec = Mpeg12Decoder()
+        frames = [f for p in e3["pkts"] for f in dec.decode(p)] + \
+            dec.flush()
+        gold["e3"] = {
+            "packets": [CS.packet_record(p) for p in e3["pkts"]],
+            "stream_types": CS.ts_stream_types(cmd["E3"][-1]),
+            "decoded_md5": [frame_md5(f.planes) for f in frames],
+            "psnr": [CS.planes_psnr_db(x, [np.asarray(p) for p in f.planes])
+                     for x, f in zip(e3["inputs"], frames)]}
+    return gold
+
+
 def main(argv) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--calibrate", action="store_true",
@@ -974,7 +1072,24 @@ def main(argv) -> None:
     ap.add_argument("--containers", action="store_true",
                     help="only the containers goldens "
                     "(bench_1080p_containers.json)")
+    ap.add_argument("--encoders", action="store_true",
+                    help="only the encoders goldens "
+                    "(bench_1080p_encoders.json)")
     args = ap.parse_args(argv)
+    if args.encoders:
+        t0 = time.perf_counter()
+        gold = encoders_goldens()
+        with open(ENCODERS_OUT, "w") as f:
+            json.dump(gold, f, indent=0, sort_keys=True)
+        print(f"encoders goldens (JAX, CPU, "
+              f"{time.perf_counter() - t0:.1f} s): E1 "
+              f"{sum(p[1] for p in gold['e1']['packets'])} bytes, E2 "
+              f"{sum(p[1] for p in gold['e2']['packets'])} bytes, E3 "
+              f"{sum(p[1] for p in gold['e3']['packets'])} bytes, stream "
+              f"types {gold['e3']['stream_types']}, decoded PSNR "
+              f"{[round(x, 4) for x in gold['e3']['psnr']]} dB; "
+              f"{os.path.getsize(ENCODERS_OUT)} bytes")
+        return
     if args.containers:
         t0 = time.perf_counter()
         gold = containers_goldens()

@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--profile DIR]
 
-It drives eight paths and ten kernels. Phases, in order; any failure
+It drives nine paths and ten kernels. Phases, in order; any failure
 raises and the script exits non-zero:
 
 1. device: the card's name and power limit (nvidia-smi);
@@ -168,7 +168,33 @@ raises and the script exits non-zero:
    way on this host, within the sizes and PSNR limits set beside
    ENC_E3_FRAMES). Wall time, frames/s and the stage split of E1 and E3
    print beside the card's name and power limit;
-12. kernel leg: parallel.transcode_step as bench.py's kernel leg runs it
+12. hevc: the HEVC decoder, its raw stream and its containers, PNG and
+   GIF through cli.ffmpeg's parser and Transcoder (hevc_commands), held
+   to tests/data/torch_port/bench_1080p_hevc.json (the JAX package's runs
+   on the CPU, given whole access units): H0, the port's generate_stream
+   at 1920x1080 (HEVC_STREAM: I0 P2 B1, two slice segments a picture, a
+   partial last CTB row) byte for byte the JAX generator's, and its three
+   access units; H1, the raw .265 to framemd5: the JAX decoder's hashes,
+   pts 0 1 2, the frames CUDA tensors before the hash muxer fetches
+   them; H2, its copy into MP4, Matroska and MPEG-TS: each file the JAX
+   package's, three packets, ffprobe JSON the JAX package's (hevc,
+   1920x1080, yuv420p; in MPEG-TS the size the JAX package reads 0x0),
+   packet hashes the access units', the Matroska copy decoded to H1's
+   hashes; H3, the MP4 to 1280x720 MPEG-4 -q:v 5: VOP types, packet count
+   and pts exact (pts sorted: the JAX run's frames keep their packets'
+   decode order), bytes and decoded PSNR within FILT_BYTES_REL /
+   FILT_PSNR_TOL_DB, hpel once per P-VOP pass (a P-VOP whose levels
+   overflow the sparse fetch layout is coded again in a larger one);
+   P1, the asset's first IMG_FRAMES frames to -pix_fmt rgb24
+   thumb_%03d.png with no -c:v (PNG by the extension): each rgb24 frame
+   the exact conversion off its ties and the JAX package's (rebuilt
+   from the golden's flips) but at ties, its PNG file the JAX package's
+   where the frame is, read back to the frames; G1, the same frames to
+   an animated GIF: the JAX package's file where every frame is the JAX
+   package's, read back to the frames' palette colours. Each command's
+   wall time, launches and stage split print beside the card's name and
+   power limit;
+13. kernel leg: parallel.transcode_step as bench.py's kernel leg runs it
    (8 testgen frames 1920x1088 -> 1280x720, qscale 4, 4 chained steps),
    held to the JAX package's goldens (tests/data/torch_port/
    kernel_leg.npz); fsearch must launch once per step; then one warm
@@ -3471,6 +3497,338 @@ def encoders_phase(dev: str) -> dict:
     return res
 
 
+HEVC_GOLD = "bench_1080p_hevc.json"
+# H0: the port's own conformance generator at full width; decode order
+# I0 P2 B1, two slice segments a picture, 33.75 rows of 32x32 CTBs
+HEVC_STREAM = dict(width=1920, height=1080, n_frames=3, b_frames=True,
+                   deblock=True, sao=True, slices=2, seed=14)
+HEVC_CONTAINERS = ("mp4", "mkv", "ts")
+IMG_FRAMES = 4             # P1 and G1: the asset's first frames
+# P1 and G1's rule, set from the CPU before their first card run: the
+# scaler converts yuv420p to rgb24 in float32, so a sample whose exact
+# value lies within FILT_TIE of k + 0.5 may round either way (the JAX
+# package and the port on the CPU each flip 9-88 of the 12-14 thousand
+# such samples of a frame, and part on 3 of frame 3's). Every rgb24
+# sample must equal the exact conversion (rgb24_exact) off those ties.
+# A frame equal to the JAX package's must give the JAX package's PNG
+# file, and four such frames its GIF; a frame that differs at a tie must
+# read back from its PNG and its GIF exactly as it was encoded.
+
+# the repaired fields of an HEVC stream in MPEG-TS (the JAX package's
+# demuxer leaves them 0, as for H.264: CONT_TS_REPAIRED)
+HEVC_TS_REPAIRED = {"width": 1920, "height": 1080}
+
+
+def hevc_commands(td: str) -> dict:
+    """The hevc phase's command lines (cli.ffmpeg; the JAX package's CLI
+    takes the same), outputs in td: H1 the raw HEVC stream h.265 to
+    framemd5; H2_* its stream copy into MP4, Matroska and MPEG-TS, H2P_*
+    each copy's packets hashed (-c:v copy -f framemd5), H2D_mkv the
+    Matroska copy decoded to framemd5; H3 the MP4 copy to 1280x720
+    MPEG-4 -q:v 5; P1 the asset's first frames as rgb24 PNG files (no
+    -c:v: image2 takes the extension's codec), P1D those files read
+    back; G1 the same frames to an animated GIF, G1D the GIF read
+    back."""
+    j = os.path.join
+    h265 = j(td, "h.265")
+    cmd = {"H1": ["-i", h265, "-f", "framemd5", "-y", j(td, "h1.md5")]}
+    for e in HEVC_CONTAINERS:
+        cmd[f"H2_{e}"] = ["-i", h265, "-c:v", "copy", "-y", j(td, f"h.{e}")]
+        cmd[f"H2P_{e}"] = ["-i", j(td, f"h.{e}"), "-c:v", "copy", "-f",
+                           "framemd5", "-y", j(td, f"h2p_{e}.md5")]
+    cmd["H2D_mkv"] = ["-i", j(td, "h.mkv"), "-f", "framemd5", "-y",
+                      j(td, "h2d_mkv.md5")]
+    cmd["H3"] = ["-i", j(td, "h.mp4"), "-vf", "scale=1280:720", "-c:v",
+                 "mpeg4", "-q:v", "5", "-y", j(td, "h3.avi")]
+    cmd["P1"] = ["-i", ASSET, "-frames:v", str(IMG_FRAMES), "-pix_fmt",
+                 "rgb24", "-y", j(td, "thumb_%03d.png")]
+    cmd["P1D"] = ["-i", j(td, "thumb_%03d.png"), "-f", "framemd5", "-y",
+                  j(td, "p1.md5")]
+    cmd["G1"] = ["-i", ASSET, "-frames:v", str(IMG_FRAMES), "-c:v",
+                 "rawvideo", "-pix_fmt", "rgb24", "-y", j(td, "out.gif")]
+    cmd["G1D"] = ["-i", j(td, "out.gif"), "-f", "framemd5", "-y",
+                  j(td, "g1.md5")]
+    return cmd
+
+
+def rgb24_exact(planes) -> tuple:
+    """yuv420p planes converted to rgb24 as the scaler does (bilinear
+    chroma upsampling through resize_matrix, then the BT.601 limited-range
+    matrix as float32 constants), in float64 on the planes' device: the
+    samples rounded (floor(x + 0.5), clipped) and the mask of the ties
+    (within FILT_TIE of k + 0.5), where a float32 computation may round
+    either way."""
+    import numpy as np
+    import torch
+
+    from librempeg_tpu_torch.ops import colorspace as cs
+    from librempeg_tpu_torch.ops.fir import resize_matrix
+
+    y, u, v = (torch.as_tensor(p).to(torch.float64) for p in planes)
+
+    def mat(src, dst):
+        return torch.from_numpy(resize_matrix(src, dst, "bilinear")).to(
+            y.device, torch.float64)
+
+    mv, mh = mat(u.shape[0], y.shape[0]), mat(u.shape[1], y.shape[1])
+    u, v = (mv @ c @ mh.T for c in (u, v))
+    m, off = cs.yuv_to_rgb_matrix("bt601", False)
+    mt = torch.from_numpy(m.T.astype(np.float32).astype(np.float64)).to(
+        y.device)
+    x = torch.stack([y + float(off[0]), u + float(off[1]),
+                     v + float(off[2])], -1) @ mt
+    return (torch.floor(x + 0.5).clamp(0, 255),
+            (x - torch.floor(x) - 0.5).abs() <= FILT_TIE)
+
+
+def keep_decoded(frames: list):
+    """A cli_run prepare() that keeps a copy of each frame the video
+    chain's decoder gives out."""
+    def prepare(tc):
+        dec = tc.chains[0].decoder
+        for name in ("decode", "flush"):
+            fn = getattr(dec, name)
+
+            def rec(*a, fn=fn):
+                out = fn(*a)
+                frames.extend(f.replace(planes=tuple(
+                    p.clone() for p in f.planes)) for f in out)
+                return out
+
+            setattr(dec, name, rec)
+    return prepare
+
+
+def framemd5_rows(path: str) -> list[tuple[int, str]]:
+    """(pts, hash) of each frame or packet line of a framemd5 file."""
+    _, lines = md5_lines(open(path).read())
+    return [(int(r[2]), r[5].strip()) for r in
+            (ln.split(",") for ln in lines)]
+
+
+def hevc_phase(dev: str) -> dict:
+    """H0-H3, P1 and G1 through cli.ffmpeg's parser and Transcoder,
+    held to tests/data/torch_port/bench_1080p_hevc.json (the JAX
+    package's runs on the CPU, given whole access units)."""
+    import glob
+
+    import torch
+
+    from librempeg_tpu_torch.cli import ffprobe
+    from librempeg_tpu_torch.codecs.gif import make_palette, quantize
+    from librempeg_tpu_torch.codecs.hevc.decoder import generate_stream
+    from librempeg_tpu_torch.codecs.mpeg4 import encoder as ME
+    from librempeg_tpu_torch.codecs.mpeg4._decoder import Mpeg4Decoder
+    from librempeg_tpu_torch.core.packet import Packet
+
+    gold = json.load(open(os.path.join(GOLD, HEVC_GOLD)))
+    t_phase = time.perf_counter()
+    res = {"wall_s": {}, "split_s": {}, "launches": {}}
+    total = dict.fromkeys(KERNELS, 0)
+
+    def run(name, argv, **kw):
+        r = cli_run(argv, dev, **kw)
+        res["wall_s"][name] = r["wall_s"]
+        res["split_s"][name] = {k: round(v, 4) for k, v in
+                                r["split_s"].items()}
+        res["launches"][name] = {k: v for k, v in r["launches"].items()
+                                 if v}
+        for k, v in r["launches"].items():
+            total[k] += v
+        return r
+
+    def ranks(pts):
+        order = sorted(pts)
+        return [order.index(p) for p in pts]
+
+    with tempfile.TemporaryDirectory() as td:
+        cmd = hevc_commands(td)
+
+        # H0: the port's generator, byte for byte the JAX generator's
+        t0 = time.perf_counter()
+        stream = generate_stream(**HEVC_STREAM)
+        res["wall_s"]["H0"] = time.perf_counter() - t0
+        with open(os.path.join(td, "h.265"), "wb") as f:
+            f.write(stream)
+        res["h0_bytes"] = len(stream)
+        check(hashlib.md5(stream).hexdigest() == gold["h0"]["md5"] and
+              len(stream) == gold["h0"]["bytes"],
+              "H0: the stream is not the JAX generator's")
+        aus = [d for _, d in demuxed(cmd["H1"][1])]
+        au_md5 = [hashlib.md5(a).hexdigest() for a in aus]
+        check(au_md5 == gold["au_md5"] and b"".join(aus) == stream,
+              f"H0: {len(aus)} access units, not the golden's 3")
+
+        # H1: raw .265 to framemd5, frames on the card before the hash
+        places = set()
+        run("H1", cmd["H1"], on_input=lambda f: places.update(
+            p.device.type for p in f.planes))
+        h1 = framemd5_rows(cmd["H1"][-1])
+        check([m for _, m in h1] == gold["decoded_md5"],
+              f"H1: hashes {h1} are not the JAX decoder's")
+        check([p for p, _ in h1] == [0, 1, 2], f"H1: pts {h1}")
+        check(places == {dev},
+              f"H1: the decoded frames lay on {places}")
+
+        # H2: copies into MP4, Matroska and MPEG-TS
+        for e in HEVC_CONTAINERS:
+            run(f"H2_{e}", cmd[f"H2_{e}"])
+            path = cmd[f"H2_{e}"][-1]
+            check(hashlib.md5(open(path, "rb").read()).hexdigest() ==
+                  gold["remux_md5"][e], f"H2 {e}: the file is not the JAX "
+                  f"package's")
+            check(len(demuxed(path)) == 3, f"H2 {e}: packets")
+            info = probe_json(ffprobe, path)
+            st = info["streams"][0]
+            check((st["codec_name"], st["width"], st["height"],
+                   st["pix_fmt"]) == ("hevc", 1920, 1080, "yuv420p"),
+                  f"H2 {e}: ffprobe stream {st}")
+            if e == "ts":
+                st.update(dict.fromkeys(HEVC_TS_REPAIRED, 0))
+            check(info == gold["ffprobe"][e],
+                  f"H2 {e}: ffprobe JSON differs from the JAX package's")
+            run(f"H2P_{e}", cmd[f"H2P_{e}"])
+            hashed = [m for _, m in framemd5_rows(cmd[f"H2P_{e}"][-1])]
+            # MP4 and Matroska keep the parameter sets in hvcC
+            check(hashed == gold["packet_md5"][e] and
+                  hashed[1:] == au_md5[1:] and
+                  (e != "ts" or hashed == au_md5),
+                  f"H2 {e}: packet hashes {hashed}")
+        run("H2D_mkv", cmd["H2D_mkv"])
+        h2 = framemd5_rows(cmd["H2D_mkv"][-1])
+        check([m for _, m in h2] == gold["decoded_md5"] and
+              ranks([p for p, _ in h2]) == [0, 1, 2],
+              f"H2 mkv: framemd5 {h2}")
+
+        # H3: the MP4 copy to 1280x720 MPEG-4. A P-VOP whose levels
+        # overflow the sparse fetch layout is coded again in the next
+        # larger one (slim -> fat -> full, Mpeg4Encoder.encode_finish):
+        # hpel launches once per P-VOP pass
+        inputs, passes = [], []
+        p_pass = ME._encode_p_device
+
+        def counted(*a, **kw):
+            passes.append(1)
+            return p_pass(*a, **kw)
+
+        ME._encode_p_device = counted
+        try:
+            h3 = run("H3", cmd["H3"], on_input=lambda f: inputs.append(
+                tuple(host(p) for p in f.planes)))
+        finally:
+            ME._encode_p_device = p_pass
+        g3 = gold["h3"]
+        types = "".join(vop_type(d) for _, d, _ in h3["packets"])
+        sizes = [len(d) for _, d, _ in h3["packets"]]
+        dem = demuxed(cmd["H3"][-1])
+        dec = Mpeg4Decoder()
+        back = [f for p, d in dem
+                for f in dec.decode(Packet(data=d, pts=p))] + dec.flush()
+        psnrs = [planes_psnr_db(x, f.planes) for x, f in zip(inputs, back)]
+        res["h3"] = {"types": types, "p_passes": len(passes),
+                     "bytes": sum(sizes),
+                     "bytes_rel": abs(sum(sizes) - sum(g3["sizes"]))
+                     / sum(g3["sizes"]), "psnr": psnrs,
+                     "psnr_gap": statistics.fmean(psnrs)
+                     - statistics.fmean(g3["psnr"])}
+        log("hevc H3: " + json.dumps(res["h3"]))
+        # the JAX run's frames carry their packets' decode-order pts
+        # (the fault ROADMAP section 3b names); the port's are sorted
+        check(types == g3["types"] and len(back) == len(sizes) == 3 and
+              [p for p, _, _ in h3["packets"]] == sorted(g3["pts"]),
+              f"H3: VOP types {types} or pts differ from the JAX "
+              f"package's")
+        check(res["h3"]["bytes_rel"] <= FILT_BYTES_REL, "H3: bytes")
+        check(abs(res["h3"]["psnr_gap"]) <= FILT_PSNR_TOL_DB,
+              "H3: decoded PSNR mean")
+        check(res["launches"]["H3"].get("hpel", 0) == len(passes) >=
+              types.count("P"), f"H3: launches {res['launches']['H3']} for "
+              f"{len(passes)} P-VOP passes")
+
+        # P1: PNG files with no -c:v, read back. The rgb24 frames come
+        # from the scaler's float32 conversion: each is held to the
+        # exact conversion off its ties (the rule beside IMG_FRAMES) and
+        # to the JAX
+        # package's frame (the exact one with the JAX run's flips at
+        # ties, from the golden); a frame equal to the JAX package's
+        # must give its PNG file byte for byte
+        yuv, rgb = [], []
+        run("P1", cmd["P1"], on_input=lambda f: rgb.append(f.planes[0]),
+            prepare=keep_decoded(yuv))
+        check(len(rgb) == IMG_FRAMES and len(yuv) >= IMG_FRAMES,
+              f"P1: {len(rgb)} frames encoded, {len(yuv)} decoded")
+        rgb_md5 = [frame_md5([p]) for p in rgb]
+        files = sorted(glob.glob(os.path.join(td, "thumb_*.png")))
+        data = [open(f, "rb").read() for f in files]
+        png_md5 = [hashlib.md5(d).hexdigest() for d in data]
+        res["p1_bytes"] = [len(d) for d in data]
+        flips, ties = [], []
+        for i, (f, p) in enumerate(zip(yuv, rgb)):
+            exact, tie = rgb24_exact(f.planes)
+            jax = exact.flatten()
+            idx, val = gold["p1"]["jax_flips"][i]
+            jax[torch.as_tensor(idx, dtype=torch.long, device=jax.device)] \
+                = torch.as_tensor(val, dtype=jax.dtype, device=jax.device)
+            jax = jax.view_as(exact)
+            check(frame_md5([jax.to(p.dtype)]) == gold["p1"]["rgb_md5"][i],
+                  f"P1 frame {i}: the golden's flips do not rebuild the "
+                  f"JAX package's frame")
+            got = p.to(exact.dtype)
+            check(not bool(((got != exact) & ~tie).any()),
+                  f"P1 frame {i}: off the exact conversion away from a tie")
+            flips.append(int((got != jax).sum()))
+            ties.append(int(tie.sum()))
+            if not flips[-1]:
+                check(png_md5[i] == gold["p1"]["png_md5"][i],
+                      f"P1 frame {i}: the frame is the JAX package's and "
+                      f"its PNG file is not")
+        res["p1_flips"], res["p1_ties"] = flips, ties
+        res["p1_identical"] = sum(a == b for a, b in
+                                  zip(png_md5, gold["p1"]["png_md5"]))
+        check(len(data) == IMG_FRAMES and
+              all(d.startswith(b"\x89PNG\r\n\x1a\n") for d in data),
+              f"P1: {len(data)} files, not all PNG")
+        check(all(res["launches"]["P1"].get(k, 0) > 0
+                  for k in E2E_KERNELS[:3]),
+              f"P1: the asset's decode launched {res['launches']['P1']}")
+        run("P1D", cmd["P1D"])
+        check([m for _, m in framemd5_rows(cmd["P1D"][-1])] == rgb_md5,
+              "P1: the PNG files do not read back to the rgb24 frames")
+
+        # G1: an animated GIF of the same frames, read back; with frames
+        # equal to the JAX package's it is the JAX package's file, and
+        # either way it reads back to the palette colours of the frames'
+        # quantised indices
+        grgb = []
+        run("G1", cmd["G1"], on_input=lambda f: grgb.append(
+            host(f.planes[0])))
+        check([hashlib.md5(g.tobytes()).hexdigest() for g in grgb] ==
+              rgb_md5, "G1: the rgb24 frames are not P1's")
+        gif = open(cmd["G1"][-1], "rb").read()
+        res["g1_bytes"] = len(gif)
+        res["g1_identical"] = hashlib.md5(gif).hexdigest() == \
+            gold["g1"]["gif_md5"]
+        if not any(flips):
+            check(res["g1_identical"], "G1: the frames are the JAX "
+                  "package's and the GIF is not")
+        check(all(res["launches"]["G1"].get(k, 0) > 0
+                  for k in E2E_KERNELS[:3]),
+              f"G1: the asset's decode launched {res['launches']['G1']}")
+        run("G1D", cmd["G1D"])
+        pal = make_palette()
+        want = [hashlib.md5(pal[quantize(g)].tobytes()).hexdigest()
+                for g in grgb]
+        got = [m for _, m in framemd5_rows(cmd["G1D"][-1])]
+        check(got == want, "G1: the GIF does not read back to its frames' "
+              "palette colours")
+        check(any(flips) or got == gold["g1"]["frame_md5"],
+              "G1: the GIF does not read back to the JAX GIF demuxer's "
+              "frames")
+    res["phase_s"] = time.perf_counter() - t_phase
+    res["total_launches"] = total
+    return res
+
+
 def main(argv: list[str]) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch "
                                  "port on one NVIDIA card.")
@@ -3679,6 +4037,26 @@ def main(argv: list[str]) -> int:
     log(f"encoders launches: {json.dumps(e['launches'])}; phase "
         f"{e['phase_s']:.1f} s")
 
+    hv = hevc_phase(dev)
+    for name, wall in hv["wall_s"].items():
+        log(f"hevc {name} ({card}): {wall:.3f} s; launches "
+            f"{json.dumps(hv['launches'].get(name, {}))}; split "
+            + json.dumps(hv["split_s"].get(name, {})))
+    log(f"hevc ({card}): H0 {hv['h0_bytes']} bytes, the JAX generator's; "
+        f"H1 3 frames on the card, the JAX decoder's hashes, pts 0 1 2; H2 "
+        f"{list(HEVC_CONTAINERS)} files, ffprobe JSON and packet hashes the "
+        f"JAX package's, the Matroska copy decoded to H1's hashes; H3 "
+        f"{hv['h3']['types']} {hv['h3']['bytes']} bytes (gap "
+        f"{hv['h3']['bytes_rel']:.6f}), decoded PSNR "
+        f"{[round(x, 4) for x in hv['h3']['psnr']]} dB (gap "
+        f"{hv['h3']['psnr_gap']:+.5f}), hpel {hv['h3']['p_passes']} for "
+        f"its P-VOP passes; P1 PNG files {hv['p1_bytes']} bytes, "
+        f"{hv['p1_identical']} of {IMG_FRAMES} the JAX package's, rgb24 "
+        f"flips at ties against the JAX frames {hv['p1_flips']} of "
+        f"{hv['p1_ties']} ties, none off the exact conversion elsewhere; G1 "
+        f"{hv['g1_bytes']} bytes, the JAX package's file: "
+        f"{hv['g1_identical']}; phase {hv['phase_s']:.1f} s")
+
     k = kernel_leg_phase(dev, leg, profile_dir)
     log(f"kernel leg: {LEG_BATCH}x{LEG_H}x{LEG_W} -> {LEG_DH}x{LEG_DW}, "
         f"{LEG_ITERS} chained steps; launches {k['launches']}; MVs equal "
@@ -3705,6 +4083,7 @@ def main(argv: list[str]) -> int:
          "launches_filters": fl["launches"][name],
          "launches_containers": c["total_launches"][name],
          "launches_encoders": e["total_launches"][name],
+         "launches_hevc": hv["total_launches"][name],
          **{k: kres[name][k] for k in (
              "max_abs_err", "ms", "device_ms", "device_ms_b2b", "plain_ms",
              "bound_ms",

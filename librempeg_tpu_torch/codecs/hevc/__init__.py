@@ -1,1 +1,2 @@
-"""HEVC host helpers the containers need (hvcC ⇄ Annex B)."""
+"""HEVC in the port: the decoder, its conformance stream generator and
+the host helpers the containers need (hvcC ⇄ Annex B)."""

@@ -20,6 +20,9 @@ _MODULES = (
     "librempeg_tpu_torch.codecs.h264.codec",
     "librempeg_tpu_torch.codecs.mpeg12.decoder",
     "librempeg_tpu_torch.codecs.mpeg12.encoder",
+    "librempeg_tpu_torch.codecs.hevc.decoder",
+    "librempeg_tpu_torch.codecs.png.codec",
+    "librempeg_tpu_torch.codecs.gif",
 )
 
 for _mod in _MODULES:

@@ -29,6 +29,12 @@ _EXT_CODEC = {
 }
 
 
+def codec_for_path(path: str) -> str | None:
+    """The image codec a file name's extension names (img2enc.c's
+    ff_guess_image2_codec), or None."""
+    return _EXT_CODEC.get(os.path.splitext(path)[1][1:].lower())
+
+
 def sniff_image_codec(buf: bytes) -> str | None:
     if buf.startswith(b"\x89PNG\r\n\x1a\n"):
         return "png"

@@ -187,6 +187,28 @@ class MpegTsMuxer(Muxer):
             first = False
 
 
+#: codec: (a NAL's type from its first byte, the slice types, the
+#: parameter-set types, the SPS type)
+_PARAM_NALS = {
+    "h264": (lambda b: b & 0x1F, (1, 5), (7, 8), 7),
+    "hevc": (lambda b: (b >> 1) & 0x3F, range(32), (32, 33, 34), 33),
+}
+
+
+def _sps_size(codec: str, nal: bytes) -> tuple[int, int]:
+    """(width, height) of an H.264 or HEVC SPS NAL unit."""
+    from librempeg_tpu_torch.codecs.h264.parse import (
+        NalUnit,
+        parse_sps,
+        remove_emulation_prevention,
+    )
+    from librempeg_tpu_torch.codecs.hevc import ps as hevc_ps
+
+    sps = parse_sps(NalUnit.parse(nal).rbsp) if codec == "h264" else \
+        hevc_ps.parse_sps(remove_emulation_prevention(nal[2:]))
+    return sps.width, sps.height
+
+
 @register_demuxer
 class MpegTsDemuxer(Demuxer):
     NAME = "mpegts"
@@ -211,40 +233,36 @@ class MpegTsDemuxer(Demuxer):
         if not self.streams:
             raise InvalidData("mpegts: no recognized streams")
         self._probe_audio_params()
-        self._probe_h264_params()
+        self._probe_video_params()
 
-    def _probe_h264_params(self):
-        """Fill an H.264 stream's extradata (the SPS/PPS that open its
-        first packet) and size from its first packet (the
+    def _probe_video_params(self):
+        """Fill an H.264 or HEVC stream's extradata (the parameter sets
+        that open its first packet) and size from its first packet (the
         extract_extradata and avformat_find_stream_info roles; the PMT
         carries neither). A decoder that starts at a later keyframe,
         after -ss or a restore, then has its parameter sets, and an
         encoder its size. The JAX package's demuxer leaves both empty:
         its decoder refuses every seek into a stream that sends the
         parameter sets once, and its encoders get a 0x0 frame."""
-        from librempeg_tpu_torch.codecs.h264.parse import (
-            NalUnit,
-            parse_sps,
-            split_annexb,
-        )
+        from librempeg_tpu_torch.codecs.h264.parse import split_annexb
 
         for st in self.streams:
             par = st.codecpar
-            if par.codec_id != "h264" or par.extradata:
+            if par.codec_id not in _PARAM_NALS or par.extradata:
                 continue
             pkt = next((p for p in self._packets
                         if p.stream_index == st.index), None)
             if pkt is None:
                 continue
+            nal_type, slices, sets, sps_type = _PARAM_NALS[par.codec_id]
             extra = bytearray()
             for nal in split_annexb(bytes(pkt.data)):
-                if nal[0] & 0x1F in (1, 5):
+                if nal_type(nal[0]) in slices:
                     break
-                if nal[0] & 0x1F in (7, 8):
+                if nal_type(nal[0]) in sets:
                     extra += b"\x00\x00\x00\x01" + nal
-                if nal[0] & 0x1F == 7 and not par.width:
-                    sps = parse_sps(NalUnit.parse(nal).rbsp)
-                    par.width, par.height = sps.width, sps.height
+                if nal_type(nal[0]) == sps_type and not par.width:
+                    par.width, par.height = _sps_size(par.codec_id, nal)
             par.extradata = bytes(extra)
 
     def _probe_audio_params(self):

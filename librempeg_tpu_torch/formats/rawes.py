@@ -1,8 +1,11 @@
-"""Raw video elementary-stream containers: h264 (annex-B), mjpeg and
-MPEG-1/2 video in and out.
+"""Raw video elementary-stream containers: h264 and hevc (annex-B),
+m4v, mjpeg and MPEG-1/2 video in and out.
 
-Copies of the H.264, MJPEG and MPEG-1/2 muxers and demuxers of
-librempeg_tpu/formats/rawes.py (host code, no JAX), imports rewritten.
+A copy of librempeg_tpu/formats/rawes.py (host code, no JAX), imports
+rewritten. HevcDemuxer differs: it ends an access unit before the first
+slice segment of the next picture (first_slice_segment_in_pic_flag), not
+after every slice segment, so a picture coded as several slice segments
+is one packet, as libavcodec/hevc/parser.c makes it.
 
 Analog of libavformat/rawenc.c (one-call passthrough
 muxers) and rawdec.c/m4vdec.c/mjpegdec.c's startcode-splitting demuxers.
@@ -54,10 +57,17 @@ class H264Muxer(_RawESMuxer):
 
 
 @register_muxer
-class MpegVideoMuxer(_RawESMuxer):
-    NAME = "mpegvideo"
-    LONG_NAME = "raw MPEG-1/2 video"
-    EXTENSIONS = ("m1v", "m2v", "mpgv")
+class HevcMuxer(_RawESMuxer):
+    NAME = "hevc"
+    LONG_NAME = "raw HEVC video (annex B)"
+    EXTENSIONS = ("hevc", "265", "h265")
+
+
+@register_muxer
+class M4VMuxer(_RawESMuxer):
+    NAME = "m4v"
+    LONG_NAME = "raw MPEG-4 video"
+    EXTENSIONS = ("m4v",)
 
 
 @register_muxer
@@ -65,6 +75,13 @@ class MJpegESMuxer(_RawESMuxer):
     NAME = "mjpeg"
     LONG_NAME = "raw MJPEG video"
     EXTENSIONS = ("mjpeg", "mjpg")
+
+
+@register_muxer
+class MpegVideoMuxer(_RawESMuxer):
+    NAME = "mpegvideo"
+    LONG_NAME = "raw MPEG-1/2 video"
+    EXTENSIONS = ("m1v", "m2v", "mpgv")
 
 
 class _RawESDemuxer(Demuxer):
@@ -154,6 +171,112 @@ class H264Demuxer(_RawESDemuxer):
             else:
                 cur += b"\x00\x00\x00\x01" + nal
         return bytes(extradata), frames
+
+
+#: NAL types that end or trail the picture before them (H.265 7.4.2.4.4:
+#: end of sequence, end of bitstream, filler data, suffix SEI); every
+#: other non-VCL NAL after a picture's last slice segment opens the next
+#: access unit
+_HEVC_SUFFIX_NALS = (36, 37, 38, 40)
+
+
+@register_demuxer
+class HevcDemuxer(_RawESDemuxer):
+    """Raw HEVC annex-B ES (libavformat/hevcdec.c analog): one packet
+    per picture. An access unit starts at the first slice segment of a
+    picture (first_slice_segment_in_pic_flag, the first bit after the
+    NAL header), together with the parameter sets and prefix SEI in
+    front of it."""
+
+    NAME = "hevc"
+    LONG_NAME = "raw HEVC video (annex B)"
+    EXTENSIONS = ("hevc", "265", "h265")
+    CODEC_ID = "hevc"
+
+    @classmethod
+    def probe(cls, buf: bytes, filename: str = "") -> int:
+        for sc in (b"\x00\x00\x00\x01", b"\x00\x00\x01"):
+            if buf.startswith(sc) and len(buf) > len(sc) + 1:
+                nt = (buf[len(sc)] >> 1) & 0x3F
+                # forbidden_zero + VPS/SPS/PPS/AUD/IRAP/trailing slice
+                if buf[len(sc)] & 0x80 == 0 and \
+                        nt in (32, 33, 34, 35, 19, 20, 21, 0, 1):
+                    return 51
+        return 0
+
+    def _split(self, data: bytes) -> tuple[bytes, list[bytes]]:
+        from librempeg_tpu_torch.codecs.hevc import ps as PS
+
+        frames: list[bytes] = []
+        extradata = bytearray()
+        cur = bytearray()               # the open picture's NALs
+        head = bytearray()              # non-VCL NALs since its last slice
+        seen_slice = False
+        self._dims = (0, 0)
+        for ntype, nal in PS.split_nals(data, raw=True):
+            if ntype in (32, 33, 34) and not frames and not seen_slice:
+                extradata += b"\x00\x00\x00\x01" + nal
+                if ntype == 33 and self._dims == (0, 0):
+                    from librempeg_tpu_torch.codecs.h264.parse import \
+                        remove_emulation_prevention
+                    try:
+                        sps = PS.parse_sps(
+                            remove_emulation_prevention(nal[2:]))
+                        self._dims = (sps.width, sps.height)
+                    except Exception:
+                        pass
+            unit = b"\x00\x00\x00\x01" + nal
+            if ntype < 32:              # VCL: a slice segment
+                if nal[2] & 0x80 and cur:   # first of the next picture
+                    frames.append(bytes(cur))
+                    cur = bytearray()
+                cur += head + unit
+                head = bytearray()
+                seen_slice = True
+            elif ntype in _HEVC_SUFFIX_NALS and cur and not head:
+                cur += unit
+            else:
+                head += unit
+        if cur:
+            frames.append(bytes(cur + head))
+        return bytes(extradata), frames
+
+
+@register_demuxer
+class M4VDemuxer(_RawESDemuxer):
+    NAME = "m4v"
+    LONG_NAME = "raw MPEG-4 video"
+    EXTENSIONS = ("m4v",)
+    CODEC_ID = "mpeg4"
+
+    @classmethod
+    def probe(cls, buf: bytes, filename: str = "") -> int:
+        # VOS (B0) / VO (B5) / VOL (20..2F) startcodes
+        if buf[:3] == b"\x00\x00\x01" and len(buf) > 3 and \
+                (buf[3] in (0xB0, 0xB5) or 0x20 <= buf[3] <= 0x2F):
+            return 51
+        return 0
+
+    def _split(self, data: bytes) -> tuple[bytes, list[bytes]]:
+        # split before each VOP startcode 00 00 01 B6; everything before
+        # the first VOP is configuration (VOS/VO/VOL) -> extradata
+        marks = []
+        pos = 0
+        while True:
+            pos = data.find(b"\x00\x00\x01\xb6", pos)
+            if pos < 0:
+                break
+            marks.append(pos)
+            pos += 4
+        if not marks:
+            return b"", []
+        extradata = data[:marks[0]]
+        frames = []
+        for i, m in enumerate(marks):
+            end = marks[i + 1] if i + 1 < len(marks) else len(data)
+            head = extradata if i == 0 else b""
+            frames.append(head + data[m:end])
+        return extradata, frames
 
 
 @register_demuxer

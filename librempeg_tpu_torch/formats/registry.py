@@ -21,6 +21,7 @@ _MODULES = (
     "librempeg_tpu_torch.formats.matroska",
     "librempeg_tpu_torch.formats.mov",
     "librempeg_tpu_torch.formats.mpegts",
+    "librempeg_tpu_torch.formats.gif",
     "librempeg_tpu_torch.formats.mp3",
 )
 

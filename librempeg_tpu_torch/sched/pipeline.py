@@ -2,13 +2,14 @@
 
 Port of librempeg_tpu/sched/pipeline.py, cut to the slices. Both
 chains take their decoder and encoder from the codec registry
-(codecs/registry.py: h264, mpeg4, mjpeg, mpeg1video, mpeg2video,
-rawvideo; aac, pcm_*). The
+(codecs/registry.py: h264, hevc (decode), mpeg4, mjpeg, png,
+mpeg1video, mpeg2video, rawvideo; aac, pcm_*). The
 video chain runs the filter graph between them (-s appends scale=,
 -pix_fmt format=) and maps -q:v onto what the encoder declares (quality
 for mjpeg, qscale for mpeg4); `-c:v copy` passes the demuxer's packets
 to the muxer with no decode. Without -c:v the output format picks the
-codec (mjpeg for image2 and raw MJPEG; rawvideo for the hash muxers,
+codec (for image2 the extension's: png for .png, mjpeg for .jpg; mjpeg
+for raw MJPEG; rawvideo for the hash muxers,
 yuv4mpegpipe and rawvideo; mpeg4 otherwise). An audio
 stream is decoded, run through its filter graph (-ar appends
 aresample=, -ac aformat=channel_layouts=) and encoded to AAC or PCM.
@@ -51,6 +52,7 @@ from librempeg_tpu_torch.core.samplefmt import ChannelLayout
 from librempeg_tpu_torch.device import resolve
 from librempeg_tpu_torch.filters import GraphRunner, StreamProps
 from librempeg_tpu_torch.formats.api import open_input, open_output
+from librempeg_tpu_torch.formats.image2 import codec_for_path
 from librempeg_tpu_torch.utils.stagetimer import stage
 
 log = Logger("transcode")
@@ -89,12 +91,21 @@ class TranscodeSpec:
     device: str = "cuda"
 
 
-#: the video codec an output format takes when no -c:v names one
+#: the video codec an output format takes when no -c:v names one (image2:
+#: the one its file name's extension names, else this)
 _DEFAULT_VIDEO_CODEC = {
     "image2": "mjpeg", "mjpeg": "mjpeg",
     **dict.fromkeys(("framecrc", "framemd5", "md5", "crc", "null",
                      "yuv4mpegpipe", "rawvideo"), "rawvideo"),
 }
+
+
+def _default_video_codec(mux_name: str, url: str) -> str:
+    """-c:v when none is given: the output format's codec; for image2
+    the codec of the file's extension (png for .png, mjpeg for .jpg)."""
+    if mux_name == "image2":
+        return codec_for_path(url) or "mjpeg"
+    return _DEFAULT_VIDEO_CODEC.get(mux_name, "mpeg4")
 
 
 def _discard(frame, until: float, media: str) -> bool:
@@ -424,8 +435,8 @@ class Transcoder:
             if media == "video" and not spec.no_video:
                 smap = spec.video or StreamMap()
                 if not smap.codec:
-                    smap.codec = _DEFAULT_VIDEO_CODEC.get(
-                        type(self.mux).NAME, "mpeg4")
+                    smap.codec = _default_video_codec(
+                        type(self.mux).NAME, spec.output_url)
                 self.chains[st.index] = _StreamChain(
                     st, smap, self.mux, device, spec.codec_opts)
             elif media == "audio" and not spec.no_audio:

@@ -234,7 +234,7 @@ def test_codec_registry():
     assert (dec.codec, enc.codec) == ("pcm_s16le", "pcm_s16le")
     assert {"pcm_s16le", "pcm_f32le", "pcm_u8"} <= set(api.decoders())
     with pytest.raises(NotFound):
-        api.find_encoder("png")
+        api.find_encoder("no_such_codec")
 
 
 def test_size_category_matches_jax():

@@ -17,7 +17,10 @@ imports the filter slice's modules and runs the biquad chain to AAC and
 `-f lavfi` testsrc and sine through the CLI; a third copies a clip into
 the containers and resumes a snapshot; a fourth encodes two frames with
 the port's own H.264 encoder and runs the bitstream filters, MPEG-2 in
-MPEG-TS and its decoder on them.
+MPEG-TS and its decoder on them; a fifth generates a 2-slice I/P/B HEVC
+stream with the port's own generator, decodes it through the CLI from
+raw .265 and from an MP4 copy, and writes and reads back a PNG and a
+GIF.
 
 The port also reads nothing under librempeg_tpu/ at run time: no path
 into that tree in its Python, CUDA or C++ sources or in chip_smoke.py
@@ -436,3 +439,54 @@ def test_encoders_run_without_jax(tmp_path):
         timeout=600)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "encoders 2 2 mpeg2video 2 2 True" in proc.stdout, proc.stdout
+
+
+_CHILD_HEVC = _PRELUDE + r"""
+import glob
+
+import librempeg_tpu_torch.codecs.gif
+import librempeg_tpu_torch.formats.gif
+from librempeg_tpu_torch.cli.ffmpeg import main
+from librempeg_tpu_torch.codecs.hevc.decoder import generate_stream
+from librempeg_tpu_torch.codecs.png.codec import decode_png
+from librempeg_tpu_torch.formats.api import open_input
+
+out = sys.argv[2]
+with open(out + ".265", "wb") as f:
+    f.write(generate_stream(64, 64, 5, b_frames=True, deblock=True,
+                            sao=True, slices=2, seed=3))
+main(["-i", out + ".265", "-c:v", "copy", "-device", "cpu", "-y",
+      out + ".mp4"])
+pts = []
+for ext in ("265", "mp4"):
+    main(["-i", f"{out}.{ext}", "-f", "framemd5", "-device", "cpu", "-y",
+          f"{out}.{ext}.md5"])
+    pts.append([ln.split(",")[2].strip() for ln in open(
+        f"{out}.{ext}.md5").read().splitlines() if not ln.startswith("#")])
+main(["-i", out + ".265", "-frames:v", "1", "-pix_fmt", "rgb24", "-device",
+      "cpu", "-y", out + "_%03d.png"])
+png = decode_png(open(out + "_001.png", "rb").read())
+main(["-i", out + ".265", "-frames:v", "2", "-c:v", "rawvideo", "-pix_fmt",
+      "rgb24", "-device", "cpu", "-y", out + ".gif"])
+gif = list(open_input(out + ".gif").packets())
+leaked = sorted(m for m in sys.modules if banned(m))
+assert not leaked, leaked
+print("hevc", len(list(open_input(out + ".265").packets())),
+      len(list(open_input(out + ".mp4").packets())), pts[0] == pts[1],
+      len(pts[0]), png.format, png.width, len(gif), len(gif[0].data))
+"""
+
+
+def test_hevc_png_gif_run_without_jax(tmp_path):
+    """A process that refuses to import jax generates a 2-slice I/P/B
+    HEVC stream, copies it into MP4, decodes both through the CLI (one
+    packet a picture, the same display-order pts), and writes and reads
+    back a PNG and a GIF of its frames."""
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    proc = subprocess.run(
+        [sys.executable, "-c", _CHILD_HEVC, REPO, str(tmp_path / "o")],
+        capture_output=True, text=True, env=env, cwd=str(tmp_path),
+        timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "hevc 5 5 True 5 rgb24 64 2 12288" in proc.stdout, proc.stdout

@@ -62,8 +62,27 @@ Runs the JAX package (the reference) on the CPU:
   PSNR of each decoded frame against the encoder's input. About two
   minutes on an 8-core CPU (E1's encode at 1920x1088).
 
+* with --hevc, only the hevc goldens (hevc_goldens): chip_smoke.py's
+  hevc commands (hevc_commands) through the JAX package's CLI parser and
+  Transcoder, into tests/data/torch_port/bench_1080p_hevc.json: H0 the
+  JAX generator's stream (md5, bytes) and its access units' md5s; H1
+  the JAX decoder's frame hashes; H2 each copy's md5, ffprobe JSON and
+  packet hashes; H3's VOP types, pts, sizes and decoded PSNR (the JAX
+  MPEG-4 decoder, against the encoder's input); P1's PNG files (given
+  -c:v png, which the JAX package does not pick itself), the rgb24
+  frames' hashes and, per frame, the samples where the JAX package's
+  float32 conversion differs from the exact one (chip_smoke.rgb24_exact;
+  all at its ties) with their values; G1's GIF and its frames as the
+  JAX GIF demuxer reads them. The JAX package's raw HEVC demuxer ends an access unit at every
+  slice segment, a fault that breaks its decode of this 2-slice stream
+  (ROADMAP section 3b), so the JAX runs are given whole access units:
+  its demuxer's split, regrouped at each first_slice_segment_in_pic_flag
+  (whole_access_units). About three minutes on an 8-core CPU (the
+  host-numpy HEVC generator and three decodes at 1920x1080).
+
 Usage: python tools/torch_port_goldens.py [--audio | --jpeg | --filters |
-       --containers | --encoders] [--calibrate | --check-port] [--graphs]
+       --containers | --encoders | --hevc] [--calibrate | --check-port]
+       [--graphs]
 
 --calibrate also runs the options transcode through the port on the CPU
 and prints its agreement with the JAX package's: the share of the first
@@ -136,6 +155,7 @@ JPEG_OUT = os.path.join(OUT, "bench_1080p_mjpeg.npz")
 FILTERS_OUT = os.path.join(OUT, "bench_1080p_filters.npz")
 CONTAINERS_OUT = os.path.join(OUT, "bench_1080p_containers.json")
 ENCODERS_OUT = os.path.join(OUT, "bench_1080p_encoders.json")
+HEVC_OUT = os.path.join(OUT, "bench_1080p_hevc.json")
 
 
 def frame_md5(planes) -> str:
@@ -1052,6 +1072,136 @@ def encoders_goldens() -> dict:
     return gold
 
 
+def whole_access_units(split):
+    """The JAX package's HevcDemuxer._split with its packets regrouped
+    into one a picture: a packet holding a slice segment whose
+    first_slice_segment_in_pic_flag (the first bit after the 2-byte NAL
+    header) is 0 joins the packet before it."""
+
+    def regrouped(self, data):
+        extradata, segments = split(self, data)
+        aus = []
+        for seg in segments:
+            vcl = seg[seg.rindex(b"\x00\x00\x00\x01") + 4:]
+            if aus and not vcl[2] & 0x80:
+                aus[-1] += seg
+            else:
+                aus.append(seg)
+        return extradata, aus
+
+    return regrouped
+
+
+def md5_rows(path: str) -> list[str]:
+    """The hash of each frame or packet line of a framemd5 file."""
+    return [ln.split(",")[5].strip() for ln in open(path).read().splitlines()
+            if not ln.startswith("#")]
+
+
+def hevc_goldens() -> dict:
+    """The JAX package's runs of chip_smoke.py's hevc commands, given
+    whole access units."""
+    import glob
+
+    import torch
+
+    import chip_smoke as CS
+
+    from librempeg_tpu.cli import ffprobe
+    from librempeg_tpu.codecs.hevc.decoder import HevcDecoder, generate_stream
+    from librempeg_tpu.core.packet import Packet
+    from librempeg_tpu.formats import rawes
+
+    gold: dict = {"remux_md5": {}, "ffprobe": {}, "packet_md5": {}}
+    split = rawes.HevcDemuxer._split
+    rawes.HevcDemuxer._split = whole_access_units(split)
+    try:
+        with tempfile.TemporaryDirectory() as td:
+            cmd = CS.hevc_commands(td)
+            kw = dict(CS.HEVC_STREAM)
+            stream = generate_stream(kw.pop("width"), kw.pop("height"), **kw)
+            with open(cmd["H1"][1], "wb") as f:
+                f.write(stream)
+            gold["h0"] = {"md5": hashlib.md5(stream).hexdigest(),
+                          "bytes": len(stream)}
+            demux = open_input(cmd["H1"][1])
+            aus = [bytes(p.data) for p in demux.packets()]
+            assert len(aus) == CS.HEVC_STREAM["n_frames"]
+            gold["au_md5"] = [hashlib.md5(a).hexdigest() for a in aus]
+            dec = HevcDecoder()
+            frames = [f for i, a in enumerate(aus)
+                      for f in dec.decode(Packet(data=a, pts=i))]
+            frames += dec.flush()
+            gold["decoded_md5"] = [frame_md5(f.planes) for f in frames]
+            # the JAX decoder stamps each frame with its packet's pts
+            assert [f.pts for f in frames] == [0, 2, 1]
+            for e in CS.HEVC_CONTAINERS:
+                assert "error" not in jax_cli_run(cmd[f"H2_{e}"])
+                path = cmd[f"H2_{e}"][-1]
+                gold["remux_md5"][e] = hashlib.md5(
+                    open(path, "rb").read()).hexdigest()
+                gold["ffprobe"][e] = CS.probe_json(ffprobe, path)
+                assert "error" not in jax_cli_run(cmd[f"H2P_{e}"])
+                gold["packet_md5"][e] = md5_rows(cmd[f"H2P_{e}"][-1])
+            assert "error" not in jax_cli_run(cmd["H2D_mkv"])
+            assert md5_rows(cmd["H2D_mkv"][-1]) == gold["decoded_md5"]
+            inputs = []
+            r = jax_cli_run(cmd["H3"], on_input=lambda f: inputs.append(
+                [np.asarray(p) for p in f.planes]))
+            assert "error" not in r, r
+            d = open_input(cmd["H3"][-1])
+            fp = [(int(p.pts), bytes(p.data)) for p in d.packets()]
+            dec = Mpeg4Decoder()
+            back = [f for p, b in fp
+                    for f in dec.decode(Packet(data=b, pts=p))] + dec.flush()
+            gold["h3"] = {
+                "types": "".join(vop_type(b) for _, b in fp),
+                "pts": [p for p, _ in r["packets"]],
+                "sizes": [n for _, n in r["packets"]],
+                "psnr": [CS.planes_psnr_db(x, f.planes)
+                         for x, f in zip(inputs, back)]}
+            # P1: the rgb24 frames as the flips of the JAX package's
+            # float32 conversion from the exact one, all at its ties
+            yuv, rgb = [], []
+
+            def keep_decoded(tc):
+                dec = tc.chains[0].decoder
+                decode = dec.decode
+
+                def rec(pkt):
+                    out = decode(pkt)
+                    yuv.extend([np.array(p) for p in f.planes] for f in out)
+                    return out
+
+                dec.decode = rec
+
+            argv = cmd["P1"][:-2] + ["-c:v", "png"] + cmd["P1"][-2:]
+            assert "error" not in jax_cli_run(
+                argv, on_input=lambda f: rgb.append(np.array(f.planes[0])),
+                prepare=keep_decoded)
+            flips = []
+            for f, x in zip(yuv, rgb):
+                exact, tie = CS.rgb24_exact(f)
+                got = torch.from_numpy(x).to(torch.float64)
+                assert not bool(((got != exact) & ~tie).any())
+                idx = torch.nonzero((got != exact).flatten())[:, 0]
+                flips.append([idx.tolist(),
+                              got.flatten()[idx].to(torch.int64).tolist()])
+            gold["p1"] = {"rgb_md5": [frame_md5([x]) for x in rgb],
+                          "jax_flips": flips, "png_md5": [
+                hashlib.md5(open(f, "rb").read()).hexdigest()
+                for f in sorted(glob.glob(os.path.join(td, "thumb_*.png")))]}
+            assert len(gold["p1"]["png_md5"]) == len(rgb) == CS.IMG_FRAMES
+            assert "error" not in jax_cli_run(cmd["G1"])
+            assert "error" not in jax_cli_run(cmd["G1D"])
+            gold["g1"] = {"gif_md5": hashlib.md5(
+                open(cmd["G1"][-1], "rb").read()).hexdigest(),
+                "frame_md5": md5_rows(cmd["G1D"][-1])}
+    finally:
+        rawes.HevcDemuxer._split = split
+    return gold
+
+
 def main(argv) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--calibrate", action="store_true",
@@ -1075,7 +1225,21 @@ def main(argv) -> None:
     ap.add_argument("--encoders", action="store_true",
                     help="only the encoders goldens "
                     "(bench_1080p_encoders.json)")
+    ap.add_argument("--hevc", action="store_true",
+                    help="only the hevc goldens (bench_1080p_hevc.json)")
     args = ap.parse_args(argv)
+    if args.hevc:
+        t0 = time.perf_counter()
+        gold = hevc_goldens()
+        with open(HEVC_OUT, "w") as f:
+            json.dump(gold, f, indent=0, sort_keys=True)
+        print(f"hevc goldens (JAX, CPU, {time.perf_counter() - t0:.1f} s): "
+              f"H0 {gold['h0']['bytes']} bytes; H3 {gold['h3']['types']} "
+              f"pts {gold['h3']['pts']} sizes {gold['h3']['sizes']} PSNR "
+              f"{[round(x, 4) for x in gold['h3']['psnr']]} dB; P1 "
+              f"{len(gold['p1']['png_md5'])} files; "
+              f"{os.path.getsize(HEVC_OUT)} bytes")
+        return
     if args.encoders:
         t0 = time.perf_counter()
         gold = encoders_goldens()

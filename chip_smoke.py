@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--profile DIR]
 
-It drives nine paths and ten kernels. Phases, in order; any failure
+It drives ten paths and ten kernels. Phases, in order; any failure
 raises and the script exits non-zero:
 
 1. device: the card's name and power limit (nvidia-smi);
@@ -166,8 +166,10 @@ raises and the script exits non-zero:
    card's decode equals the encoder's recon, and the packets are the
    JAX package's (or, where MPEG-2's float64 DCT rounds a tie the other
    way on this host, within the sizes and PSNR limits set beside
-   ENC_E3_FRAMES). Wall time, frames/s and the stage split of E1 and E3
-   print beside the card's name and power limit;
+   ENC_E3_FRAMES); E1 copied to a raw .264 decodes on the card to E1's
+   frames with pts 0 1 2 3 (the display-pts repair). Wall time, frames/s
+   and the stage split of E1 and E3 print beside the card's name and
+   power limit;
 12. hevc: the HEVC decoder, its raw stream and its containers, PNG and
    GIF through cli.ffmpeg's parser and Transcoder (hevc_commands), held
    to tests/data/torch_port/bench_1080p_hevc.json (the JAX package's runs
@@ -194,7 +196,30 @@ raises and the script exits non-zero:
    package's, read back to the frames' palette colours. Each command's
    wall time, launches and stage split print beside the card's name and
    power limit;
-13. kernel leg: parallel.transcode_step as bench.py's kernel leg runs it
+13. acodecs: the audio codecs and their containers through
+   cli.ffmpeg's parser and Transcoder (acodecs_commands), held to
+   tests/data/torch_port/bench_acodecs.json (the JAX package's runs on
+   the CPU, the FLAC repairs applied; the Opus, Vorbis, MP3 and MP2
+   inputs are committed streams, tools/torch_port_audio_fixtures.py):
+   K1, the audio phase's 10 s WAV to FLAC: the JAX encoder's bytes with
+   the final STREAMINFO, the decode's hashes, pts 0, 4096, ..., the
+   WAV's samples in CUDA tensors, the Ogg and Matroska copies' packets
+   the FLAC file's; K2, 2 s to AC-3 at 192 kb/s (identical, or within
+   FILT_BYTES_REL), copied into Matroska and decoded (pts exact),
+   ffprobe JSON of both files the JAX package's; K3, the CELT stream
+   through aformat=s16p and aresample=44100 with the lipshitz shaper to
+   FLAC: shape_scan once a dithered frame, every launch equal to the
+   plain scan by value; the hybrid stream to framemd5, every frame's
+   hash the JAX package's; K4, the Vorbis stream through highpass and
+   lowpass (one biquad launch a frame, each equal to the plain cascade);
+   the s16 of K2, K3, the hybrid stream, K4 and K6 exact (the md5 of
+   every sample); K5, the MP3 to AAC in MP4 (packets and
+   pts exact, bytes and SNR within AUDIO_BYTES_TOL, AUDIO_SNR_TOL_DB);
+   K6, the MP2 copied into Matroska and decoded; K7, 5 s to IMA and MS
+   ADPCM in WAV and back to framemd5, exact. Each command's wall time,
+   launches and stage split print beside the card's name and power
+   limit;
+14. kernel leg: parallel.transcode_step as bench.py's kernel leg runs it
    (8 testgen frames 1920x1088 -> 1280x720, qscale 4, 4 chained steps),
    held to the JAX package's goldens (tests/data/torch_port/
    kernel_leg.npz); fsearch must launch once per step; then one warm
@@ -1358,7 +1383,7 @@ def options_phase(dev, out_avi: str) -> dict:
     # decoded quality: the vendored decoder over the AVI's 48 VOPs, each
     # frame against the port's own encoder input
     t0 = time.perf_counter()
-    dec = Mpeg4Decoder()
+    dec = Mpeg4Decoder(device=None)  # host numpy planes
     demux = open_input(out_avi)
     decoded = [f for pk in demux.packets() for f in dec.decode(pk)]
     decoded += dec.flush()
@@ -1701,20 +1726,7 @@ def audio_phase(dev) -> dict:
           f"dithered WAV {rate} Hz {yd.shape}, undithered {rs.shape}")
     # the plain version on the same inputs, the calls of one length
     # stacked along the channels
-    replay_err = 0.0
-    for n in sorted({a[0].shape[1] for a, _ in calls}):
-        group = [(a, o) for a, o in calls if a[0].shape[1] == n]
-        want = RD.shape_scan_plain(torch.cat([a[0] for a, _ in group]),
-                                   torch.cat([a[1] for a, _ in group]),
-                                   group[0][0][2],
-                                   torch.cat([a[3] for a, _ in group], 1))
-        got = (torch.cat([o[0] for _, o in group], 0),
-               torch.cat([o[1] for _, o in group], 1))
-        sync(dev)
-        e = max_abs_err(got, want)
-        check(e == 0, f"shape_scan on the path ({len(group)} calls of "
-              f"{n} samples) differs from its plain version: {e}")
-        replay_err = max(replay_err, e)
+    replay_err = shape_scan_replay(calls, dev)
     d = yd.astype(np.float64) - rs
     d_snr = float(10 * np.log10((rs.astype(np.float64) ** 2).sum()
                                 / (d ** 2).sum()))
@@ -1962,7 +1974,7 @@ def jpeg_checks(dev: str, run: dict, gold, limits: bool = True) -> dict:
     check(len(pb) == JPEG_FRAMES and types == str(gold["b_types"])
           and [p for p, _, _ in pb] == gold["b_pts"].tolist(),
           f"path B: {len(pb)} packets, types {types}")
-    dec = Mpeg4Decoder()
+    dec = Mpeg4Decoder(device=None)  # host numpy planes
     back = [f for p, d, _ in pb for f in dec.decode(
         Packet(data=d, pts=p))] + dec.flush()
     bsrc = [tuple(p.cpu().numpy() for p in f.planes)
@@ -3114,7 +3126,7 @@ def containers_phase(dev: str) -> dict:
         nbytes = sum(len(d) for _, d, _ in v["packets"])
         ps = enc[0].recon_psnr
         dem = demuxed(cmd["V"][-1])
-        dec = Mpeg4Decoder()
+        dec = Mpeg4Decoder(device=None)  # host numpy planes
         back = [f for p, d in dem[:CONT_READBACK]
                 for f in dec.decode(Packet(data=d, pts=p))] + dec.flush()
         check(len(back) == CONT_READBACK and back[0].planes[0].shape ==
@@ -3423,6 +3435,18 @@ def encoders_phase(dev: str) -> dict:
         check(all(res["launches"]["E1"].get(k, 0) > 0
                   for k in E2E_KERNELS[:3]),
               f"E1: the asset's decode launched {res['launches']['E1']}")
+        # the display-pts repair on the card: E1 copied to a raw .264,
+        # whose demuxer stamps packets 0, 1, 2, 3 in decode order
+        raw = os.path.join(td, "e1.264")
+        cli_run(["-i", cmd["E1"][-1], "-c:v", "copy", "-y", raw], dev)
+        d = open_input(raw)
+        dec = H264Decoder(d.streams[0].codecpar, device=dev)
+        frames_raw = decode("E1_raw_decode", dec, list(d.packets()))
+        d.close()
+        res["e1_raw_pts"] = [f.pts for f in frames_raw]
+        check(res["e1_raw_pts"] == list(range(ENC_E1_FRAMES))
+              and [frame_md5(f.planes) for f in frames_raw] == md5s,
+              f"E1 raw .264: pts {res['e1_raw_pts']}, or frames not E1's")
 
         # E2: E1's packets through h264_cavlc2cabac, decoded on the card
         par = CodecParameters(codec_type="video", codec_id="h264",
@@ -3721,7 +3745,7 @@ def hevc_phase(dev: str) -> dict:
         types = "".join(vop_type(d) for _, d, _ in h3["packets"])
         sizes = [len(d) for _, d, _ in h3["packets"]]
         dem = demuxed(cmd["H3"][-1])
-        dec = Mpeg4Decoder()
+        dec = Mpeg4Decoder(device=None)  # host numpy planes
         back = [f for p, d in dem
                 for f in dec.decode(Packet(data=d, pts=p))] + dec.flush()
         psnrs = [planes_psnr_db(x, f.planes) for x, f in zip(inputs, back)]
@@ -3826,6 +3850,355 @@ def hevc_phase(dev: str) -> dict:
               "frames")
     res["phase_s"] = time.perf_counter() - t_phase
     res["total_launches"] = total
+    return res
+
+
+# -- the audio codecs (acodecs phase) -----------------------------------------
+
+ACODECS_GOLD = "bench_acodecs.json"
+# committed streams (tools/torch_port_audio_fixtures.py): Opus, Vorbis,
+# MP3 and MP2 at the rates and channel counts users meet, 5 s at most
+ACODECS_FX = os.path.join(GOLD, "acodecs")
+ACODECS_AC3_T = "2"        # K2: -t 2 (the host AC-3 encoder, about 5.6 s
+#                            a second of stereo on an 8-core CPU)
+ACODECS_ADPCM_T = "5"      # K7: -t 5
+ACODECS_FLAC_BLOCK = 4096  # K1: the FLAC encoder's block size
+ACODECS_WINDOWS, ACODECS_WIN = 8, 256   # stored windows of a decoded s16
+ACODECS_COPIES = ("ogg", "mkv")         # K1's stream copies
+# The float decodes' s16 (AC-3, Opus, Vorbis, MP2) and K3's dithered
+# resample are held exactly: the md5 of all of a stream's samples equals
+# the golden's, as it does on the CPU and on the H100 (PERF.md section
+# 6). The stored windows only say, on a mismatch, how far the samples
+# moved (a rounding step of another host's BLAS or FFT code moves a few
+# by 1; a fault moves many, or by more).
+
+
+def acodecs_commands(td: str, wav: str) -> dict:
+    """The acodecs phase's command lines (cli.ffmpeg), outputs in td:
+    K1 FLAC, K2 AC-3, K3 Opus, K4 Vorbis, K5 MP3 to AAC, K6 MP2, K7
+    ADPCM, each with the decodes and copies that read it back."""
+    def j(name):
+        return os.path.join(td, name)
+
+    def fx(name):
+        return os.path.join(ACODECS_FX, name)
+
+    cmd = {
+        "K1": ["-i", wav, "-c:a", "flac", "-y", j("k1.flac")],
+        "K1D": ["-i", j("k1.flac"), "-f", "framemd5", "-y", j("k1.md5")],
+        "K1P_flac": ["-i", j("k1.flac"), "-c:a", "copy", "-f", "framemd5",
+                     "-y", j("k1p_flac.md5")],
+        "K2": ["-i", wav, "-t", ACODECS_AC3_T, "-c:a", "ac3", "-b:a", "192k",
+               "-y", j("k2.ac3")],
+        "K2_mkv": ["-i", j("k2.ac3"), "-c:a", "copy", "-y", j("k2.mkv")],
+        "K2D": ["-i", j("k2.mkv"), "-c:a", "pcm_s16le", "-y", j("k2.wav")],
+        # aformat first: the port negotiates no format, so aresample
+        # requantises (and dithers) only what reaches it as s16
+        "K3": ["-i", fx("opus_celt.ogg"), "-af",
+               "aformat=sample_fmts=s16p,aresample=44100:"
+               "dither_method=lipshitz", "-c:a", "flac", "-y",
+               j("k3.flac")],
+        "K3H": ["-i", fx("opus_hybrid.ogg"), "-f", "framemd5", "-y",
+                j("k3h.md5")],
+        "K4": ["-i", fx("vorbis.ogg"), "-af",
+               "highpass=f=80,lowpass=f=12000", "-c:a", "pcm_s16le", "-y",
+               j("k4.wav")],
+        "K5": ["-i", fx("mp3.mp3"), "-c:a", "aac", "-b:a", "128k", "-y",
+               j("k5.m4a")],
+        "K6": ["-i", fx("mp2.mp2"), "-c:a", "copy", "-y", j("k6.mkv")],
+        "K6D": ["-i", j("k6.mkv"), "-c:a", "pcm_s16le", "-y", j("k6.wav")],
+    }
+    for e in ACODECS_COPIES:
+        cmd[f"K1_{e}"] = ["-i", j("k1.flac"), "-c:a", "copy", "-y",
+                          j(f"k1.{e}")]
+        cmd[f"K1P_{e}"] = ["-i", j(f"k1.{e}"), "-c:a", "copy", "-f",
+                           "framemd5", "-y", j(f"k1p_{e}.md5")]
+    for k, codec in (("K7i", "adpcm_ima_wav"), ("K7m", "adpcm_ms")):
+        cmd[k] = ["-i", wav, "-t", ACODECS_ADPCM_T, "-c:a", codec, "-y",
+                  j(f"{k.lower()}.wav")]
+        cmd[k + "D"] = ["-i", j(f"{k.lower()}.wav"), "-f", "framemd5", "-y",
+                        j(f"{k.lower()}.md5")]
+    return cmd
+
+
+def s16_digest(x) -> dict:
+    """A decoded [channels, n] s16 stream as the goldens keep it: the md5
+    of its planar bytes, its shape, and ACODECS_WINDOWS windows of
+    ACODECS_WIN samples spread over it."""
+    import numpy as np
+
+    x = np.ascontiguousarray(host(x), np.int16)
+    starts = np.linspace(0, max(0, x.shape[1] - ACODECS_WIN),
+                         ACODECS_WINDOWS).astype(int).tolist()
+    return {"md5": hashlib.md5(x.tobytes()).hexdigest(),
+            "shape": list(x.shape), "starts": starts,
+            "windows": [x[:, s:s + ACODECS_WIN].tolist() for s in starts]}
+
+
+def held_s16(name: str, x, g: dict) -> None:
+    """Hold a decoded s16 stream to its golden (s16_digest) exactly: its
+    shape and the md5 of all its samples. A mismatch reports how the
+    stored windows moved."""
+    import numpy as np
+
+    got = s16_digest(x)
+    check(got["shape"] == g["shape"], f"{name}: decoded shape "
+          f"{got['shape']}, golden {g['shape']}")
+    if got["md5"] != g["md5"]:
+        d = np.abs(np.array(got["windows"], np.int32)
+                   - np.array(g["windows"], np.int32))
+        check(False, f"{name}: the decoded s16 differ from the JAX "
+              f"package's ({np.count_nonzero(d) / d.size} of the stored "
+              f"windows' samples differ, max |d| {d.max()})")
+
+
+def packets_s16(packets, channels: int):
+    """[channels, n] int16 of pcm_s16le packets (pts, bytes, key)."""
+    import numpy as np
+
+    raw = b"".join(b for _, b, _ in packets)
+    return np.frombuffer(raw, "<i2").reshape(-1, channels).T
+
+
+def keep_audio(frames: list):
+    """A cli_run prepare() that keeps each frame the audio chain's
+    decoder gives out."""
+    def prepare(tc):
+        dec = tc.chains[0].decoder
+        for name in ("decode", "flush"):
+            fn = getattr(dec, name)
+
+            def rec(*a, fn=fn):
+                out = fn(*a)
+                frames.extend(out)
+                return out
+
+            setattr(dec, name, rec)
+    return prepare
+
+
+def shape_scan_replay(calls, dev) -> float:
+    """Replay recorded shape_scan calls through the plain scan, the
+    calls of one length stacked along the channels; each must be equal
+    by value -> the largest error."""
+    import torch
+
+    from librempeg_tpu_torch.resample import dither as RD
+
+    err = 0.0
+    for n in sorted({a[0].shape[1] for a, _ in calls}):
+        group = [(a, o) for a, o in calls if a[0].shape[1] == n]
+        want = RD.shape_scan_plain(torch.cat([a[0] for a, _ in group]),
+                                   torch.cat([a[1] for a, _ in group]),
+                                   group[0][0][2],
+                                   torch.cat([a[3] for a, _ in group], 1))
+        got = (torch.cat([o[0] for _, o in group], 0),
+               torch.cat([o[1] for _, o in group], 1))
+        sync(dev)
+        e = max_abs_err(got, want)
+        check(e == 0, f"shape_scan on the path ({len(group)} calls of "
+              f"{n} samples) differs from its plain version: {e}")
+        err = max(err, e)
+    return err
+
+
+def acodecs_phase(dev: str) -> dict:
+    """K1-K7 through cli.ffmpeg's parser and Transcoder, held to
+    tests/data/torch_port/bench_acodecs.json (the JAX package's runs on
+    the CPU, with the FLAC repairs applied; tools/torch_port_goldens.py
+    --acodecs). The codecs are host numpy; the shaper kernel runs on K3
+    and the biquad kernel on K4, each launch replayed through its plain
+    version."""
+    import numpy as np
+    import torch
+
+    from librempeg_tpu_torch.cli import ffprobe
+    from librempeg_tpu_torch.codecs.aac.decoder import AacDecoder
+    from librempeg_tpu_torch.formats.api import open_input
+    from librempeg_tpu_torch.kernels import biquad as KB
+    from librempeg_tpu_torch.resample import dither as RD
+
+    gold = json.load(open(os.path.join(GOLD, ACODECS_GOLD)))
+    t_phase = time.perf_counter()
+    res = {"wall_s": {}, "split_s": {}, "launches": {}}
+    total = dict.fromkeys(KERNELS, 0)
+
+    def run(name, argv, **kw):
+        r = cli_run(argv, dev, **kw)
+        res["wall_s"][name] = r["wall_s"]
+        res["split_s"][name] = {k: round(v, 4)
+                                for k, v in r["split_s"].items()}
+        res["launches"][name] = {k: v for k, v in r["launches"].items()
+                                 if v}
+        for k, v in r["launches"].items():
+            total[k] += v
+        return r
+
+    def md5(path):
+        return hashlib.md5(open(path, "rb").read()).hexdigest()
+
+    with tempfile.TemporaryDirectory() as td:
+        wav = os.path.join(td, "in.wav")
+        x = write_audio_wav(wav, AUDIO_SECONDS)
+        check(md5(wav) == gold["wav_md5"], "acodecs: input WAV md5")
+        cmd = acodecs_commands(td, wav)
+
+        # K1 FLAC: the encoder's bytes, a decode on the card, two copies
+        g = gold["k1"]
+        run("K1", cmd["K1"])
+        check(md5(cmd["K1"][-1]) == g["md5"], "K1: the FLAC file is not "
+              "the JAX encoder's with the final STREAMINFO")
+        frames = []
+        run("K1D", cmd["K1D"], prepare=keep_audio(frames))
+        rows = framemd5_rows(cmd["K1D"][-1])
+        check([h for _, h in rows] == g["hashes"], "K1: decoded hashes "
+              "differ from the JAX decoder's")
+        check([p for p, _ in rows] == g["pts"]
+              and g["pts"] == list(range(0, len(rows) * ACODECS_FLAC_BLOCK,
+                                         ACODECS_FLAC_BLOCK)),
+              f"K1: pts {[p for p, _ in rows][-3:]} (last three)")
+        kind = torch.device(dev).type
+        check(all(isinstance(f.data, torch.Tensor)
+                  and f.data.device.type == kind for f in frames),
+              f"K1: decoded frames not on {dev}")
+        y = torch.cat([f.data for f in frames], 1).cpu().numpy()
+        check(np.array_equal(y, x), "K1: decoded samples are not the WAV's")
+        res["k1"] = {"frames": len(rows), "bytes": os.path.getsize(
+            cmd["K1"][-1])}
+        run("K1P_flac", cmd["K1P_flac"])
+        want = [h for _, h in framemd5_rows(cmd["K1P_flac"][-1])]
+        check(len(want) == len(rows), f"K1: {len(want)} FLAC packets")
+        for e in ACODECS_COPIES:
+            run(f"K1_{e}", cmd[f"K1_{e}"])
+            run(f"K1P_{e}", cmd[f"K1P_{e}"])
+            got = [h for _, h in framemd5_rows(cmd[f"K1P_{e}"][-1])]
+            check(got == want, f"K1: the {e} copy's packet hashes are not "
+                  "the FLAC file's")
+
+        # K2 AC-3: the encoder's bytes, Matroska copy, decode, ffprobe
+        g = gold["k2"]
+        run("K2", cmd["K2"])
+        size = os.path.getsize(cmd["K2"][-1])
+        res["k2"] = {"bytes": size, "identical": md5(cmd["K2"][-1]) ==
+                     g["md5"]}
+        check(res["k2"]["identical"] or abs(size - g["bytes"])
+              <= FILT_BYTES_REL * g["bytes"], f"K2: {size} AC-3 bytes, "
+              f"golden {g['bytes']}")
+        run("K2_mkv", cmd["K2_mkv"])
+        r = run("K2D", cmd["K2D"])
+        check([p for p, _, _ in r["packets"]] == g["pts"],
+              "K2: decoded pts differ from the JAX package's")
+        _, y = read_wav(cmd["K2D"][-1])
+        held_s16("K2", y, g["s16"])
+        for e, path in (("ac3", cmd["K2"][-1]), ("mkv", cmd["K2_mkv"][-1])):
+            check(probe_json(ffprobe, path) == g["ffprobe"][e],
+                  f"K2: ffprobe JSON of k2.{e} differs from the JAX "
+                  "package's")
+
+        # K3 Opus: CELT decode, dithered resample (shape_scan), FLAC
+        g = gold["k3"]
+        calls, kernel = [], RD.shape_scan
+
+        def recorded(*a):
+            out = kernel(*a)
+            calls.append((a, out))
+            return out
+
+        RD.shape_scan = recorded
+        try:
+            r = run("K3", cmd["K3"], keep_input=True)
+        finally:
+            RD.shape_scan = kernel
+        n = r["launches"].get("shape_scan", 0)
+        dithered = sum(1 for f in r["inputs"] if f.nb_samples) - 1
+        res["k3"] = {"packets": len(r["packets"]), "frames":
+                     len(r["inputs"]), "shape_scan": n}
+        check(n == len(calls) == dithered, f"K3: shape_scan launches {n}, "
+              f"{len(calls)} calls, {dithered} dithered frames")
+        res["k3"]["replay_err"] = shape_scan_replay(calls, dev)
+        y = torch.cat([f.data for f in r["inputs"]], 1)
+        held_s16("K3", y, g["s16"])
+        r = run("K3H", cmd["K3H"])
+        rows = framemd5_rows(cmd["K3H"][-1])
+        check([p for p, _ in rows] == g["hybrid_pts"],
+              "K3H: pts differ from the JAX package's")
+        bad = [i for i, ((_, a), b) in enumerate(zip(rows,
+                                                      g["hybrid_hashes"]))
+               if a != b]
+        check(len(rows) == len(g["hybrid_hashes"]) and not bad,
+              f"K3H: {len(rows)} frames, {len(g['hybrid_hashes'])} golden; "
+              f"hashes differ at frames {bad[:8]}")
+        res["k3"]["hybrid_frames"] = len(rows)
+        held_s16("K3H", packets_s16(r["packets"], 2), g["hybrid_s16"])
+
+        # K4 Vorbis through a run of two biquads (one launch a frame)
+        g = gold["k4"]
+        calls4, launch = [], KB.launch
+
+        def recorded4(xx, coefs, z, fmt):
+            y, zo = launch(xx, coefs, z, fmt)
+            calls4.append(((xx, tuple(map(tuple, coefs)), z, fmt),
+                           (y, zo)))
+            return y, zo
+
+        KB.launch = recorded4
+        try:
+            r = run("K4", cmd["K4"], keep_input=True)
+        finally:
+            KB.launch = launch
+        n = r["launches"].get("biquad", 0)
+        frames4 = sum(1 for f in r["inputs"] if f.nb_samples)
+        check(n == len(calls4) == frames4, f"K4: biquad launches {n}, "
+              f"{len(calls4)} calls, {frames4} frames")
+        err4, _ = biquad_replay(calls4, dev)
+        res["k4"] = {"frames": frames4, "biquad": n, "replay_err": err4}
+        _, y = read_wav(cmd["K4"][-1])
+        held_s16("K4", y, g["s16"])
+
+        # K5 MP3 to AAC in MP4
+        g = gold["k5"]
+        r = run("K5", cmd["K5"], keep_input=True)
+        pts = [p for p, _, _ in r["packets"]]
+        nbytes = sum(len(b) for _, b, _ in r["packets"])
+        check(pts == g["pts"], f"K5: {len(pts)} packets, pts differ from "
+              f"the JAX package's ({len(g['pts'])})")
+        check(abs(nbytes - g["bytes"]) <= AUDIO_BYTES_TOL * g["bytes"],
+              f"K5: {nbytes} AAC bytes, golden {g['bytes']}")
+        ref = torch.cat([f.data for f in r["inputs"]], 1).double()
+        d = open_input(cmd["K5"][-1])
+        dec = AacDecoder(d.streams[0].codecpar, device=dev)
+        decoded = torch.cat([f.data for p in d.packets()
+                             for f in dec.decode(p)], 1)
+        d.close()
+        snr = snr_db(host(ref) * 32768.0, host(decoded))
+        check(abs(snr - g["snr_db"]) <= AUDIO_SNR_TOL_DB,
+              f"K5: decoded SNR {snr} dB, golden {g['snr_db']}")
+        res["k5"] = {"packets": len(pts), "bytes": nbytes,
+                     "golden_bytes": g["bytes"], "snr_db": snr,
+                     "golden_snr_db": g["snr_db"],
+                     "first_frame": r["inputs"][0].nb_samples}
+
+        # K6 MP2 copied into Matroska and decoded
+        g = gold["k6"]
+        run("K6", cmd["K6"])
+        check(md5(cmd["K6"][-1]) == g["md5"], "K6: the Matroska copy is "
+              "not the JAX package's")
+        run("K6D", cmd["K6D"])
+        _, y = read_wav(cmd["K6D"][-1])
+        held_s16("K6", y, g["s16"])
+
+        # K7 ADPCM: IMA and MS, each decoded to framemd5
+        for k in ("K7i", "K7m"):
+            g = gold[k.lower()]
+            run(k, cmd[k])
+            check(md5(cmd[k][-1]) == g["md5"], f"{k}: the WAV is not the "
+                  "JAX encoder's")
+            run(k + "D", cmd[k + "D"])
+            check(framemd5_rows(cmd[k + "D"][-1]) ==
+                  [tuple(r) for r in g["rows"]], f"{k}: decoded framemd5 "
+                  "differs from the JAX package's")
+    res["total_launches"] = total
+    res["phase_s"] = time.perf_counter() - t_phase
     return res
 
 
@@ -4034,6 +4407,9 @@ def main(argv: list[str]) -> int:
         f"{ENC_E3_FRAMES} packets identical to the JAX package's, decode "
         f"{e['wall_s']['E3_decode']:.3f} s equal to the recon, PSNR "
         f"{[round(x, 4) for x in e['e3_psnr']]} dB")
+    log(f"encoders ({card}): E1 copied to a raw .264 decodes on the card "
+        f"to E1's frames with pts {e['e1_raw_pts']} in "
+        f"{e['wall_s']['E1_raw_decode']:.3f} s")
     log(f"encoders launches: {json.dumps(e['launches'])}; phase "
         f"{e['phase_s']:.1f} s")
 
@@ -4056,6 +4432,32 @@ def main(argv: list[str]) -> int:
         f"{hv['p1_ties']} ties, none off the exact conversion elsewhere; G1 "
         f"{hv['g1_bytes']} bytes, the JAX package's file: "
         f"{hv['g1_identical']}; phase {hv['phase_s']:.1f} s")
+
+    ac = acodecs_phase(dev)
+    for name, wall in ac["wall_s"].items():
+        log(f"acodecs {name} ({card}): {wall:.3f} s; launches "
+            f"{json.dumps(ac['launches'].get(name, {}))}; split "
+            + json.dumps(ac["split_s"].get(name, {})))
+    log(f"acodecs ({card}): K1 {ac['k1']['frames']} FLAC frames "
+        f"{ac['k1']['bytes']} bytes, the JAX encoder's with the final "
+        f"STREAMINFO, decoded on the card to the WAV, pts repaired, the Ogg "
+        f"and Matroska copies' packet hashes the FLAC file's; K2 "
+        f"{ac['k2']['bytes']} AC-3 bytes, identical to the JAX package's: "
+        f"{ac['k2']['identical']}; K3 {ac['k3']['packets']} FLAC packets "
+        f"from {ac['k3']['frames']} frames, shape_scan "
+        f"{ac['k3']['shape_scan']} launches equal to the plain scan, "
+        f"the hybrid decode's {ac['k3']['hybrid_frames']} hashes the JAX "
+        f"package's; "
+        f"K4 biquad {ac['k4']['biquad']} launches for "
+        f"{ac['k4']['frames']} frames, equal to the plain cascade; K5 "
+        f"{ac['k5']['packets']} AAC packets {ac['k5']['bytes']} bytes (JAX "
+        f"{ac['k5']['golden_bytes']}), SNR {ac['k5']['snr_db']:.4f} dB "
+        f"(JAX {ac['k5']['golden_snr_db']:.4f}), first frame "
+        f"{ac['k5']['first_frame']} samples; K6 copy exact; K7 files and "
+        f"hashes exact; decoded s16 of K2, K3, K3H, K4 and K6 the JAX "
+        f"package's (md5 of every sample)")
+    log(f"acodecs launches: {json.dumps(ac['total_launches'])}; phase "
+        f"{ac['phase_s']:.1f} s")
 
     k = kernel_leg_phase(dev, leg, profile_dir)
     log(f"kernel leg: {LEG_BATCH}x{LEG_H}x{LEG_W} -> {LEG_DH}x{LEG_DW}, "
@@ -4084,6 +4486,7 @@ def main(argv: list[str]) -> int:
          "launches_containers": c["total_launches"][name],
          "launches_encoders": e["total_launches"][name],
          "launches_hevc": hv["total_launches"][name],
+         "launches_acodecs": ac["total_launches"][name],
          **{k: kres[name][k] for k in (
              "max_abs_err", "ms", "device_ms", "device_ms_b2b", "plain_ms",
              "bound_ms",

@@ -11,9 +11,17 @@ is rewritten: P frames the tensor path can express run through
 decode_step.decode_p_step on the decoder's device (the CUDA kernels on
 a card, their plain versions on the CPU), every other frame through the
 native host reconstruction. There are no shape buckets: PyTorch runs
-eagerly, so nothing is padded to avoid recompiles.
+eagerly, so nothing is padded to avoid recompiles. One repair of the
+JAX decoder: a frame is stamped as it leaves the decoder, with the least
+pts of the pictures decoded and not yet output (the HEVC decoder's
+rule), so a raw stream's decode-order packet pts 0, 1, 2, ... come out
+0, 1, 2, ... in display order where the JAX decoder gives each frame
+its own packet's pts (0, 2, 1, 4, 3 on B frames); display-order pts
+(MP4 ctts, MPEG-TS PES pts) come out as they were.
 """
 from __future__ import annotations
+
+import heapq
 
 import numpy as np
 import torch
@@ -381,6 +389,7 @@ class H264Decoder(Decoder):
         self._poc_state = (0, 0)   # prev ref (msb, lsb), §8.2.1.1
         self._dec_count = 0        # decoded-frame counter (poc fallback)
         self._reorder = []         # output queue [(poc, frame)]
+        self._pts = []             # heap: pts of the pending pictures
         self._reorder_depth = 0    # dynamic floor (see _effective_depth)
         self._last_out_poc = None  # highest POC already emitted this GOP
         self._seen_b_slices = False
@@ -449,14 +458,23 @@ class H264Decoder(Decoder):
                         # frames come out in display order, like the
                         # reference's has_b_frames re-estimation
                         self._reorder_depth += 1
+                    if f.pts != NOPTS:
+                        heapq.heappush(self._pts, f.pts)
                     self._reorder.append((poc, f))
                     self._reorder.sort(key=lambda t: t[0])
                     maxr = self._effective_depth()
                     while len(self._reorder) > maxr:
                         poc0, f0 = self._reorder.pop(0)
                         self._last_out_poc = poc0
-                        frames.append(f0)
+                        frames.append(self._output(f0))
         return frames
+
+    def _output(self, frame):
+        """`frame` as it leaves the decoder: stamped with the least
+        pending pts."""
+        if frame.pts != NOPTS:
+            frame = frame.replace(pts=heapq.heappop(self._pts))
+        return frame
 
     def _effective_depth(self) -> int:
         """Output reorder window.
@@ -508,7 +526,8 @@ class H264Decoder(Decoder):
             self._da_resolved = False
 
     def _drain_reorder(self):
-        out = [f for _, f in sorted(self._reorder, key=lambda t: t[0])]
+        out = [self._output(f)
+               for _, f in sorted(self._reorder, key=lambda t: t[0])]
         self._reorder.clear()
         self._last_out_poc = None   # POC restarts at the IDR boundary
         return out

@@ -10,8 +10,8 @@ both are validated bit-exactly against the reference decoder.
 Behavioral reference: libavcodec/hevc/hevcdec.c:4310.
 
 A copy of librempeg_tpu/codecs/hevc/decoder.py (host code, no JAX),
-imports rewritten; its frames carry tensors on `device` when one is
-named, and they leave in display order with the packets' timestamps
+imports rewritten; its frames carry tensors on `device` (default
+"cuda"; numpy planes with device=None), and they leave in display order with the packets' timestamps
 sorted: a picture is stamped when it is output, with the least pts of
 the pictures decoded and not yet output. A raw stream's packets carry
 decode-order pts (0, 1, 2, ...), which become 0, 1, 2, ... in display
@@ -369,8 +369,9 @@ class HevcDecoder(Decoder):
                      codec_type="video")
     ALIASES = ("h265",)
 
-    def __init__(self, params=None, device=None, **opts):
-        # host decoder: planes are numpy arrays unless a device is named
+    def __init__(self, params=None, device="cuda", **opts):
+        # host decoder: the planes are uploaded to `device`, or stay
+        # numpy arrays where the caller passes device=None
         self.device = None if device is None else resolve(device)
         self.sps = None
         self.pps = None

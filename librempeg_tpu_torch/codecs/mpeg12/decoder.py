@@ -16,8 +16,8 @@ Behavioral reference: libavcodec/mpeg12dec.c:2927
 (decode loop), simple_idct_template.c (IDCT), mpegvideo motion comp.
 
 A copy of librempeg_tpu/codecs/mpeg12/decoder.py (host code, no JAX),
-imports rewritten; its frames carry tensors on `device` when one is
-named.
+imports rewritten; its frames carry tensors on `device` (default
+"cuda"; numpy planes with device=None).
 """
 from __future__ import annotations
 
@@ -197,8 +197,9 @@ class Mpeg12Decoder(Decoder):
                      codec_type="video")
     ALIASES = ("mpeg1video",)
 
-    def __init__(self, params=None, device=None, **opts):
-        # host decoder: planes are numpy arrays unless a device is named
+    def __init__(self, params=None, device="cuda", **opts):
+        # host decoder: the planes are uploaded to `device`, or stay
+        # numpy arrays where the caller passes device=None
         self.device = None if device is None else resolve(device)
         self.seq = _SeqCtx()
         self._refs = []        # [older, newer] ref frames (y, u, v)

@@ -17,8 +17,8 @@ JAX) with its imports rewritten to the port's modules, and with the
 simple_idct integer IDCT it borrows from the MPEG-1/2 decoder
 (codecs/mpeg12/decoder.py idct_simple, ops/dct8x8.py _int_idct_matrix)
 carried here. It is the port's registered mpeg4 decoder, on the host:
-its planes are numpy arrays unless `device` is given, then tensors on
-that device. It lets chip_smoke.py, the no-JAX test and the transcode
+its planes are tensors on `device` (default "cuda"), or numpy arrays
+with device=None. It lets chip_smoke.py, the no-JAX test and the transcode
 decode the port's own MPEG-4 streams (B-VOPs included) where JAX is not
 installed.
 """
@@ -1103,8 +1103,9 @@ class Mpeg4Decoder(Decoder):
     INFO = CodecInfo(name="mpeg4", long_name="MPEG-4 part 2",
                      codec_type="video")
 
-    def __init__(self, params=None, device=None, **opts):
-        # host decoder: planes are numpy arrays unless a device is named
+    def __init__(self, params=None, device="cuda", **opts):
+        # host decoder: the planes are uploaded to `device`, or stay
+        # numpy arrays where the caller passes device=None
         self.device = None if device is None else resolve(device)
         self._dec = Mpeg4BitstreamDecoder()
         self._n = 0

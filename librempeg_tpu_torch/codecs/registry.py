@@ -10,6 +10,13 @@ import importlib
 
 _MODULES = (
     "librempeg_tpu_torch.codecs.pcm",
+    "librempeg_tpu_torch.codecs.adpcm",
+    "librempeg_tpu_torch.codecs.ac3.decoder",
+    "librempeg_tpu_torch.codecs.ac3.encoder",
+    "librempeg_tpu_torch.codecs.mpegaudio",
+    "librempeg_tpu_torch.codecs.mp3dec",
+    "librempeg_tpu_torch.codecs.vorbis.decoder",
+    "librempeg_tpu_torch.codecs.opus.codec",
     "librempeg_tpu_torch.codecs.rawvideo",
     "librempeg_tpu_torch.codecs.jpeg.decoder",
     "librempeg_tpu_torch.codecs.jpeg.encoder",
@@ -23,6 +30,7 @@ _MODULES = (
     "librempeg_tpu_torch.codecs.hevc.decoder",
     "librempeg_tpu_torch.codecs.png.codec",
     "librempeg_tpu_torch.codecs.gif",
+    "librempeg_tpu_torch.codecs.flac.codec",
 )
 
 for _mod in _MODULES:

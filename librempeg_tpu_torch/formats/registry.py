@@ -12,6 +12,7 @@ _MODULES = (
     "librempeg_tpu_torch.formats.rawvideo",
     "librempeg_tpu_torch.formats.rawes",
     "librempeg_tpu_torch.formats.lavfi",
+    "librempeg_tpu_torch.formats.ogg",
     "librempeg_tpu_torch.formats.adts",
     "librempeg_tpu_torch.formats.yuv4mpeg",
     "librempeg_tpu_torch.formats.image2",
@@ -20,9 +21,11 @@ _MODULES = (
     "librempeg_tpu_torch.formats.avi",
     "librempeg_tpu_torch.formats.matroska",
     "librempeg_tpu_torch.formats.mov",
+    "librempeg_tpu_torch.formats.flac",
     "librempeg_tpu_torch.formats.mpegts",
     "librempeg_tpu_torch.formats.gif",
     "librempeg_tpu_torch.formats.mp3",
+    "librempeg_tpu_torch.formats.ac3",
 )
 
 for _mod in _MODULES:

@@ -2,19 +2,15 @@
 
 Port of librempeg_tpu/formats/wav.py (libavformat/wavdec.c + wavenc.c
 analog: fmt/data chunk parsing, WAVE_FORMAT_PCM/IEEE_FLOAT/EXTENSIBLE,
-packets of about 4096 bytes, LIST/INFO metadata), a host copy. The tag
-tables also serve the AVI muxer. The ADPCM codecs are not ported: their
-tags are known, and a file that uses them is refused.
+packets of about 4096 bytes, LIST/INFO metadata, the ADPCM codecs'
+blocks and fmt extension), a host copy. The tag tables also serve the
+AVI muxer.
 """
 from __future__ import annotations
 
 import struct
 
-from librempeg_tpu_torch.core.errors import (
-    EndOfStream,
-    InvalidData,
-    Unsupported,
-)
+from librempeg_tpu_torch.core.errors import EndOfStream, InvalidData
 from librempeg_tpu_torch.core.packet import Packet, PktFlags
 from librempeg_tpu_torch.core.rational import Rational
 from librempeg_tpu_torch.formats.api import (
@@ -115,7 +111,16 @@ class WavDemuxer(Demuxer):
                 par.block_align = balign or channels * (bits // 8)
                 par.extra["bits_per_sample"] = bits
                 if codec in _ADPCM_CODECS:
-                    raise Unsupported(f"WAV: {codec} is not ported")
+                    from librempeg_tpu_torch.codecs import adpcm as _adpcm
+
+                    if codec == "adpcm_ima_wav":
+                        spb = _adpcm.ima_samples_per_block(balign, channels)
+                    elif codec == "adpcm_ms":
+                        spb = _adpcm.ms_samples_per_block(balign, channels)
+                    else:
+                        spb = balign * 2 // channels
+                    par.frame_size = spb
+                    par.extra["samples_per_block"] = spb
                 fmt_seen = True
             elif tag == b"LIST" and size >= 4:
                 body = io.read_exact(size + (size & 1))[:size]
@@ -144,7 +149,8 @@ class WavDemuxer(Demuxer):
         st = Stream(index=0, codecpar=par,
                     time_base=Rational(1, par.sample_rate))
         if self._data_size > 0 and par.block_align:
-            st.duration = self._data_size // par.block_align
+            st.duration = (self._data_size // par.block_align
+                           * par.extra.get("samples_per_block", 1))
         self.streams = [st]
         if io.seekable:
             io.seek(self._data_start)
@@ -163,13 +169,14 @@ class WavDemuxer(Demuxer):
         data = self.io.read(n)
         if not data:
             raise EndOfStream
-        pts = self._pos // par.block_align
+        spb = par.extra.get("samples_per_block", 1)
+        pts = self._pos // par.block_align * spb
         self._pos += len(data)
         return Packet(
             data=data,
             pts=pts,
             dts=pts,
-            duration=len(data) // par.block_align,
+            duration=len(data) // par.block_align * spb,
             stream_index=0,
             flags=PktFlags.KEY,
             time_base=self.streams[0].time_base,
@@ -214,15 +221,33 @@ class WavMuxer(Muxer):
         io.write(b"WAVE")
         io.write(b"fmt ")
         if par.codec_id in _ADPCM_CODECS:
-            raise Unsupported(f"wav: {par.codec_id} is not ported")
-        io.wl32(16)
-        balign = par.nb_channels * (bits // 8)
-        io.wl16(wtag)
-        io.wl16(par.nb_channels)
-        io.wl32(par.sample_rate)
-        io.wl32(par.sample_rate * balign)  # byte rate
-        io.wl16(balign)
-        io.wl16(bits)
+            balign = par.block_align
+            spb = par.frame_size or par.extra.get("samples_per_block", 0)
+            extra = struct.pack("<H", spb)
+            if par.codec_id == "adpcm_ms":
+                from librempeg_tpu_torch.codecs.adpcm import MS_C1, MS_C2
+
+                extra += struct.pack("<H", 7)
+                for c1, c2 in zip(MS_C1, MS_C2):
+                    extra += struct.pack("<hh", int(c1), int(c2))
+            io.wl32(18 + len(extra))
+            io.wl16(wtag)
+            io.wl16(par.nb_channels)
+            io.wl32(par.sample_rate)
+            io.wl32(par.sample_rate * balign // max(spb, 1))  # approx rate
+            io.wl16(balign)
+            io.wl16(bits)
+            io.wl16(len(extra))
+            io.write(extra)
+        else:
+            io.wl32(16)
+            balign = par.nb_channels * (bits // 8)
+            io.wl16(wtag)
+            io.wl16(par.nb_channels)
+            io.wl32(par.sample_rate)
+            io.wl32(par.sample_rate * balign)  # byte rate
+            io.wl16(balign)
+            io.wl16(bits)
         io.write(b"data")
         self._data_size_pos = io.tell()
         io.wl32(0)  # patched in trailer

@@ -152,10 +152,11 @@ def _int_list(v) -> bool:
 def snapshot(tc) -> bytes:
     """Capture a resumable snapshot of a Transcoder between packets.
 
-    Each video chain is drained and synchronised first: the frames its
-    decoder holds ahead (the H.264 decode-ahead queue on the card) go
-    through the graph and the encoder, and the encode worker packs and
-    muxes every dispatched frame, before the encoder's fields are read;
+    Each chain is drained first. A video chain's frames its decoder
+    holds ahead (the H.264 decode-ahead queue on the card) go through
+    the graph and the encoder, and the encode worker packs and muxes
+    every dispatched frame; an audio chain writes the packet its encoder
+    holds back (FLAC's newest). Only then are the encoder's fields read,
     so the snapshot covers every packet the demuxer has given out."""
     for idx, chain in tc.chains.items():
         enc = getattr(chain, "encoder", None)
@@ -167,6 +168,7 @@ def snapshot(tc) -> bytes:
     for idx, chain in tc.chains.items():
         if hasattr(chain, "drain"):
             chain.drain(tc.mux)
+        if hasattr(chain, "sync"):
             chain.sync()
         state: dict[str, Any] = {"frames_done": chain.frames_done}
         enc = getattr(chain, "encoder", None)

@@ -3,7 +3,8 @@
 Port of librempeg_tpu/sched/pipeline.py, cut to the slices. Both
 chains take their decoder and encoder from the codec registry
 (codecs/registry.py: h264, hevc (decode), mpeg4, mjpeg, png,
-mpeg1video, mpeg2video, rawvideo; aac, pcm_*). The
+mpeg1video, mpeg2video, rawvideo; aac, pcm_*, flac, ac3, adpcm_*,
+and mp2, mp3, opus, vorbis (decode)). The
 video chain runs the filter graph between them (-s appends scale=,
 -pix_fmt format=) and maps -q:v onto what the encoder declares (quality
 for mjpeg, qscale for mpeg4); `-c:v copy` passes the demuxer's packets
@@ -12,7 +13,8 @@ codec (for image2 the extension's: png for .png, mjpeg for .jpg; mjpeg
 for raw MJPEG; rawvideo for the hash muxers,
 yuv4mpegpipe and rawvideo; mpeg4 otherwise). An audio
 stream is decoded, run through its filter graph (-ar appends
-aresample=, -ac aformat=channel_layouts=) and encoded to AAC or PCM.
+aresample=, -ac aformat=channel_layouts=) and encoded, or copied
+(`-c:a copy`).
 Every device stage runs on `device` (default "cuda"; a missing card
 raises).
 
@@ -312,7 +314,8 @@ class _StreamChain:
 
 
 class _AudioChain:
-    """decode -> filter -> encode for one audio stream, synchronous."""
+    """decode -> filter -> encode for one audio stream, synchronous, or
+    a stream copy (-c:a copy: the demuxer's packets to the muxer)."""
 
     def __init__(self, in_stream, smap: StreamMap, out_mux, device,
                  shared_opts: dict):
@@ -321,6 +324,10 @@ class _AudioChain:
         self.frames_done = 0
         self.discard_until = 0.0     # -ss: decode and drop before this
         self.eof = False
+        self.copy = smap.codec == "copy"
+        if self.copy:
+            self.out_stream = out_mux.add_stream(par, in_stream.time_base)
+            return
         dec_cls = find_decoder(par.codec_id)
         if dec_cls.INFO.codec_type != "audio":
             raise Unsupported(f"{par.codec_id} is not an audio decoder")
@@ -357,6 +364,9 @@ class _AudioChain:
 
     def send_packet(self, pkt, mux) -> None:
         if self.eof:
+            return
+        if self.copy:
+            self._write([pkt], mux)
             return
         with stage("audio.decode"):
             frames = self.decoder.decode(pkt)
@@ -404,7 +414,15 @@ class _AudioChain:
         for pkt in pkts:
             mux.write(pkt.replace(stream_index=self.out_stream.index))
 
+    def drain(self, mux) -> None:
+        """Write the packets the encoder holds back (FLAC's newest,
+        kept for the final STREAMINFO), keeping the stream open."""
+        if not self.copy and hasattr(self.encoder, "release"):
+            self._write(self.encoder.release(), mux)
+
     def finish(self, mux) -> None:
+        if self.copy:
+            return
         if not self.eof:
             for frame in self.decoder.flush():
                 self._through_graph(frame, mux)

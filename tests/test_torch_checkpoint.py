@@ -6,8 +6,10 @@ compensation is active; a dithered chain (-af
 aresample=48000:dither_method=lipshitz -c:a pcm_s16le), whose resumed
 output equals the uninterrupted run's in the port and not in the JAX
 package (its snapshot drops the ditherer's noise position and error
-history); an MPEG-4 -q:v 5 transcode of an H.264 clip cut at an IDR
-from raw .264, Matroska, MPEG-TS and MP4, whose resumed packets equal
+history); a FLAC chain, whose packets before the cut and after the
+resume are the uninterrupted run's (the port's snapshot writes the
+packet the encoder holds back for the final STREAMINFO); an MPEG-4
+-q:v 5 transcode of an H.264 clip cut at an IDR from raw .264, Matroska, MPEG-TS and MP4, whose resumed packets equal
 the uninterrupted run's tail (the JAX package resumes an MP4 input at
 its first packet, since its snapshot drops the MP4 demuxer's list
 cursor, and cannot transcode the MPEG-TS at all); a round trip of
@@ -196,6 +198,62 @@ def test_dithered_resume(pkg, tmp_path):
     assert len(b) > 0
     # the fault of the reference: its resumed noise restarts at sample 0
     assert (a[len(a) - len(b):] == b) == (pkg == "torch")
+
+
+def _recorded(tc) -> list:
+    """The (data, pts, duration) of every packet tc's muxer is given."""
+    got, write = [], tc.mux.write
+
+    def rec(pkt):
+        got.append((bytes(pkt.data), pkt.pts, pkt.duration))
+        write(pkt)
+    tc.mux.write = rec
+    return got
+
+
+def _streaminfo(path):
+    from librempeg_tpu_torch.codecs.flac.codec import parse_streaminfo
+
+    return parse_streaminfo(open_input(str(path)).streams[0]
+                            .codecpar.extradata)
+
+
+@pytest.mark.parametrize("pkg", list(PKG))
+def test_flac_resume_keeps_every_frame(pkg, tmp_path):
+    """-c:a flac of 1 s (11 frames), cut after packet 5 of 11: the
+    packets written before the cut and after the resume are the
+    uninterrupted run's. In the port the snapshot writes the packet the
+    encoder holds back for the final STREAMINFO; the resumed file's
+    STREAMINFO has every sample and an unknown (zero) MD5, since the
+    restored encoder did not hash the samples before the cut, and the
+    uninterrupted file's has the MD5 of the input."""
+    import hashlib
+
+    P, CK = PKG[pkg]
+    _wav44(tmp_path / "in.wav")
+
+    def spec(out):
+        return _spec(pkg, tmp_path / "in.wav", tmp_path / out,
+                     audio=dict(codec="flac"))
+
+    tc = P.Transcoder(spec("a.flac"))
+    full = _recorded(tc)
+    tc.run()
+    tc = P.Transcoder(spec("b1.flac"))
+    head = _recorded(tc)
+    _send(tc, 5)
+    blob = CK.snapshot(tc)
+    tail: list = []
+    _resume(pkg, lambda: spec("b2.flac"), blob,
+            lambda t: tail.append(_recorded(t)))
+    assert len(full) == 11 and head and tail[0]
+    assert head + tail[0] == full
+    if pkg == "torch":
+        si, sr = _streaminfo(tmp_path / "a.flac"), \
+            _streaminfo(tmp_path / "b2.flac")
+        assert si["total_samples"] == sr["total_samples"] == 44100
+        assert si["md5"] == hashlib.md5(_pcm(tmp_path / "in.wav")).digest()
+        assert sr["md5"] == b"\0" * 16
 
 
 @pytest.fixture(scope="module")

@@ -190,11 +190,11 @@ def test_tables_equal_jax():
 
 
 def test_frames_on_the_named_device():
-    """Without a device the frames are numpy views, as the JAX
+    """With device=None the frames are numpy views, as the JAX
     package's; with device="cpu" CPU tensors; a CUDA request without a
-    card raises at construction."""
+    card, the default included, raises at construction."""
     stream = TD.generate_stream(64, 64, n_frames=3, b_frames=True, seed=3)
-    dec = TD.HevcDecoder()
+    dec = TD.HevcDecoder(device=None)
     frames = dec.decode(TPacket(data=stream, pts=0)) + dec.flush()
     assert all(isinstance(p, np.ndarray) for f in frames for p in f.planes)
     tf = port_decode(stream)
@@ -204,6 +204,8 @@ def test_frames_on_the_named_device():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             TD.HevcDecoder(device="cuda")
+        with pytest.raises(RuntimeError):
+            TD.HevcDecoder()
 
 
 def test_display_pts_from_decode_order_packets():

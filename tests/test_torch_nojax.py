@@ -20,7 +20,9 @@ the port's own H.264 encoder and runs the bitstream filters, MPEG-2 in
 MPEG-TS and its decoder on them; a fifth generates a 2-slice I/P/B HEVC
 stream with the port's own generator, decodes it through the CLI from
 raw .265 and from an MP4 copy, and writes and reads back a PNG and a
-GIF.
+GIF; a sixth decodes a committed Opus, Vorbis, MP3 and MP2 stream,
+runs a WAV through FLAC and back, and encodes and decodes AC-3 and
+both ADPCM codecs.
 
 The port also reads nothing under librempeg_tpu/ at run time: no path
 into that tree in its Python, CUDA or C++ sources or in chip_smoke.py
@@ -123,7 +125,7 @@ for i in range(3):
                                   height=32, pts=i))
     pkts += enc.encode(f)
 pkts += enc.flush()
-dec = Mpeg4Decoder()
+dec = Mpeg4Decoder(device=None)  # host numpy planes
 decoded = [fr for p in pkts for fr in dec.decode(p)] + dec.flush()
 
 import librempeg_tpu_torch.compat
@@ -490,3 +492,69 @@ def test_hevc_png_gif_run_without_jax(tmp_path):
         timeout=600)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "hevc 5 5 True 5 rgb24 64 2 12288" in proc.stdout, proc.stdout
+
+
+_CHILD_ACODECS = _PRELUDE + r"""
+import os
+
+from librempeg_tpu_torch.cli.ffmpeg import main
+from librempeg_tpu_torch.formats.api import open_input
+
+fx, out, wav = sys.argv[2], sys.argv[3], sys.argv[4]
+
+
+def run(*argv):
+    assert main([*argv, "-device", "cpu"]) == 0, argv
+
+
+def frames(path):
+    return [ln for ln in open(path).read().splitlines()
+            if not ln.startswith("#")]
+
+
+counts = {}
+for name, cut in (("opus_silk60.ogg", "1"), ("vorbis.ogg", "0.5"),
+                  ("mp3_mono32k.mp3", "0.5"), ("mp2.mp2", "0.3")):
+    run("-i", os.path.join(fx, name), "-t", cut, "-f", "framemd5", "-y",
+        out + name + ".md5")
+    counts[name.split(".")[0]] = len(frames(out + name + ".md5"))
+# K1's FLAC round trip: the decoded samples are the WAV's
+run("-i", wav, "-c:a", "flac", "-y", out + ".flac")
+run("-i", out + ".flac", "-c:a", "pcm_s16le", "-y", out + "_back.wav")
+data = [b"".join(bytes(p.data) for p in open_input(p).packets())
+        for p in (wav, out + "_back.wav")]
+flac_exact = data[0] == data[1]
+for codec, ext in (("ac3", "ac3"), ("adpcm_ima_wav", "wav"),
+                   ("adpcm_ms", "wav")):
+    run("-i", wav, "-t", "0.1", "-c:a", codec, "-y", f"{out}_{codec}.{ext}")
+    run("-i", f"{out}_{codec}.{ext}", "-f", "framemd5", "-y",
+        f"{out}_{codec}.md5")
+    counts[codec] = len(frames(f"{out}_{codec}.md5"))
+leaked = sorted(m for m in sys.modules if banned(m))
+assert not leaked, leaked
+print("acodecs", flac_exact,
+      " ".join(f"{k}={v}" for k, v in sorted(counts.items())))
+"""
+
+
+def test_audio_codecs_run_without_jax(tmp_path):
+    """A process that refuses to import jax decodes one committed stream
+    of each new decoder (Opus, Vorbis, MP3, MP2) through the CLI to
+    framemd5, runs K1's FLAC round trip (the decoded samples are the
+    WAV's), and encodes and decodes AC-3 and both ADPCM codecs."""
+    wav = tmp_path / "in.wav"
+    write_wav(wav, testgen.s16(testgen.audio_mix(44100, 44100)), 44100)
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    fx = os.path.join(REPO, "tests", "data", "torch_port", "acodecs")
+    proc = subprocess.run(
+        [sys.executable, "-c", _CHILD_ACODECS, REPO, fx,
+         str(tmp_path / "o"), str(wav)],
+        capture_output=True, text=True, env=env, cwd=str(tmp_path),
+        timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.startswith("acodecs True "), proc.stdout
+    counts = dict(kv.split("=") for kv in proc.stdout.split()[2:])
+    assert set(counts) == {"opus_silk60", "vorbis", "mp3_mono32k", "mp2",
+                           "ac3", "adpcm_ima_wav", "adpcm_ms"}
+    assert all(int(n) > 1 for n in counts.values()), counts

@@ -156,6 +156,7 @@ FILTERS_OUT = os.path.join(OUT, "bench_1080p_filters.npz")
 CONTAINERS_OUT = os.path.join(OUT, "bench_1080p_containers.json")
 ENCODERS_OUT = os.path.join(OUT, "bench_1080p_encoders.json")
 HEVC_OUT = os.path.join(OUT, "bench_1080p_hevc.json")
+ACODECS_OUT = os.path.join(OUT, "bench_acodecs.json")
 
 
 def frame_md5(planes) -> str:
@@ -1202,6 +1203,147 @@ def hevc_goldens() -> dict:
     return gold
 
 
+def acodecs_goldens() -> dict:
+    """The JAX package's runs of chip_smoke.py's acodecs commands on the
+    CPU, with the repairs the port makes applied to its output."""
+    import chip_smoke as CS
+
+    from librempeg_tpu.cli import ffprobe
+    from librempeg_tpu.codecs.aac.decoder import AacDecoder
+    from librempeg_tpu.codecs.flac.codec import build_streaminfo
+    from librempeg_tpu.codecs.pcm import from_float
+    from librempeg_tpu.formats.api import open_input as jopen
+    from librempeg_tpu.resample import Swr
+
+    def md5(path):
+        return hashlib.md5(open(path, "rb").read()).hexdigest()
+
+    def ok(argv, **kw):
+        r = jax_cli_run(argv, **kw)
+        assert "error" not in r, (argv, r)
+        return r
+
+    def wav_s16(path):
+        return CS.s16_digest(CS.read_wav(path)[1])
+
+    gold: dict = {}
+    with tempfile.TemporaryDirectory() as td:
+        wav = os.path.join(td, "in.wav")
+        x = CS.write_audio_wav(wav, CS.AUDIO_SECONDS)
+        gold["wav_md5"] = md5(wav)
+        cmd = CS.acodecs_commands(td, wav)
+
+        # K1: the JAX muxer leaves STREAMINFO as the encoder opened it (0
+        # samples, zero MD5); the golden carries the final one
+        ok(cmd["K1"])
+        data = bytearray(open(cmd["K1"][-1], "rb").read())
+        block = CS.ACODECS_FLAC_BLOCK
+        assert bytes(data[8:42]) == build_streaminfo(
+            CS.AUDIO_IN_RATE, 2, 16, 0, block)
+        data[8:42] = build_streaminfo(
+            CS.AUDIO_IN_RATE, 2, 16, x.shape[1], block,
+            hashlib.md5(np.ascontiguousarray(x.T).astype("<i2")
+                        .tobytes()).digest())
+        with open(cmd["K1"][-1], "wb") as f:
+            f.write(data)
+        ok(cmd["K1D"])
+        rows = CS.framemd5_rows(cmd["K1D"][-1])
+        n = len(rows)
+        # the JAX decoder's pts of the short last frame: frame_no x its
+        # own size; the golden carries frame_no x the block size
+        last = x.shape[1] - (n - 1) * block
+        assert [p for p, _ in rows] == [i * block for i in range(n - 1)] \
+            + [(n - 1) * last]
+        gold["k1"] = {"md5": hashlib.md5(data).hexdigest(),
+                      "hashes": [h for _, h in rows],
+                      "pts": [i * block for i in range(n)]}
+
+        # K2
+        ok(cmd["K2"])
+        ok(cmd["K2_mkv"])
+        r = ok(cmd["K2D"])
+        gold["k2"] = {
+            "md5": md5(cmd["K2"][-1]), "bytes": os.path.getsize(cmd["K2"][-1]),
+            "pts": [p for p, _ in r["packets"]],
+            "s16": wav_s16(cmd["K2D"][-1]),
+            "ffprobe": {"ac3": CS.probe_json(ffprobe, cmd["K2"][-1]),
+                        "mkv": CS.probe_json(ffprobe, cmd["K2_mkv"][-1])}}
+
+        # K3: the JAX graph takes every decoder's samples as s16p and its
+        # aresample has no dither_method, so the chain runs by hand: the
+        # JAX decoder, s16 (aformat), the JAX Swr with the shaper, whose
+        # scan runs one channel at a time (XLA fuses channel 0 of a
+        # stereo scan's feedback sums otherwise; test_torch_resample.py)
+        from librempeg_tpu.codecs.opus.codec import OpusDecoder
+        from librempeg_tpu.resample import dither as JD
+
+        scan = JD._shape_scan
+
+        def per_channel(xl, noise, coefs, err0):
+            parts = [scan(xl[c:c + 1], noise[c:c + 1], coefs,
+                          err0[:, c:c + 1]) for c in range(xl.shape[0])]
+            return (np.concatenate([np.asarray(y) for y, _ in parts]),
+                    np.concatenate([np.asarray(h) for _, h in parts], 1))
+
+        d = jopen(cmd["K3"][1])
+        dec = OpusDecoder(d.streams[0].codecpar)
+        swr = Swr(48000, 44100, in_layout=2, in_fmt="s16p", out_fmt="s16p",
+                  dither="lipshitz")
+        outs = []
+        JD._shape_scan = per_channel
+        try:
+            for p in d.packets():
+                for f in dec.decode(p):
+                    s16 = from_float(np.asarray(f.data), "s16p")
+                    outs.append(swr.convert_frame(f.replace(
+                        data=s16, sample_fmt="s16p")).data)
+            outs.append(swr.flush_frame().data)
+        finally:
+            JD._shape_scan = scan
+        d.close()
+        gold["k3"] = {"s16": CS.s16_digest(np.concatenate(outs, 1))}
+        ok(cmd["K3H"])
+        rows = CS.framemd5_rows(cmd["K3H"][-1])
+        hyb = os.path.join(td, "k3h.wav")
+        ok(["-i", cmd["K3H"][1], "-c:a", "pcm_s16le", "-y", hyb])
+        gold["k3"].update({"hybrid_pts": [p for p, _ in rows],
+                           "hybrid_hashes": [h for _, h in rows],
+                           "hybrid_s16": wav_s16(hyb)})
+
+        # K4
+        ok(cmd["K4"])
+        gold["k4"] = {"s16": wav_s16(cmd["K4"][-1])}
+
+        # K5: SNR of the JAX decoder on the JAX stream against the
+        # samples the JAX encoder took
+        inputs = []
+        r = ok(cmd["K5"], on_input=lambda f: inputs.append(
+            np.asarray(f.data, np.float64)))
+        ref = np.concatenate(inputs, 1)
+        d = jopen(cmd["K5"][-1])
+        adec = AacDecoder(d.streams[0].codecpar)
+        decoded = np.concatenate([np.asarray(f.data) for p in d.packets()
+                                  for f in adec.decode(p)], 1)
+        d.close()
+        gold["k5"] = {"pts": [p for p, _ in r["packets"]],
+                      "bytes": sum(n for _, n in r["packets"]),
+                      "snr_db": CS.snr_db(ref * 32768.0, decoded)}
+
+        # K6
+        ok(cmd["K6"])
+        ok(cmd["K6D"])
+        gold["k6"] = {"md5": md5(cmd["K6"][-1]),
+                      "s16": wav_s16(cmd["K6D"][-1])}
+
+        # K7
+        for k in ("K7i", "K7m"):
+            ok(cmd[k])
+            ok(cmd[k + "D"])
+            gold[k.lower()] = {"md5": md5(cmd[k][-1]), "rows": [
+                list(r) for r in CS.framemd5_rows(cmd[k + "D"][-1])]}
+    return gold
+
+
 def main(argv) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--calibrate", action="store_true",
@@ -1227,7 +1369,21 @@ def main(argv) -> None:
                     "(bench_1080p_encoders.json)")
     ap.add_argument("--hevc", action="store_true",
                     help="only the hevc goldens (bench_1080p_hevc.json)")
+    ap.add_argument("--acodecs", action="store_true",
+                    help="only the audio codec goldens (bench_acodecs.json)")
     args = ap.parse_args(argv)
+    if args.acodecs:
+        t0 = time.perf_counter()
+        gold = acodecs_goldens()
+        with open(ACODECS_OUT, "w") as f:
+            json.dump(gold, f, separators=(",", ":"), sort_keys=True)
+        print(f"acodecs goldens (JAX, CPU, {time.perf_counter() - t0:.1f} "
+              f"s): K1 {len(gold['k1']['hashes'])} FLAC frames; K2 "
+              f"{gold['k2']['bytes']} bytes; K5 {len(gold['k5']['pts'])} "
+              f"packets, {gold['k5']['bytes']} bytes, SNR "
+              f"{gold['k5']['snr_db']:.4f} dB; "
+              f"{os.path.getsize(ACODECS_OUT)} bytes")
+        return
     if args.hevc:
         t0 = time.perf_counter()
         gold = hevc_goldens()

@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--profile DIR]
 
-It drives ten paths and ten kernels. Phases, in order; any failure
+It drives eleven paths and ten kernels. Phases, in order; any failure
 raises and the script exits non-zero:
 
 1. device: the card's name and power limit (nvidia-smi);
@@ -55,7 +55,9 @@ raises and the script exits non-zero:
    JAX package's sampled rows, every VOP's quantiser equal to the JAX
    package's, the decoded I/P and B PSNR means (the port's vendored
    MPEG-4 decoder, against the port's own encoder input) within
-   0.02 dB of the JAX package's, and mc, intra and deblock 44 launches
+   0.02 dB of the JAX package's, every I/P-VOP decoded to the encoder's
+   reference exactly (its integer picture), and mc, intra and deblock
+   44 launches
    each, hpel once per P-VOP and the per-MB forms never. A second,
    unhooked run gives the rate and stage split; the checked run times
    each B-VOP device pass and each trellis frame (one lattice call);
@@ -137,8 +139,8 @@ raises and the script exits non-zero:
    to 1280x720 MPEG-4 -q:v 5 in MP4 (VOP types and pts exact, bytes and
    mean recon PSNR within FILT_BYTES_REL / FILT_PSNR_TOL_DB, the MP4's
    packets the encoder's byte for byte, the first CONT_READBACK VOPs
-   read back by the vendored decoder within PSNR_TOL_DB of the JAX
-   package's read-back PSNR, hpel once per P-VOP); the WAV to 48 kHz
+   read back by the vendored decoder to the encoder's references
+   exactly, hpel once per P-VOP); the WAV to 48 kHz
    AAC in MP4 and Matroska (pts exact, bytes and SNR within the audio
    limits); checkpoint/resume on the card (that
    MPEG-4 transcode from Matroska and from MP4 snapshotted after packet
@@ -185,8 +187,8 @@ raises and the script exits non-zero:
    hashes; H3, the MP4 to 1280x720 MPEG-4 -q:v 5: VOP types, packet count
    and pts exact (pts sorted: the JAX run's frames keep their packets'
    decode order), bytes and decoded PSNR within FILT_BYTES_REL /
-   FILT_PSNR_TOL_DB, hpel once per P-VOP pass (a P-VOP whose levels
-   overflow the sparse fetch layout is coded again in a larger one);
+   FILT_PSNR_TOL_DB, hpel once per P-VOP (a P-VOP whose levels
+   overflow the sparse fetch layout is re-packed in a larger one);
    P1, the asset's first IMG_FRAMES frames to -pix_fmt rgb24
    thumb_%03d.png with no -c:v (PNG by the extension): each rgb24 frame
    the exact conversion off its ties and the JAX package's (rebuilt
@@ -207,8 +209,10 @@ raises and the script exits non-zero:
    the FLAC file's; K2, 2 s to AC-3 at 192 kb/s (identical, or within
    FILT_BYTES_REL), copied into Matroska and decoded (pts exact),
    ffprobe JSON of both files the JAX package's; K3, the CELT stream
-   through aformat=s16p and aresample=44100 with the lipshitz shaper to
-   FLAC: shape_scan once a dithered frame, every launch equal to the
+   through aresample=44100 with the lipshitz shaper to FLAC (the
+   encoder's s16 negotiated onto the aresample, its float input
+   converted to s16 first): shape_scan once a dithered frame, every
+   launch equal to the
    plain scan by value; the hybrid stream to framemd5, every frame's
    hash the JAX package's; K4, the Vorbis stream through highpass and
    lowpass (one biquad launch a frame, each equal to the plain cascade);
@@ -219,7 +223,34 @@ raises and the script exits non-zero:
    ADPCM in WAV and back to framemd5, exact. Each command's wall time,
    launches and stage split print beside the card's name and power
    limit;
-14. kernel leg: parallel.transcode_step as bench.py's kernel leg runs it
+14. delivery: D1-D6 of delivery_commands through cli.ffmpeg's parser
+   and Transcoder (D4 through its main), held to tests/data/torch_port/
+   bench_delivery.json (the JAX package's runs on the CPU) and to
+   bench_1080p_frames.md5: D1 the asset into FLV (-c copy; the file's
+   md5 and ffprobe JSON the JAX package's) and decoded on the card to
+   the asset's frames (mc, intra, deblock once per P frame), and the
+   WAV to AAC in FLV (the port writes the AudioSpecificConfig the JAX
+   muxer leaves out: tag pts exact, bytes and SNR within the audio
+   limits); D2 the FLV's first DELIVERY_FRAMES frames with the
+   committed cues burned in and a %{n} drawtext box (the committed
+   DejaVu Sans Mono through the port's TrueType reader; the blend on
+   the card), every frame's md5 the JAX package's, and the same to
+   MPEG-4 -q:v 3 (VOP types and pts exact, bytes and recon PSNR within
+   FILT_*, its first DELIVERY_READBACK VOPs decoded to the encoder's
+   references exactly), the cues through the subtitle stream (the JAX
+   package's SubRip bytes); D3 ebur128 and loudnorm on the WAV (the
+   port's resampler to 48 kHz on the card; I, LRA and peak within
+   LOUD_*, loudnorm's s16 exact); D4 the FLV's video to Matroska under
+   -map 0:v -c copy -progress -stats_period -v -benchmark -threads (the
+   FLV's packets, the JAX package's progress keys ending
+   progress=end); D5 the asset into HLS and DASH (files the JAX
+   package's), each read back over http:// from a loopback server and
+   decoded to the asset's frames; D6 the asset's first
+   DELIVERY_RTSP_AUS access units pushed by a scripted RTSP peer
+   (interleaved RTP, FU-A) to the listening demuxer and decoded on the
+   card to the first frames. Sockets on 127.0.0.1 only, each wait at
+   most DELIVERY_TIMEOUT;
+15. kernel leg: parallel.transcode_step as bench.py's kernel leg runs it
    (8 testgen frames 1920x1088 -> 1280x720, qscale 4, 4 chained steps),
    held to the JAX package's goldens (tests/data/torch_port/
    kernel_leg.npz); fsearch must launch once per step; then one warm
@@ -237,6 +268,7 @@ import json
 import math
 import os
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
@@ -1337,6 +1369,8 @@ def options_phase(dev, out_avi: str) -> dict:
 
     chain.decoder.decode, chain.decoder.flush = decode, flush
     chain.encoder.encode, tc.mux.write = encode, write
+    refs = {}
+    keep_references(chain.encoder, refs)
     ME._Mpeg4Packer.vop = vop
     ME._encode_b_device = timed_call(b_device, b_ms)
     RD.quantize_rd = timed_call(quantize_rd, rd_ms)
@@ -1390,6 +1424,11 @@ def options_phase(dev, out_avi: str) -> dict:
     demux.close()
     decode_s = time.perf_counter() - t0
     check(len(decoded) == 48, f"options: {len(decoded)} decoded frames")
+    # the decoder rebuilds each I/P-VOP's reference exactly
+    bad = same_pictures(decoded, refs)
+    check(len(refs) == types.count("I") + types.count("P") and bad == [],
+          f"options: {len(refs)} references; the decoder's pictures that "
+          f"are not the encoder's: {bad}")
     psnr = [planes_psnr_db(a, f.planes) for a, f in zip(inputs, decoded)]
     disp = {i: t for t, i, _ in vops}
     gpsnr = gold["decoded_psnr_db"].tolist()
@@ -2072,6 +2111,42 @@ def host(x):
     return x.cpu().numpy() if hasattr(x, "cpu") else np.asarray(x)
 
 
+def keep_references(enc, into: dict, n: int | None = None) -> None:
+    """Wrap an MPEG-4 encoder's encode_async so that the reference of
+    each I/P-VOP it codes (the recon planes it predicts from next, on
+    the host), of the first n if n is given, lands in `into` under its
+    display index (the B-frame scheduler passes it; without B-VOPs it
+    is the call's number)."""
+    inner = enc.encode_async
+
+    def take(frame, **kw):
+        h = inner(frame, **kw)
+        if n is None or len(into) < n:
+            into[kw.get("display_idx", len(into))] = tuple(
+                host(p) for p in enc._ref)
+        return h
+
+    enc.encode_async = take
+
+
+def same_pictures(frames, refs: dict) -> list:
+    """The (display index, plane) of every decoded picture, frames in
+    display order, that is not the encoder's reference of that index
+    (cropped to the picture: the reference is padded to whole MBs)."""
+    import numpy as np
+
+    bad = []
+    for i, ref in sorted(refs.items()):
+        if i >= len(frames):
+            bad.append((i, "not decoded"))
+            continue
+        for k, (a, b) in enumerate(zip(frames[i].planes, ref)):
+            a = np.asarray(a)
+            if not np.array_equal(a, b[:a.shape[0], :a.shape[1]]):
+                bad.append((i, k))
+    return bad
+
+
 def digest(*arrays) -> bytes:
     """md5 of the arrays' bytes in order (float arrays with -0.0 made
     +0.0, so equal values digest equally)."""
@@ -2406,11 +2481,19 @@ def filters_checks(dev: str, run: dict, gold, graphs: dict | None = None,
         same = sum(a == bytes(b) for a, b in zip(md5, gold[f"{key}_md5"]))
         share, dmax = _rows_diff([c for _, _, c in r["inputs"]
                                   if c is not None], list(gold[f"{key}_rows"]))
+        # a frame the recon reproduces exactly reads inf (the decoder's
+        # integer picture of a flat or exactly predicted frame): those
+        # frames must be the JAX package's, and the means take the rest
+        exact = [i for i, p in enumerate(ps) if math.isinf(p)]
+        gps = gold[f"{key}_psnr"]
         res[key] = {
             "types": types, "bytes": nbytes, "golden_bytes": gbytes,
             "bytes_rel": abs(nbytes - gbytes) / gbytes,
-            "recon_psnr": float(np.mean(ps)),
-            "psnr_gap": float(np.mean(ps) - gold[f"{key}_psnr"].mean()),
+            "exact_frames": exact,
+            "recon_psnr": float(np.mean([p for p in ps
+                                         if not math.isinf(p)])),
+            "psnr_gap": float(np.mean([p for p in ps if not math.isinf(p)])
+                              - gps[np.isfinite(gps)].mean()),
             "inputs_equal": same, "inputs": len(md5),
             "sums_gap": _sums_gap([b for _, b, _ in r["inputs"]],
                                   gold[f"{key}_sums"], [luma, chroma, chroma]),
@@ -2426,6 +2509,9 @@ def filters_checks(dev: str, run: dict, gold, graphs: dict | None = None,
              len(md5) == len(gold[f"{key}_md5"]),
              f"{name}: VOP types, pts or frame count differ from the JAX "
              f"package's"),
+            (check, exact == np.flatnonzero(np.isinf(gps)).tolist(),
+             f"{name}: the frames the recon reproduces exactly "
+             f"{exact} are not the JAX package's"),
             (lim, x["bytes_rel"] <= FILT_BYTES_REL, f"{name}: bytes"),
             (lim, abs(x["psnr_gap"]) <= FILT_PSNR_TOL_DB,
              f"{name}: recon PSNR mean")]
@@ -3109,7 +3195,7 @@ def containers_phase(dev: str) -> dict:
             f"{seek_launches['264']}")
 
         # 4. transcodes into containers: MPEG-4 in MP4
-        inputs, enc = [], []
+        inputs, enc, refs = [], [], {}
 
         def on_input(frame):
             if len(inputs) < CONT_READBACK:
@@ -3118,6 +3204,7 @@ def containers_phase(dev: str) -> dict:
         def prepare(tc):
             tc.chains[0].encoder.recon_psnr = []
             enc.append(tc.chains[0].encoder)
+            keep_references(enc[0], refs, CONT_READBACK)
 
         v = run("V", cmd["V"], on_input=on_input, prepare=prepare)
         res["rate"]["V"] = 48 / v["wall_s"]
@@ -3131,6 +3218,9 @@ def containers_phase(dev: str) -> dict:
                 for f in dec.decode(Packet(data=d, pts=p))] + dec.flush()
         check(len(back) == CONT_READBACK and back[0].planes[0].shape ==
               (720, 1280), f"V: read back {len(back)} frames")
+        bad = same_pictures(back, refs)
+        check(len(refs) == CONT_READBACK and bad == [], "V: the decoder's "
+              f"pictures are not the encoder's references: {bad}")
         dpsnr = statistics.fmean(planes_psnr_db(x, f.planes)
                                  for x, f in zip(inputs, back))
         res["v"] = {"types": types, "bytes": nbytes,
@@ -3150,8 +3240,6 @@ def containers_phase(dev: str) -> dict:
         check(res["v"]["bytes_rel"] <= FILT_BYTES_REL, "V: bytes")
         check(abs(res["v"]["psnr_gap"]) <= FILT_PSNR_TOL_DB,
               "V: recon PSNR mean")
-        check(abs(res["v"]["readback_gap"]) <= PSNR_TOL_DB,
-              "V: the vendored decoder's read-back PSNR")
         check(v["launches"]["hpel"] == types.count("P") and all(
             v["launches"][k] == 44 for k in E2E_KERNELS[:3]),
             f"V: launches {v['launches']}")
@@ -3641,7 +3729,6 @@ def hevc_phase(dev: str) -> dict:
     from librempeg_tpu_torch.cli import ffprobe
     from librempeg_tpu_torch.codecs.gif import make_palette, quantize
     from librempeg_tpu_torch.codecs.hevc.decoder import generate_stream
-    from librempeg_tpu_torch.codecs.mpeg4 import encoder as ME
     from librempeg_tpu_torch.codecs.mpeg4._decoder import Mpeg4Decoder
     from librempeg_tpu_torch.core.packet import Packet
 
@@ -3725,22 +3812,12 @@ def hevc_phase(dev: str) -> dict:
               f"H2 mkv: framemd5 {h2}")
 
         # H3: the MP4 copy to 1280x720 MPEG-4. A P-VOP whose levels
-        # overflow the sparse fetch layout is coded again in the next
-        # larger one (slim -> fat -> full, Mpeg4Encoder.encode_finish):
-        # hpel launches once per P-VOP pass
-        inputs, passes = [], []
-        p_pass = ME._encode_p_device
-
-        def counted(*a, **kw):
-            passes.append(1)
-            return p_pass(*a, **kw)
-
-        ME._encode_p_device = counted
-        try:
-            h3 = run("H3", cmd["H3"], on_input=lambda f: inputs.append(
-                tuple(host(p) for p in f.planes)))
-        finally:
-            ME._encode_p_device = p_pass
+        # overflow the sparse fetch layout is re-packed in the next
+        # larger one (slim -> fat -> full, Mpeg4Encoder.encode_finish),
+        # not coded again: hpel launches once per P-VOP
+        inputs = []
+        h3 = run("H3", cmd["H3"], on_input=lambda f: inputs.append(
+            tuple(host(p) for p in f.planes)))
         g3 = gold["h3"]
         types = "".join(vop_type(d) for _, d, _ in h3["packets"])
         sizes = [len(d) for _, d, _ in h3["packets"]]
@@ -3749,8 +3826,7 @@ def hevc_phase(dev: str) -> dict:
         back = [f for p, d in dem
                 for f in dec.decode(Packet(data=d, pts=p))] + dec.flush()
         psnrs = [planes_psnr_db(x, f.planes) for x, f in zip(inputs, back)]
-        res["h3"] = {"types": types, "p_passes": len(passes),
-                     "bytes": sum(sizes),
+        res["h3"] = {"types": types, "bytes": sum(sizes),
                      "bytes_rel": abs(sum(sizes) - sum(g3["sizes"]))
                      / sum(g3["sizes"]), "psnr": psnrs,
                      "psnr_gap": statistics.fmean(psnrs)
@@ -3765,9 +3841,9 @@ def hevc_phase(dev: str) -> dict:
         check(res["h3"]["bytes_rel"] <= FILT_BYTES_REL, "H3: bytes")
         check(abs(res["h3"]["psnr_gap"]) <= FILT_PSNR_TOL_DB,
               "H3: decoded PSNR mean")
-        check(res["launches"]["H3"].get("hpel", 0) == len(passes) >=
-              types.count("P"), f"H3: launches {res['launches']['H3']} for "
-              f"{len(passes)} P-VOP passes")
+        check(res["launches"]["H3"].get("hpel", 0) == types.count("P"),
+              f"H3: launches {res['launches']['H3']} for "
+              f"{types.count('P')} P-VOPs")
 
         # P1: PNG files with no -c:v, read back. The rgb24 frames come
         # from the scaler's float32 conversion: each is held to the
@@ -3892,12 +3968,11 @@ def acodecs_commands(td: str, wav: str) -> dict:
                "-y", j("k2.ac3")],
         "K2_mkv": ["-i", j("k2.ac3"), "-c:a", "copy", "-y", j("k2.mkv")],
         "K2D": ["-i", j("k2.mkv"), "-c:a", "pcm_s16le", "-y", j("k2.wav")],
-        # aformat first: the port negotiates no format, so aresample
-        # requantises (and dithers) only what reaches it as s16
+        # the FLAC encoder's s16 is negotiated onto the dithering
+        # aresample, whose input is converted to it first
         "K3": ["-i", fx("opus_celt.ogg"), "-af",
-               "aformat=sample_fmts=s16p,aresample=44100:"
-               "dither_method=lipshitz", "-c:a", "flac", "-y",
-               j("k3.flac")],
+               "aresample=44100:dither_method=lipshitz", "-c:a", "flac",
+               "-y", j("k3.flac")],
         "K3H": ["-i", fx("opus_hybrid.ogg"), "-f", "framemd5", "-y",
                 j("k3h.md5")],
         "K4": ["-i", fx("vorbis.ogg"), "-af",
@@ -3921,15 +3996,15 @@ def acodecs_commands(td: str, wav: str) -> dict:
     return cmd
 
 
-def s16_digest(x) -> dict:
+def s16_digest(x, windows: int = None) -> dict:
     """A decoded [channels, n] s16 stream as the goldens keep it: the md5
-    of its planar bytes, its shape, and ACODECS_WINDOWS windows of
-    ACODECS_WIN samples spread over it."""
+    of its planar bytes, its shape, and `windows` (ACODECS_WINDOWS)
+    windows of ACODECS_WIN samples spread over it."""
     import numpy as np
 
     x = np.ascontiguousarray(host(x), np.int16)
     starts = np.linspace(0, max(0, x.shape[1] - ACODECS_WIN),
-                         ACODECS_WINDOWS).astype(int).tolist()
+                         windows or ACODECS_WINDOWS).astype(int).tolist()
     return {"md5": hashlib.md5(x.tobytes()).hexdigest(),
             "shape": list(x.shape), "starts": starts,
             "windows": [x[:, s:s + ACODECS_WIN].tolist() for s in starts]}
@@ -4202,6 +4277,449 @@ def acodecs_phase(dev: str) -> dict:
     return res
 
 
+DELIVERY_GOLD = "bench_delivery.json"
+DELIVERY_FONT = os.path.join(GOLD, "fonts", "DejaVuSansMono.ttf")
+DELIVERY_CUES = os.path.join(GOLD, "delivery", "cues.srt")
+DELIVERY_FRAMES = 24       # D2: -frames:v
+#: D2's VOPs that the vendored decoder reads back (host numpy, seconds
+#: a 1080p VOP); each must equal the encoder's reference
+DELIVERY_READBACK = 4
+DELIVERY_RTSP_AUS = 12     # D6: the asset's first access units pushed
+DELIVERY_RTP_MTU = 1400
+DELIVERY_HLS_TIME = "0.5"  # HLS and DASH segment target, seconds
+DELIVERY_TIMEOUT = 15.0    # every socket wait and thread join of D5, D6
+#: D3's limits against the JAX package's measurement, whose resampler to
+#: 48 kHz runs in XLA where the port's runs on the card (test_torch_
+#: resample.py: within 2e-6): integrated loudness and loudness range in
+#: LU, the sample peak. Set between the clean gap and a planted fault
+#: (tools/torch_port_goldens.py --delivery --calibrate prints both: on
+#: the CPU 3.2e-7 LU, 4.9e-7 LU and 0 clean; the K-weighting shelf 0.01
+#: dB off moves I by 9.96e-3 LU).
+LOUD_I_TOL = 1e-3
+LOUD_LRA_TOL = 1e-3
+LOUD_PEAK_TOL = 1e-5
+#: loudnorm's s16 output: its gain comes from the measured I, so a gap of
+#: 3e-7 LU moves a sample across a rounding boundary now and then (3.3e-4
+#: of the samples, by 1, on the CPU; a shelf 0.01 dB off moves 0.91 of
+#: them, by up to 13). Held on LOUD_WINDOWS stored windows: the md5, or
+#: at most LOUD_S16_SHARE of their samples off, by 1.
+LOUD_WINDOWS = 32
+LOUD_S16_SHARE = 2e-3
+
+
+def delivery_commands(td: str, wav: str) -> dict:
+    """The delivery phase's command lines (cli.ffmpeg; the JAX package's
+    CLI takes the same), with outputs in td, whose hls/ and dash/ the
+    caller makes: D1 the asset into FLV (-c copy) and D1a the WAV to AAC
+    in FLV, D1D the FLV decoded to framemd5; D2 the FLV's first 24
+    frames with the committed cues burned in and a %{n} drawtext box,
+    to framemd5 (D2) and to MPEG-4 -q:v 3 (D2E), D2S the cues through
+    the subtitle stream; D3M ebur128, D3N loudnorm to s16; D4 the FLV's
+    video copied to Matroska under -map, -progress, -stats_period, -v,
+    -benchmark and -threads; D5 and D5M the asset into HLS and DASH."""
+    j = os.path.join
+    vf = (f"subtitles={DELIVERY_CUES}:fontfile={DELIVERY_FONT},drawtext="
+          f"fontfile={DELIVERY_FONT}:text='%{{n}}':x=16:y=16:box=1")
+    flv = j(td, "d1.flv")
+    seg = ["-metadata", f"hls_time={DELIVERY_HLS_TIME}"]
+    return {
+        "D1": ["-i", ASSET, "-c", "copy", "-y", flv],
+        "D1a": ["-i", wav, "-c:a", "aac", "-b:a", "128k", "-y",
+                j(td, "d1a.flv")],
+        "D1D": ["-i", flv, "-f", "framemd5", "-y", j(td, "d1.md5")],
+        "D2": ["-i", flv, "-frames:v", str(DELIVERY_FRAMES), "-vf", vf,
+               "-f", "framemd5", "-y", j(td, "d2.md5")],
+        "D2E": ["-i", flv, "-frames:v", str(DELIVERY_FRAMES), "-vf", vf,
+                "-c:v", "mpeg4", "-q:v", "3", "-y", j(td, "d2.avi")],
+        "D2S": ["-i", DELIVERY_CUES, "-y", j(td, "d2.srt")],
+        "D3M": ["-i", wav, "-af", "ebur128", "-f", "null", "-y",
+                j(td, "d3m.null")],
+        "D3N": ["-i", wav, "-af", "loudnorm=I=-16:TP=-1.5", "-c:a",
+                "pcm_s16le", "-y", j(td, "d3.wav")],
+        "D4": ["-i", flv, "-map", "0:v", "-c", "copy", "-progress",
+               j(td, "d4.progress"), "-stats_period", "0.5", "-v", "error",
+               "-benchmark", "-threads", "2", "-y", j(td, "d4.mkv")],
+        "D5": ["-i", ASSET, "-c", "copy"] + seg + [
+            "-f", "hls", "-y", j(td, "hls", "index.m3u8")],
+        "D5M": ["-i", ASSET, "-c", "copy"] + seg + [
+            "-f", "dash", "-y", j(td, "dash", "manifest.mpd")],
+    }
+
+
+def loudness_of(tc) -> dict:
+    """I, LRA and peak of the ebur128 filter's stats, or of the loudnorm
+    filter's measurement, in a Transcoder's audio graph after its run."""
+    for chain in tc.chains.values():
+        for node in chain.graph.graph.nodes:
+            f = node.filter
+            if f.NAME in ("ebur128", "loudnorm"):
+                m = f.stats if f.NAME == "ebur128" else f.measured
+                return {k: float(m[k]) for k in ("I", "LRA", "peak")}
+    raise KeyError("no loudness filter in the graph")
+
+
+def dir_md5s(path: str) -> dict:
+    """{file name: md5} of the files of a directory."""
+    return {n: hashlib.md5(open(os.path.join(path, n), "rb").read())
+            .hexdigest() for n in sorted(os.listdir(path))}
+
+
+def rtp_h264(aus: list[bytes], mtu: int = DELIVERY_RTP_MTU) -> list[bytes]:
+    """RFC 6184 RTP packets of annex-B access units: a NAL unit that fits
+    in one packet alone, a larger one as FU-A fragments; one timestamp
+    per access unit at 25 fps, the marker on its last packet."""
+    from librempeg_tpu_torch.codecs.h264.parse import split_annexb
+
+    out, seq = [], 1
+    for i, au in enumerate(aus):
+        nals = split_annexb(au)
+        for k, nal in enumerate(nals):
+            if len(nal) <= mtu:
+                parts = [nal]
+            else:
+                body = nal[1:]
+                parts = [bytes([(nal[0] & 0xE0) | 28,
+                                (off == 0) << 7
+                                | (off + mtu >= len(body)) << 6
+                                | (nal[0] & 0x1F)]) + body[off:off + mtu]
+                         for off in range(0, len(body), mtu)]
+            for n, payload in enumerate(parts):
+                marker = k == len(nals) - 1 and n == len(parts) - 1
+                out.append(struct.pack(">BBHII", 0x80, marker << 7 | 96,
+                                       seq & 0xFFFF, 90000 * i // 25,
+                                       0x1234) + payload)
+                seq += 1
+    return out
+
+
+def rtsp_push(port: int, packets: list[bytes], errors: list) -> None:
+    """A scripted RTSP peer on 127.0.0.1: ANNOUNCE an H.264 session,
+    SETUP interleaved TCP, RECORD, then the RTP packets on channel 0.
+    It retries the connection until the listening demuxer accepts, for
+    at most DELIVERY_TIMEOUT; a failure is appended to `errors`."""
+    import socket
+
+    try:
+        t_end = time.perf_counter() + DELIVERY_TIMEOUT
+        while True:
+            try:
+                sock = socket.create_connection(("127.0.0.1", port),
+                                                timeout=DELIVERY_TIMEOUT)
+                break
+            except ConnectionRefusedError:
+                if time.perf_counter() > t_end:
+                    raise
+                time.sleep(0.05)
+        with sock, sock.makefile("rwb") as f:
+            base = f"rtsp://127.0.0.1:{port}/x"
+            sdp = ("v=0\r\no=- 0 0 IN IP4 127.0.0.1\r\ns=x\r\nc=IN IP4 "
+                   "127.0.0.1\r\nt=0 0\r\nm=video 0 RTP/AVP 96\r\n"
+                   "a=rtpmap:96 H264/90000\r\na=control:streamid=0\r\n") \
+                .encode()
+            for n, (method, url, hdrs, body) in enumerate((
+                    ("ANNOUNCE", base, {"Content-Type": "application/sdp",
+                                        "Content-Length": len(sdp)}, sdp),
+                    ("SETUP", base + "/streamid=0", {
+                        "Transport": "RTP/AVP/TCP;unicast;interleaved=0-1"},
+                     b""),
+                    ("RECORD", base, {"Session": "d6"}, b""))):
+                lines = [f"{method} {url} RTSP/1.0", f"CSeq: {n + 1}"]
+                lines += [f"{k}: {v}" for k, v in hdrs.items()]
+                f.write(("\r\n".join(lines) + "\r\n\r\n").encode() + body)
+                f.flush()
+                status = f.readline()
+                if b"200" not in status:
+                    raise OSError(f"RTSP {method}: {status!r}")
+                while f.readline() not in (b"\r\n", b"\n", b""):
+                    pass
+            for p in packets:
+                f.write(b"$\x00" + struct.pack(">H", len(p)) + p)
+            f.flush()
+    except Exception as e:          # reported by the phase
+        errors.append(f"{type(e).__name__}: {e}")
+
+
+def free_port() -> int:
+    """A TCP port of 127.0.0.1 that was free a moment ago (bound as
+    port 0, then released)."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def serve_dir(directory: str):
+    """A ThreadingHTTPServer on 127.0.0.1, port 0, serving `directory`
+    from a thread, without a request log: (its base URL, a function
+    that stops it)."""
+    import functools
+    import http.server
+    import threading
+
+    class Quiet(http.server.SimpleHTTPRequestHandler):
+        def log_message(self, *a):
+            pass
+
+    srv = http.server.ThreadingHTTPServer(
+        ("127.0.0.1", 0), functools.partial(Quiet, directory=directory))
+    t = threading.Thread(target=srv.serve_forever, daemon=True)
+    t.start()
+
+    def stop():
+        srv.shutdown()
+        srv.server_close()
+        t.join(timeout=DELIVERY_TIMEOUT)
+        check(not t.is_alive(), "the HTTP server's thread did not stop")
+
+    return f"http://127.0.0.1:{srv.server_address[1]}", stop
+
+
+def delivery_phase(dev: str) -> dict:
+    """D1-D6 through cli.ffmpeg's parser and Transcoder (D4 through its
+    main), held to tests/data/torch_port/bench_delivery.json (the JAX
+    package's runs on the CPU; tools/torch_port_goldens.py --delivery)
+    and to the asset's frame md5s: FLV, subtitles and drawtext (the
+    committed font through the port's TrueType reader), loudness, the
+    CLI's stream options, HLS and DASH read back over a loopback HTTP
+    server, and an RTSP push on loopback. The H.264 decodes launch mc,
+    intra and deblock; D2E's MPEG-4 encode launches hpel on the
+    encoder's integer reference, which the vendored decoder must
+    rebuild exactly."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from librempeg_tpu_torch.cli import ffmpeg as cli
+    from librempeg_tpu_torch.cli import ffprobe
+    from librempeg_tpu_torch.codecs.aac.decoder import AacDecoder
+    from librempeg_tpu_torch.codecs.mpeg4._decoder import Mpeg4Decoder
+    from librempeg_tpu_torch.core import log as plog
+    from librempeg_tpu_torch.core.packet import Packet
+    from librempeg_tpu_torch.formats.api import open_input
+
+    gold = json.load(open(os.path.join(GOLD, DELIVERY_GOLD)))
+    frames_md5 = open(os.path.join(GOLD, "bench_1080p_frames.md5")).read() \
+        .split()
+    t_phase = time.perf_counter()
+    res = {"wall_s": {}, "split_s": {}, "launches": {}}
+    total = dict.fromkeys(KERNELS, 0)
+
+    def run(name, argv, **kw):
+        r = cli_run(argv, dev, **kw)
+        res["wall_s"][name] = r["wall_s"]
+        res["split_s"][name] = {k: round(v, 4)
+                                for k, v in r["split_s"].items()}
+        res["launches"][name] = {k: v for k, v in r["launches"].items()
+                                 if v}
+        for k, v in r["launches"].items():
+            total[k] += v
+        return r
+
+    def md5(path):
+        return hashlib.md5(open(path, "rb").read()).hexdigest()
+
+    def frame_rows(path):
+        return [ln.split(",")[-1].strip()
+                for ln in md5_lines(open(path).read())[1]]
+
+    def decoded(name, argv, want, exact=True):
+        """argv to framemd5: its frames' md5s must be `want`, with mc,
+        intra and deblock launched once per P frame among them (or, when
+        -frames:v cuts the decode, at least that often: the decoder
+        works ahead of the chain)."""
+        run(name, argv)
+        check(frame_rows(argv[-1]) == want,
+              f"{name}: the decoded frames differ from the asset's")
+        n_p = len(want) - sum(gold["idr"][:len(want)])
+        lc = [res["launches"][name].get(k, 0) for k in E2E_KERNELS[:3]]
+        check(len(set(lc)) == 1 and (lc[0] == n_p if exact
+                                     else lc[0] >= n_p),
+              f"{name}: mc, intra, deblock launches {lc} for {n_p} P "
+              "frames")
+
+    with tempfile.TemporaryDirectory() as td:
+        wav = os.path.join(td, "in.wav")
+        x = write_audio_wav(wav, AUDIO_SECONDS)
+        check(md5(wav) == gold["wav_md5"], "delivery: input WAV md5")
+        for d in ("hls", "dash"):
+            os.makedirs(os.path.join(td, d))
+        cmd = delivery_commands(td, wav)
+
+        # D1: the asset into FLV, its probe and its decode on the card
+        run("D1", cmd["D1"])
+        flv = cmd["D1"][-1]
+        check(md5(flv) == gold["d1"]["md5"], "D1: the FLV is not the JAX "
+              "package's")
+        check(probe_json(ffprobe, flv) == gold["d1"]["ffprobe"],
+              "D1: ffprobe JSON differs from the JAX package's")
+        decoded("D1D", cmd["D1D"], frames_md5)
+
+        # D1a: AAC into FLV, with the AudioSpecificConfig the JAX muxer
+        # leaves out (its file has no stream), decoded on the card
+        g = gold["d1a"]
+        run("D1a", cmd["D1a"])
+        d = open_input(cmd["D1a"][-1])
+        par = d.streams[0].codecpar
+        apk = list(d.packets())
+        d.close()
+        check((par.codec_id, par.sample_rate, par.nb_channels) ==
+              ("aac", AUDIO_IN_RATE, 2), f"D1a: stream {par.codec_id} "
+              f"{par.sample_rate} {par.nb_channels}")
+        check([p.pts for p in apk] == g["pts_ms"],
+              "D1a: tag pts differ from the JAX encoder's packets")
+        nbytes = sum(len(p.data) for p in apk)
+        dec = AacDecoder(par, device=dev)
+        y = torch.cat([f.data for p in apk for f in dec.decode(p)], 1)
+        res["d1a"] = {"packets": len(apk), "bytes": nbytes,
+                      "golden_bytes": g["raw_bytes"],
+                      "snr_db": snr_db(x, host(y)),
+                      "golden_snr_db": g["snr_db"]}
+        check(abs(nbytes - g["raw_bytes"]) <= AUDIO_BYTES_TOL
+              * g["raw_bytes"], f"D1a: {res['d1a']}")
+        check(abs(res["d1a"]["snr_db"] - g["snr_db"]) <= AUDIO_SNR_TOL_DB,
+              f"D1a: {res['d1a']}")
+
+        # D2: the cues and a drawtext box burned in on the card, to
+        # framemd5 and to MPEG-4, whose reference the decoder rebuilds
+        g = gold["d2"]
+        decoded("D2", cmd["D2"], g["frames"], exact=False)
+        inputs, refs, enc = [], {}, []
+
+        def prepare(tc):
+            enc.append(tc.chains[0].encoder)
+            enc[0].recon_psnr = []
+            keep_references(enc[0], refs, DELIVERY_READBACK)
+
+        def on_input(frame):
+            if len(inputs) < DELIVERY_READBACK:
+                inputs.append(tuple(host(p) for p in frame.planes))
+
+        r = run("D2E", cmd["D2E"], prepare=prepare, on_input=on_input)
+        types = "".join(vop_type(d) for _, d, _ in r["packets"])
+        nbytes = sum(len(d) for _, d, _ in r["packets"])
+        ps = enc[0].recon_psnr
+        res["d2"] = {"types": types, "bytes": nbytes,
+                     "bytes_rel": abs(nbytes - sum(g["sizes"]))
+                     / sum(g["sizes"]),
+                     "recon_psnr": statistics.fmean(ps),
+                     "psnr_gap": statistics.fmean(ps)
+                     - statistics.fmean(g["recon_psnr"])}
+        check(types == g["types"] and [p for p, _, _ in r["packets"]] ==
+              g["pts"], "D2E: VOP types or pts differ from the JAX "
+              "package's")
+        check(res["d2"]["bytes_rel"] <= FILT_BYTES_REL, f"D2E: {res['d2']}")
+        check(abs(res["d2"]["psnr_gap"]) <= FILT_PSNR_TOL_DB,
+              f"D2E: {res['d2']}")
+        check(r["launches"]["hpel"] == types.count("P") and
+              r["launches"]["mc"] == res["launches"]["D2"].get("mc", 0),
+              f"D2E: launches {r['launches']} (D2 {res['launches']['D2']})")
+        t0 = time.perf_counter()
+        dec = Mpeg4Decoder(device=None)  # host numpy planes
+        back = []
+        for p in avi_payloads(cmd["D2E"][-1])[:DELIVERY_READBACK]:
+            back += dec.decode(Packet(data=p))
+        res["wall_s"]["D2E_readback"] = time.perf_counter() - t0
+        bad = same_pictures(back, refs)
+        check(len(back) == len(refs) == DELIVERY_READBACK and bad == [],
+              f"D2E: {len(back)} VOPs read back; not the encoder's "
+              f"references: {bad}")
+        res["d2"]["readback_psnr"] = statistics.fmean(
+            planes_psnr_db(a, f.planes) for a, f in zip(inputs, back))
+        run("D2S", cmd["D2S"])
+        check(md5(cmd["D2S"][-1]) == g["srt_md5"],
+              "D2S: the SubRip file differs from the JAX package's")
+
+        # D3: loudness metering and normalisation
+        g = gold["d3"]
+        tcs = []
+        run("D3M", cmd["D3M"], prepare=tcs.append)
+        run("D3N", cmd["D3N"], prepare=tcs.append)
+        m, n = (loudness_of(tc) for tc in tcs)
+        res["d3"] = {"ebur128": m, "gaps": {
+            k: abs(m[k] - g["ebur128"][k]) for k in m}}
+        check(res["d3"]["gaps"]["I"] <= LOUD_I_TOL
+              and res["d3"]["gaps"]["LRA"] <= LOUD_LRA_TOL
+              and res["d3"]["gaps"]["peak"] <= LOUD_PEAK_TOL and n == m,
+              f"D3: measured {m}, loudnorm's {n} (JAX {g['ebur128']})")
+        d = open_input(cmd["D3N"][-1])
+        got = s16_digest(packets_s16([(0, bytes(p.data), 0)
+                                      for p in d.packets()], 2),
+                         LOUD_WINDOWS)
+        d.close()
+        diff = np.abs(np.array(got["windows"], np.int32)
+                      - np.array(g["s16"]["windows"], np.int32))
+        res["d3"]["s16"] = {"md5_equal": got["md5"] == g["s16"]["md5"],
+                            "share": float(np.count_nonzero(diff)
+                                           / diff.size),
+                            "max": int(diff.max())}
+        check(got["shape"] == g["s16"]["shape"] and (
+            res["d3"]["s16"]["md5_equal"] or (
+                res["d3"]["s16"]["share"] <= LOUD_S16_SHARE
+                and res["d3"]["s16"]["max"] <= 1)),
+              f"D3N: loudnorm's s16 {res['d3']['s16']}")
+
+        # D4: the CLI's stream and run options, through its main (which
+        # sets the torch threads and the log level: both restored)
+        threads, level = torch.get_num_threads(), plog.get_level()
+        t0 = time.perf_counter()
+        try:
+            check(cli.main(cmd["D4"] + ["-device", dev]) == 0, "D4: rc")
+        finally:
+            torch.set_num_threads(threads)
+            plog.set_level(level)
+        res["wall_s"]["D4"] = time.perf_counter() - t0
+        check([b for _, b in demuxed(cmd["D4"][-1])] ==
+              [b for _, b in demuxed(flv)],
+              "D4: the Matroska's packets are not the FLV's")
+        prog = open(cmd["D4"][cmd["D4"].index("-progress") + 1]).read() \
+            .splitlines()
+        check([ln.split("=")[0] for ln in prog[-6:]] ==
+              gold["d4"]["progress_keys"] and prog[-1] == "progress=end",
+              f"D4: the progress feed ends {prog[-6:]}")
+
+        # D5: HLS and DASH, each read back over HTTP on the card
+        for name, sub in (("D5", "hls"), ("D5M", "dash")):
+            g = gold[name.lower()]
+            run(name, cmd[name])
+            out = os.path.join(td, sub)
+            check(dir_md5s(out) == g["md5s"], f"{name}: the playlist or "
+                  "segments differ from the JAX package's")
+            base, stop = serve_dir(out)
+            try:
+                decoded(f"{name}D", ["-i", f"{base}/"
+                                     f"{os.path.basename(cmd[name][-1])}",
+                                     "-f", "framemd5", "-y",
+                                     os.path.join(td, f"{sub}.md5")],
+                        frames_md5)
+            finally:
+                stop()
+
+        # D6: an RTSP push of the first access units to the listening
+        # demuxer, decoded on the card
+        d = open_input(ASSET)
+        aus = [bytes(p.data) for _, p in zip(range(DELIVERY_RTSP_AUS),
+                                              d.packets())]
+        d.close()
+        port, errors = free_port(), []
+        peer = threading.Thread(target=rtsp_push,
+                                args=(port, rtp_h264(aus), errors))
+        peer.start()
+        try:
+            decoded("D6", ["-f", "rtsp", "-timeout", str(DELIVERY_TIMEOUT),
+                           "-i", f"rtsp://127.0.0.1:{port}/x?listen=1",
+                           "-f", "framemd5", "-y",
+                           os.path.join(td, "d6.md5")],
+                    frames_md5[:DELIVERY_RTSP_AUS])
+        finally:
+            peer.join(timeout=DELIVERY_TIMEOUT)
+        check(not peer.is_alive() and not errors, f"D6: the peer: {errors}")
+    res["total_launches"] = total
+    res["phase_s"] = time.perf_counter() - t_phase
+    return res
+
+
 def main(argv: list[str]) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch "
                                  "port on one NVIDIA card.")
@@ -4425,8 +4943,8 @@ def main(argv: list[str]) -> int:
         f"{hv['h3']['types']} {hv['h3']['bytes']} bytes (gap "
         f"{hv['h3']['bytes_rel']:.6f}), decoded PSNR "
         f"{[round(x, 4) for x in hv['h3']['psnr']]} dB (gap "
-        f"{hv['h3']['psnr_gap']:+.5f}), hpel {hv['h3']['p_passes']} for "
-        f"its P-VOP passes; P1 PNG files {hv['p1_bytes']} bytes, "
+        f"{hv['h3']['psnr_gap']:+.5f}), hpel once a P-VOP; P1 PNG files "
+        f"{hv['p1_bytes']} bytes, "
         f"{hv['p1_identical']} of {IMG_FRAMES} the JAX package's, rgb24 "
         f"flips at ties against the JAX frames {hv['p1_flips']} of "
         f"{hv['p1_ties']} ties, none off the exact conversion elsewhere; G1 "
@@ -4459,6 +4977,26 @@ def main(argv: list[str]) -> int:
     log(f"acodecs launches: {json.dumps(ac['total_launches'])}; phase "
         f"{ac['phase_s']:.1f} s")
 
+    dl = delivery_phase(dev)
+    for name, wall in dl["wall_s"].items():
+        log(f"delivery {name} ({card}): {wall:.3f} s; launches "
+            f"{json.dumps(dl['launches'].get(name, {}))}; split "
+            + json.dumps(dl["split_s"].get(name, {})))
+    log(f"delivery ({card}): D1 the FLV and its ffprobe JSON the JAX "
+        f"package's, decoded on the card to the asset's frames; D1a "
+        f"{json.dumps(dl['d1a'])}; D2 the burned-in frames the JAX "
+        f"package's, D2E {json.dumps(dl['d2'])}, its first "
+        f"{DELIVERY_READBACK} VOPs decoded to the encoder's references "
+        f"exactly, D2S the JAX package's SubRip; D3 {json.dumps(dl['d3'])},"
+        f" loudnorm's s16 within LOUD_S16_SHARE of the JAX package's; D4 "
+        f"the FLV's packets in "
+        f"Matroska, the progress feed ending progress=end; D5 HLS and "
+        f"DASH files the JAX package's, each read back over HTTP to the "
+        f"asset's frames; D6 {DELIVERY_RTSP_AUS} access units pushed over "
+        f"RTSP decoded to the asset's first frames")
+    log(f"delivery launches: {json.dumps(dl['total_launches'])}; phase "
+        f"{dl['phase_s']:.1f} s")
+
     k = kernel_leg_phase(dev, leg, profile_dir)
     log(f"kernel leg: {LEG_BATCH}x{LEG_H}x{LEG_W} -> {LEG_DH}x{LEG_DW}, "
         f"{LEG_ITERS} chained steps; launches {k['launches']}; MVs equal "
@@ -4487,6 +5025,7 @@ def main(argv: list[str]) -> int:
          "launches_encoders": e["total_launches"][name],
          "launches_hevc": hv["total_launches"][name],
          "launches_acodecs": ac["total_launches"][name],
+         "launches_delivery": dl["total_launches"][name],
          **{k: kres[name][k] for k in (
              "max_abs_err", "ms", "device_ms", "device_ms_b2b", "plain_ms",
              "bound_ms",

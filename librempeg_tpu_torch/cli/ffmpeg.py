@@ -9,8 +9,10 @@ the slices implement and passes any other -name value to the codecs:
         [-c:v h264|mpeg4|mpeg2video|mpeg1video|mjpeg|rawvideo|copy]
         [-b:v N | -q:v N] [-g N] [-bf N] [-trellis N] [-frames:v N]
         [-c:a aac|pcm_s16le] [-b:a N] [-ar RATE] [-ac N] [-af CHAIN]
-        [-frames:a N] [-vn] [-an] [-NAME[:v|:a] VALUE]
-        [-device cuda|cpu] [-y] [-f FMT] OUT
+        [-frames:a N] [-vn] [-an] [-c CODEC] [-map SPEC]...
+        [-v LEVEL] [-progress URL] [-stats_period S] [-benchmark]
+        [-threads N] [-NAME[:v|:a] VALUE] [-device cuda|cpu] [-y]
+        [-f FMT] OUT
 
 Video: H.264, MJPEG (in AVI, raw .mjpeg, or image2 files such as
 thumb_%03d.jpg), or a source filter graph (-f lavfi -i
@@ -69,6 +71,16 @@ from a 16-bit WAV to pcm_s16le. For example
     python -m librempeg_tpu_torch.cli.ffmpeg -i in.wav \
         -af aresample=48000:dither_method=lipshitz -c:a pcm_s16le -y out.wav
 
+-c (or -codec) names the codec of every stream (-c copy remuxes);
+-map 0, 0:v, 0:a, 0:s, 0:N or 0:v:N selects input streams (all when
+none is given); a subtitle stream (SubRip, ASS) is re-encoded as
+SubRip. -v/-loglevel sets the log level; -progress URL writes
+ffmpeg's key=value blocks (frame, fps, out_time_us, out_time, speed,
+progress=continue|end) every -stats_period seconds and at the end
+("-" or pipe:1 for stdout); -benchmark prints the run's CPU times and
+peak memory; -threads N caps the host's torch threads. -mesh (the
+multi-device transcode) is refused until it is ported.
+
 -device defaults to cuda; without a card the run fails rather than
 moving to the CPU.
 """
@@ -78,6 +90,9 @@ import os
 import sys
 import time
 
+import torch
+
+from librempeg_tpu_torch.core.log import set_level
 from librempeg_tpu_torch.core.rational import Rational
 from librempeg_tpu_torch.core.samplefmt import ChannelLayout
 from librempeg_tpu_torch.sched.pipeline import (
@@ -108,11 +123,22 @@ def _parse_time(s: str) -> float:
 
 
 def parse_args(argv: list[str]) -> tuple[TranscodeSpec, bool]:
+    """The transcode spec and -y of a command line (parse_cli's
+    spec and its "overwrite")."""
+    spec, glob = parse_cli(argv)
+    return spec, glob["overwrite"]
+
+
+def parse_cli(argv: list[str]) -> tuple[TranscodeSpec, dict]:
+    """The transcode spec and the run's global options: overwrite (-y),
+    benchmark, threads, progress (a file name or "-"/"pipe:1" for
+    stdout) and stats_period. -v sets the log level as it is read."""
+    glob: dict = {"overwrite": False, "benchmark": False, "threads": 0,
+                  "progress": "", "stats_period": 0.5}
     smap = StreamMap()
     audio = StreamMap(codec="pcm_s16le")
     kw: dict = {"input_url": None, "output_url": None}
     in_opts: dict = {}               # options before -i, for the demuxer
-    overwrite = False
     fmt = None                       # -f: for the next -i or the output
     to = None                        # -to: a position, before or after -i
     to_input = ss_input = False
@@ -120,7 +146,11 @@ def parse_args(argv: list[str]) -> tuple[TranscodeSpec, bool]:
     while i < len(argv):
         a = argv[i]
         if a in ("-y", "-n"):
-            overwrite = a == "-y"
+            glob["overwrite"] = a == "-y"
+            i += 1
+            continue
+        if a == "-benchmark":
+            glob["benchmark"] = True
             i += 1
             continue
         if a in ("-vn", "-an"):
@@ -145,8 +175,23 @@ def parse_args(argv: list[str]) -> tuple[TranscodeSpec, bool]:
             kw["input_opts"], in_opts = in_opts, {}
         elif a == "-f":
             fmt = v
+        elif a in ("-c", "-codec"):
+            smap.codec = audio.codec = v
         elif a in ("-c:v", "-vcodec", "-codec:v"):
             smap.codec = v
+        elif a in ("-v", "-loglevel"):
+            set_level(v)
+        elif a == "-progress":
+            glob["progress"] = v
+        elif a == "-stats_period":
+            glob["stats_period"] = float(v)
+        elif a == "-threads":
+            glob["threads"] = int(v)
+        elif a == "-map":
+            kw.setdefault("maps", []).append(v)
+        elif a == "-mesh":
+            raise CliError("-mesh: the multi-device transcode is not "
+                           "ported yet")
         elif a in ("-s", "-video_size", "-s:v"):
             w, _, h = v.lower().partition("x")
             if pre_input:
@@ -230,7 +275,7 @@ def parse_args(argv: list[str]) -> tuple[TranscodeSpec, bool]:
     if to is not None and "duration" not in kw:
         kw["duration"] = _to_duration(to, to_input, kw.get("seek", 0.0),
                                       ss_input)
-    return TranscodeSpec(video=smap, audio=audio, **kw), overwrite
+    return TranscodeSpec(video=smap, audio=audio, **kw), glob
 
 
 def _to_duration(to: float, to_input: bool, ss: float,
@@ -249,16 +294,55 @@ def _to_duration(to: float, to_input: bool, ss: float,
     return to
 
 
+def _progress_writer(url: str):
+    """The -progress feed (ffmpeg.c's key=value blocks, each ended by
+    progress=continue or progress=end), as the JAX package writes it:
+    (callback for Transcoder.run, the stream to close or None)."""
+    io = sys.stdout if url in ("-", "pipe:", "pipe:1") else open(url, "w")
+
+    def write(st):
+        h = int(st["out_time_s"] // 3600)
+        m = int(st["out_time_s"] // 60) % 60
+        sec = st["out_time_s"] % 60
+        io.write(f"frame={st['frame']}\n"
+                 f"fps={st['fps']:.2f}\n"
+                 f"out_time_us={int(st['out_time_s'] * 1e6)}\n"
+                 f"out_time={h:02d}:{m:02d}:{sec:09.6f}\n"
+                 f"speed={st['speed']:.3g}x\n"
+                 f"progress={'end' if st['done'] else 'continue'}\n")
+        io.flush()
+
+    return write, (None if io is sys.stdout else io)
+
+
 def main(argv: list[str] | None = None) -> int:
-    spec, overwrite = parse_args(sys.argv[1:] if argv is None else argv)
-    if os.path.exists(spec.output_url) and not overwrite:
+    spec, glob = parse_cli(sys.argv[1:] if argv is None else argv)
+    if os.path.exists(spec.output_url) and not glob["overwrite"]:
         raise CliError(f"{spec.output_url} exists (use -y to overwrite)")
+    if glob["threads"]:
+        # the host's share of the run (the JAX package parses -threads
+        # and uses it nowhere)
+        torch.set_num_threads(glob["threads"])
     t0 = time.perf_counter()
-    stats = Transcoder(spec).run()
+    progress, prog_io = (_progress_writer(glob["progress"])
+                         if glob["progress"] else (None, None))
+    try:
+        stats = Transcoder(spec).run(progress=progress,
+                                     progress_interval=glob["stats_period"])
+    finally:
+        if prog_io is not None:
+            prog_io.close()
     dt = time.perf_counter() - t0
     n = sum(stats["frames"].values())
     print(f"frames={n} packets={stats['packets']} time={dt:.3f}s "
           f"fps={n / dt:.2f}", file=sys.stderr)
+    if glob["benchmark"]:
+        import resource
+
+        ru = resource.getrusage(resource.RUSAGE_SELF)
+        print(f"bench: utime={ru.ru_utime:.3f}s stime={ru.ru_stime:.3f}s "
+              f"rtime={dt:.3f}s", file=sys.stderr)
+        print(f"bench: maxrss={ru.ru_maxrss}KiB", file=sys.stderr)
     return 0
 
 

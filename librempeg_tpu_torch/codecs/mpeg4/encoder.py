@@ -6,7 +6,12 @@ tensors on the encoder's device: integer full search
 kernel, codecs/mpeg4/me_pallas.py), the spec DCT and H.263 quantiser or
 the trellis (RD) quantiser (codecs/mpeg4/trellis.py), in-loop
 reconstruction, and the compaction of the coded levels for the host
-fetch (_sparsify_slim / _sparsify_fat). B-VOPs (-bf) take a plain-torch
+fetch (_sparsify_slim / _sparsify_fat). The in-loop reference is the
+picture the decoder (codecs/mpeg4/_decoder.py) rebuilds from the
+written bits: its dequantiser with int16 storage and its simple_idct
+(_idct_int) on the integer prediction, so a decode does not drift
+along the GOP. (The JAX package keeps a float recon from the spec
+IDCT, which its decoder never has.) B-VOPs (-bf) take a plain-torch
 pass (_encode_b_device: the searches against both anchors and the
 residuals of the four prediction modes). The host half (DC and MV
 prediction, VLC packing in native/mpeg4.cpp, B-VOP mode decision and
@@ -30,6 +35,7 @@ from librempeg_tpu_torch.codecs.api import CodecInfo, Encoder, register_encoder
 from librempeg_tpu_torch.codecs.mpeg4 import me_pallas as MEP
 from librempeg_tpu_torch.codecs.mpeg4 import tables as T
 from librempeg_tpu_torch.codecs.mpeg4 import trellis as rdq
+from librempeg_tpu_torch.codecs.mpeg4._decoder import _int_idct_matrix
 from librempeg_tpu_torch.codecs.mpeg4.bits import BitWriter
 from librempeg_tpu_torch.core.errors import InvalidData, Unsupported
 from librempeg_tpu_torch.core.frame import VideoFrame
@@ -70,48 +76,106 @@ def _spec_dct_scale() -> np.ndarray:
 _SCALES: dict = {}
 
 
-def _scale(like: torch.Tensor) -> torch.Tensor:
+def _scale_basis(like: torch.Tensor) -> tuple:
+    """The spec scale table and the orthonormal DCT basis, float64 on
+    `like`'s device, uploaded once."""
     key = str(like.device)
     s = _SCALES.get(key)
     if s is None:
-        s = _SCALES[key] = torch.as_tensor(_spec_dct_scale(),
-                                           device=like.device)
+        s = _SCALES[key] = (
+            torch.as_tensor(_spec_dct_scale(), dtype=torch.float64,
+                            device=like.device),
+            torch.as_tensor(dct8x8._ortho_basis(), dtype=torch.float64,
+                            device=like.device))
     return s
 
 
 def _fdct_spec(x: torch.Tensor) -> torch.Tensor:
-    """[B, 8, 8] float pixels -> spec DCT coefficients."""
-    return dct8x8.fdct(x) * _scale(x)
+    """[B, 8, 8] pixels or residuals -> spec DCT coefficients (float32),
+    computed in float64 and rounded once. With the integer reference
+    the residuals are integers, and their DCT often lands exactly on a
+    quantiser's threshold; a float32 GEMM settles such a tie by its
+    summation order, which differs between the card and the CPU, where
+    the float64 value rounds to the same float32 on every device."""
+    scale, c = _scale_basis(x)
+    return ((c @ x.to(torch.float64) @ c.T) * scale).to(torch.float32)
 
 
-def _idct_spec(c: torch.Tensor) -> torch.Tensor:
-    return dct8x8.idct(c / _scale(c))
+_IDCT_M: dict = {}
+
+
+def _idct_matrix(like: torch.Tensor) -> torch.Tensor:
+    """The decoder's simple_idct pass matrix (_decoder._int_idct_matrix)
+    as float64 on `like`'s device, uploaded once."""
+    key = str(like.device)
+    m = _IDCT_M.get(key)
+    if m is None:
+        m = _IDCT_M[key] = torch.as_tensor(
+            _int_idct_matrix(), dtype=torch.float64, device=like.device)
+    return m
+
+
+def _wrap16(x: torch.Tensor) -> torch.Tensor:
+    """int16 storage wrap of the decoder's coefficient blocks."""
+    return torch.remainder(x + 32768, 65536) - 32768
+
+
+def _idct_int(deq: torch.Tensor) -> torch.Tensor:
+    """[..., 8, 8] dequantised coefficients -> the residual the decoder
+    reconstructs (_decoder.idct_simple: the row pass's DC-only shortcut,
+    int16 row storage, the column pass), as float32 integers.
+
+    Two float64 matrix products: every input is an int16, every entry of
+    the matrix under 2^15, so each partial sum of a pass stays under
+    8 * 2^15 * 2^15 = 2^33 < 2^53 and float64 is exact in any summation
+    order (float32 would not be: its sums pass 2^24)."""
+    m = _idct_matrix(deq)
+    x = deq.to(torch.float64)
+    rows = torch.floor((x @ m.T + 1024.0) * (1.0 / 2048.0))
+    dconly = (x[..., 1:] == 0).all(dim=-1, keepdim=True)
+    rows = _wrap16(torch.where(dconly, x[..., :1] * 8.0, rows))
+    rows[..., 0, :] += float((1 << 19) // 16383)
+    return torch.floor((m @ rows) * (1.0 / (1 << 20))).to(torch.float32)
 
 
 def _dequant(level: torch.Tensor, qscale: int) -> torch.Tensor:
-    """H.263 dequantisation (what the decoder reconstructs)."""
+    """H.263 dequantisation (what the decoder reconstructs, in its int16
+    storage)."""
     even = 1 - (qscale & 1)
-    deq = torch.sign(level) * (qscale * (2 * level.abs() + 1) - even)
-    return torch.where(level != 0, deq, 0).to(torch.float32)
+    lv = level.to(torch.int64)
+    deq = torch.sign(lv) * (qscale * (2 * lv.abs() + 1) - even)
+    return _wrap16(torch.where(lv != 0, deq, 0)).to(torch.float32)
+
+
+def _intra_dc(dc_level: torch.Tensor, dc_scale: int) -> torch.Tensor:
+    """The intra DC coefficient the decoder reconstructs."""
+    return _wrap16(dc_level.to(torch.int64) * dc_scale).to(torch.float32)
 
 
 def _quant_intra(coeffs, qscale: int, dc_scale: int):
-    """H.263-style intra quant. Returns (dc_level, ac_levels, recon)."""
+    """H.263-style intra quant. Returns (dc_level, ac_levels, recon): the
+    recon is the decoder's (_idct_int), unclamped."""
     dc_level = torch.round(fdiv(coeffs[..., 0, 0], dc_scale)).to(torch.int32)
     ac_level = torch.trunc(fdiv(coeffs, 2.0 * qscale)).to(torch.int32) \
         .clamp(-2047, 2047)
     ac_level[..., 0, 0] = 0
     deq = _dequant(ac_level, qscale)
-    deq[..., 0, 0] = dc_level.to(torch.float32) * dc_scale
-    return dc_level, ac_level, _idct_spec(deq)
+    deq[..., 0, 0] = _intra_dc(dc_level, dc_scale)
+    return dc_level, ac_level, _idct_int(deq)
+
+
+def _inter_levels(coeffs, qscale: int) -> torch.Tensor:
+    """H.263-style inter quant with dead zone: the levels."""
+    mag = torch.trunc(fdiv(coeffs.abs() - qscale / 2.0, 2.0 * qscale))
+    return (torch.sign(coeffs) * mag.clamp(min=0.0)).to(torch.int32) \
+        .clamp(-2047, 2047)
 
 
 def _quant_inter(coeffs, qscale: int):
-    """H.263-style inter quant with dead zone."""
-    mag = torch.trunc(fdiv(coeffs.abs() - qscale / 2.0, 2.0 * qscale))
-    level = (torch.sign(coeffs) * mag.clamp(min=0.0)).to(torch.int32) \
-        .clamp(-2047, 2047)
-    return level, _idct_spec(_dequant(level, qscale))
+    """H.263-style inter quant with dead zone. Returns (levels, the
+    decoder's residual)."""
+    level = _inter_levels(coeffs, qscale)
+    return level, _idct_int(_dequant(level, qscale))
 
 
 _ZZ: dict = {}
@@ -170,8 +234,8 @@ def _encode_i_device(y, u, v, qscale: int, dcs_luma: int, dcs_chroma: int,
             # DC as in _quant_intra, AC levels from the lattice
             dc = torch.round(fdiv(c[..., 0, 0], dcs)).to(torch.int32)
             deq = _dequant_recon(rd[i], qscale)
-            deq[:, 0, 0] = dc.reshape(-1).to(torch.float32) * dcs
-            recon = _idct_spec(deq).reshape(c.shape)
+            deq[:, 0, 0] = _intra_dc(dc.reshape(-1), dcs)
+            recon = _idct_int(deq).reshape(c.shape)
             zz = rd[i].to(torch.int16)
         else:
             dc, ac, recon = _quant_intra(c, qscale, dcs)
@@ -201,7 +265,7 @@ def _encode_p_device(y, u, v, ref_y, ref_u, ref_v, qscale: int,
                                                coeffs)):
         h, w = p.shape
         if trellis:
-            rec_res = _idct_spec(_dequant_recon(rd[i], qscale)) \
+            rec_res = _idct_int(_dequant_recon(rd[i], qscale)) \
                 .reshape(c.shape)
             zz = rd[i].to(torch.int16)
         else:
@@ -258,8 +322,8 @@ def _encode_b_device(y, u, v, fy, fu, fv, by_, bu, bv_, qscale: int,
     for mode in ("f", "b", "bi", "d"):
         for name, plane in (("y", y), ("u", u), ("v", v)):
             resid = plane.to(f32) - preds[mode][name]
-            level, _ = _quant_inter(_fdct_spec(dct8x8.to_blocks(resid)),
-                                    qscale)
+            level = _inter_levels(_fdct_spec(dct8x8.to_blocks(resid)),
+                                  qscale)
             out[f"{mode}_{name}"] = _zigzag(level)
     return out
 
@@ -367,34 +431,37 @@ def _sparsify_slim(zz):
             _as_i16(cnt_t.reshape(1))]
 
 
+def _packed(zz_blocks, tail, slim: bool, cap: int = 0, ecap: int = 0):
+    """The one host fetch of a pass: the coded levels zz_blocks [nblk,
+    64] in the slim or the fat layout (caps cap, ecap), then `tail`
+    (an I-VOP's DC levels, a P-VOP's MVs) as int16."""
+    parts = _sparsify_slim(zz_blocks) if slim else \
+        _sparsify_fat(zz_blocks, cap, ecap)
+    return torch.cat(parts + [tail])
+
+
 def _encode_i_packed(y, u, v, qscale, dcs_luma, dcs_chroma, cap, ecap,
                      trellis=False):
-    """I-VOP pass returning (packed int16, recon planes): all host-side
-    data (sparse zz coefficients + dc levels) in ONE array, so the host
-    fetch is one small copy per frame."""
+    """I-VOP pass returning (packed int16, recon planes, levels): all
+    host-side data (sparse zz coefficients + dc levels) in ONE array, so
+    the host fetch is one small copy per frame; `levels` (the dense
+    levels and the DC tail) re-packs the same pass in another layout."""
     out = _encode_i_device(y, u, v, qscale, dcs_luma, dcs_chroma, trellis)
-    zz_blocks = torch.cat([out[k][1] for k in ("y", "u", "v")])
-    parts = _sparsify_fat(zz_blocks, cap, ecap)
-    parts += [out[k][0].reshape(-1).to(torch.int16) for k in ("y", "u", "v")]
-    return torch.cat(parts), (out["y"][2], out["u"][2], out["v"][2])
+    levels = (torch.cat([out[k][1] for k in ("y", "u", "v")]),
+              torch.cat([out[k][0].reshape(-1).to(torch.int16)
+                         for k in ("y", "u", "v")]))
+    return (_packed(*levels, False, cap, ecap),
+            (out["y"][2], out["u"][2], out["v"][2]), levels)
 
 
 def _encode_p_packed(y, u, v, ry, ru, rv, qscale, search_range, slim,
                      cap=0, ecap=0, trellis=False):
     out = _encode_p_device(y, u, v, ry, ru, rv, qscale, search_range,
                            trellis)
-    zz_blocks = torch.cat([out["y"][0], out["u"][0], out["v"][0]])
-    if slim:
-        parts = _sparsify_slim(zz_blocks)
-    else:
-        parts = _sparsify_fat(zz_blocks, cap, ecap)
-    parts += [out["mv"].reshape(-1).to(torch.int16)]
-    return torch.cat(parts), (out["y"][1], out["u"][1], out["v"][1])
-
-
-# ---------------------------------------------------------------------------
-# Host: prediction + VLC packing
-# ---------------------------------------------------------------------------
+    levels = (torch.cat([out["y"][0], out["u"][0], out["v"][0]]),
+              out["mv"].reshape(-1).to(torch.int16))
+    return (_packed(*levels, slim, cap, ecap),
+            (out["y"][1], out["u"][1], out["v"][1]), levels)
 
 
 def _dc_predict(dc_levels: np.ndarray, scaler: int,
@@ -884,11 +951,11 @@ class Mpeg4Encoder(Encoder):
         slim = not is_i and self._sp_slim_ok
         rd = bool(self.opts["trellis"])
         if is_i:
-            packed, recon = _encode_i_packed(
+            packed, recon, levels = _encode_i_packed(
                 y, u, v, q, T.dc_scaler(q, False), T.dc_scaler(q, True),
                 *self._fat_caps(), trellis=rd)
         else:
-            packed, recon = _encode_p_packed(
+            packed, recon, levels = _encode_p_packed(
                 y, u, v, *refs, q, self.opts["search_range"], slim,
                 *(() if slim else self._fat_caps()), trellis=rd)
         self._ref = recon
@@ -899,7 +966,7 @@ class Mpeg4Encoder(Encoder):
             frame.pts if frame.pts != NOPTS else self._next_pts)
         self._next_pts = pts + 1
         handle = {"bw": bw, "data0": data0, "q": q, "is_i": is_i,
-                  "packed": packed, "planes": (y, u, v), "refs": refs,
+                  "packed": packed, "levels": levels, "planes": (y, u, v),
                   "pts": pts, "slim": slim}
         if self.recon_psnr is not None:
             handle["recon"] = recon
@@ -922,9 +989,10 @@ class Mpeg4Encoder(Encoder):
                     raw, h.get("caps", self._fat_caps()))
             if flat is not None:
                 break
-            # capacity overflow: re-run this frame through the next
-            # larger always-correct layout (slim -> fat -> full)
-            y, u, v = h["planes"]
+            # capacity overflow: re-pack this pass's levels in the next
+            # larger always-correct layout (slim -> fat -> full): the
+            # written levels are by construction the ones the reference
+            # was rebuilt from, and the pass is not run again
             if h["slim"]:
                 h["slim"] = False
                 # content that blows the slim caps once keeps doing it:
@@ -936,17 +1004,7 @@ class Mpeg4Encoder(Encoder):
                 if h.get("full"):
                     raise InvalidData("mpeg4: sparse fetch overflow")
                 h["full"] = True
-            # recon is identical to the original dispatch (same inputs,
-            # only the fetch layout differs): self._ref is left alone
-            rd = bool(self.opts["trellis"])
-            if is_i:
-                h["packed"], _ = _encode_i_packed(
-                    y, u, v, q, T.dc_scaler(q, False),
-                    T.dc_scaler(q, True), *caps, trellis=rd)
-            else:
-                h["packed"], _ = _encode_p_packed(
-                    y, u, v, *h["refs"], q, self.opts["search_range"],
-                    False, *caps, trellis=rd)
+            h["packed"] = _packed(*h["levels"], False, *caps)
             h["caps"] = caps
         if "recon" in h:
             self.recon_psnr.append(_psnr(h["planes"], h["recon"]))
@@ -972,8 +1030,9 @@ class Mpeg4Encoder(Encoder):
             self._sp_nblk = nblk
             self._sp_total = nblk * 64
             # the slim layout requires nblk % 16 == 0 (byte-pair packed
-            # maps) and only pays off on large frames
-            self._sp_slim_ok = nblk % 16 == 0 and nblk >= 4096
+            # maps), block indices that fit its 16-bit slots, and only
+            # pays off on large frames
+            self._sp_slim_ok = nblk % 16 == 0 and 4096 <= nblk <= 1 << 16
 
     def _fat_caps(self) -> tuple[int, int]:
         """Worst-typical caps for the fat program (always-correct
@@ -1010,7 +1069,10 @@ class Mpeg4Encoder(Encoder):
         o = 0
         lo = packed[o:o + nblk * 16].view(np.int8); o += nblk * 16
         hi = packed[o:o + nblk * 16].view(np.int8); o += nblk * 16
-        tslot = packed[o:o + T]; o += T
+        # the slots travel as int16; a block index past 32767 (a 1080p
+        # frame has 48960 blocks) reads back unsigned (the JAX package
+        # reads it signed and files the tail under another block)
+        tslot = packed[o:o + T].view(np.uint16); o += T
         trows = packed[o:o + T * 32].reshape(T, 32); o += T * 32
         (cnt_t,) = packed[o:o + 2].view(np.int32)
         o += 2

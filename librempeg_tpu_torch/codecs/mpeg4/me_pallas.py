@@ -55,8 +55,9 @@ def mc_chroma_plain(ref_u, ref_v, mv_h, rnd: int = 0):
 def refine_mc_luma(cur_y, ref_y, mv_i, rnd: int = 0):
     """Half-pel refinement of the luma around integer MVs + luma MC.
 
-    cur_y [H, W] f32; ref_y the encoder's recon luma (f32, 0..255;
-    truncated to bytes as the JAX package does); mv_i [bh, bw, 2] int32
+    cur_y [H, W] f32; ref_y the encoder's reference luma (f32, integers
+    0..255: the picture its decoder rebuilds, so the kernels' byte
+    conversion is exact); mv_i [bh, bw, 2] int32
     pixel units from the integer search. Returns (mv_h [bh, bw, 2] int32
     half-pel, pred_y [H, W] f32). CPU tensors take the plain version;
     CUDA tensors launch the kernel."""
@@ -70,8 +71,8 @@ def refine_mc_luma(cur_y, ref_y, mv_i, rnd: int = 0):
 def mc_chroma(ref_u, ref_v, mv_h, rnd: int = 0):
     """Chroma MC of both planes at the chroma MVs of luma half-pel MVs.
 
-    ref_u/ref_v [H/2, W/2] the encoder's recon chroma (f32, 0..255,
-    truncated to bytes); mv_h [bh, bw, 2] int32 luma half-pel MVs.
+    ref_u/ref_v [H/2, W/2] the encoder's reference chroma (f32, integers
+    0..255); mv_h [bh, bw, 2] int32 luma half-pel MVs.
     Returns (pred_u, pred_v) [H/2, W/2] f32. CPU tensors take the plain
     version; CUDA tensors launch the kernel."""
     if ref_u.device.type == "cpu":

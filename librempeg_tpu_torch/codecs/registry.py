@@ -31,6 +31,7 @@ _MODULES = (
     "librempeg_tpu_torch.codecs.png.codec",
     "librempeg_tpu_torch.codecs.gif",
     "librempeg_tpu_torch.codecs.flac.codec",
+    "librempeg_tpu_torch.codecs.subtitles",
 )
 
 for _mod in _MODULES:

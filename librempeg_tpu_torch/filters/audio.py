@@ -7,15 +7,18 @@ the device of the first frame it sees, so the samples stay where the
 decoder put them. aresample also takes swresample's dither_method
 (the JAX package's filter does not; its Swr does), so that
 `-af aresample=48000:dither_method=lipshitz -c:a pcm_s16le` requantises
-through the noise shaper. amix sums its inputs' float32 samples in
-input order on the first input's device, as the JAX package's numpy
-code does.
+through the noise shaper: the encoder's integer format is negotiated
+onto the dithering aresample (GraphRunner's sample_fmt), and a float
+input reaches it through an inserted conversion to that format. amix
+sums its inputs' float32 samples in input order on the first input's
+device, as the JAX package's numpy code does.
 """
 from __future__ import annotations
 
 import torch
 
 from librempeg_tpu_torch.codecs.pcm import from_float, to_float
+from librempeg_tpu_torch.core.errors import Unsupported
 from librempeg_tpu_torch.core.eval_expr import eval_expr
 from librempeg_tpu_torch.core.frame import AudioFrame
 from librempeg_tpu_torch.core.options import Option, OptionTable
@@ -110,20 +113,51 @@ class AResampleFilter(_SwrFilter):
         Option("dither_method", str, "none", choices=DITHER_METHODS),
     )
 
+    #: the integer sample format a dithering aresample resamples in and
+    #: writes: the encoder's, bound by GraphRunner (bind_sample_fmt)
+    dither_fmt: str | None = None
+
+    def bind_sample_fmt(self, fmt: str | None) -> None:
+        """Take the integer sample format the graph's consumer quantises
+        to. With a dither_method, that format becomes this filter's
+        input and output (negotiation converts the input to it, as an
+        aformat in front would), so the Swr requantises its resampled
+        output through the ditherer. Without one there is nothing to
+        dither, which is refused rather than ignored."""
+        method = self.opts["dither_method"]
+        if method == "none":
+            return
+        if fmt is None:
+            raise Unsupported(
+                f"aresample: dither_method={method} needs an integer "
+                "sample format after it (an encoder such as pcm_s16le, "
+                "flac or adpcm_ms)")
+        self.dither_fmt = fmt
+
+    def in_formats(self, pad: int = 0):
+        return (self.dither_fmt,) if self.dither_fmt else None
+
+    def out_formats(self, pad: int = 0):
+        return (self.dither_fmt,) if self.dither_fmt else None
+
     def configure(self, in_props):
         self.in_props = in_props
         p = in_props[0]
         out = p.copy()
         rate = self.opts["sample_rate"] or p.sample_rate
+        in_fmt = p.sample_fmt or "fltp"
+        # a converter negotiation inserted lands on its link's format
+        out_fmt = (self.dither_fmt or getattr(self, "_forced_format", "")
+                   or in_fmt)
         out.sample_rate = rate
+        out.sample_fmt = out_fmt
         out.time_base = Rational(1, rate)
         self.out_props = [out]
-        if rate != p.sample_rate:
+        if rate != p.sample_rate or out_fmt != in_fmt:
             self._swr_args = dict(
                 in_rate=p.sample_rate, out_rate=rate,
                 in_layout=p.layout or 2,
-                in_fmt=p.sample_fmt or "fltp",
-                out_fmt=p.sample_fmt or "fltp",
+                in_fmt=in_fmt, out_fmt=out_fmt,
                 filter_size=self.opts["filter_size"],
                 cutoff=self.opts["cutoff"],
                 dither=self.opts["dither_method"])

@@ -149,10 +149,13 @@ def _ensure_registered():
         audio,
         biquads,
         color,
+        drawtext,
+        loudness,
         metrics,
         misc,
         misc2,
         sources,
+        subtitles,
         video,
         video2,
         video3,

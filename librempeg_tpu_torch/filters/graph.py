@@ -340,7 +340,12 @@ class GraphRunner:
     more than its description.
     """
 
-    def __init__(self, description: str, src_props: StreamProps | list):
+    def __init__(self, description: str, src_props: StreamProps | list,
+                 sample_fmt: str | None = None):
+        """sample_fmt: the integer sample format the graph's consumer
+        (an audio encoder) quantises to, None for a float consumer; a
+        filter that requantises (aresample's dither_method) binds it
+        before negotiation."""
         from librempeg_tpu_torch.filters.parser import build_graph
 
         if isinstance(src_props, StreamProps):
@@ -355,6 +360,10 @@ class GraphRunner:
         self.sink = BufferSink(media)
         sink_node = self.graph.add_instance(self.sink, "out")
         self.graph.link(self.exit_node, self.exit_pad, sink_node, 0)
+        for node in self.graph.nodes:
+            bind = getattr(node.filter, "bind_sample_fmt", None)
+            if bind is not None:
+                bind(sample_fmt)
         self.graph.configure()
 
     @property

@@ -13,6 +13,10 @@ _MODULES = (
     "librempeg_tpu_torch.formats.rawes",
     "librempeg_tpu_torch.formats.lavfi",
     "librempeg_tpu_torch.formats.ogg",
+    "librempeg_tpu_torch.formats.hls",
+    "librempeg_tpu_torch.formats.rtp",
+    "librempeg_tpu_torch.formats.rtsp",
+    "librempeg_tpu_torch.formats.hlsdemux",
     "librempeg_tpu_torch.formats.adts",
     "librempeg_tpu_torch.formats.yuv4mpeg",
     "librempeg_tpu_torch.formats.image2",
@@ -23,9 +27,13 @@ _MODULES = (
     "librempeg_tpu_torch.formats.mov",
     "librempeg_tpu_torch.formats.flac",
     "librempeg_tpu_torch.formats.mpegts",
+    "librempeg_tpu_torch.formats.srt",
     "librempeg_tpu_torch.formats.gif",
     "librempeg_tpu_torch.formats.mp3",
+    "librempeg_tpu_torch.formats.flv",
     "librempeg_tpu_torch.formats.ac3",
+    # protocols registered on import
+    "librempeg_tpu_torch.formats.http",
 )
 
 for _mod in _MODULES:

@@ -22,8 +22,10 @@ raises).
 seekable stream (video first) to the keyframe at or before the time,
 measured from the input's earliest start time, and both chains decode
 and drop what ends before it; -t stops at the first packet at or past
-seek + duration (the CLI turns -to into this duration). A subtitle
-stream is not mapped (the run logs it).
+seek + duration (the CLI turns -to into this duration). A text
+subtitle stream (subrip, ass) is decoded to cues and re-encoded as
+SubRip on the host (_SubtitleChain). -map selectors (spec.maps) pick
+the input streams; run(progress=...) feeds the -progress report.
 
 Codec options: a StreamMap's codec_opts go to its encoder, and each
 must be one the encoder declares (or -q:v, -g, -bf, which map onto
@@ -43,6 +45,7 @@ from __future__ import annotations
 
 import queue
 import threading
+import time
 from dataclasses import dataclass, field
 from typing import Any
 
@@ -90,6 +93,7 @@ class TranscodeSpec:
     seek: float = 0.0                # -ss, seconds
     metadata: dict = field(default_factory=dict)    # -metadata key=value
     codec_opts: dict = field(default_factory=dict)  # -name value, unscoped
+    maps: list = field(default_factory=list)        # -map selectors
     device: str = "cuda"
 
 
@@ -167,6 +171,8 @@ def _translate_codec_opts(enc_cls, codec_opts: dict) -> dict:
 class _StreamChain:
     """decode -> filter -> encode for the video stream, or a stream copy
     (packets straight from the demuxer to the muxer)."""
+
+    media = "video"
 
     def __init__(self, in_stream, smap: StreamMap, out_mux, device,
                  shared_opts: dict):
@@ -313,9 +319,23 @@ class _StreamChain:
             self._write(self.encoder.flush(), mux)
 
 
+def _integer_sample_fmt(codec: str) -> str | None:
+    """The planar integer sample format the audio encoder `codec`
+    quantises its input to, or None for an encoder that takes floats
+    (pcm_s24le is refused: its samples would need s32 with 24 bits)."""
+    from librempeg_tpu_torch.codecs.pcm import _SAMPLE_FMT
+
+    fmt = _SAMPLE_FMT.get(codec) if codec != "pcm_s24le" else None
+    if codec in ("flac", "adpcm_ima_wav", "adpcm_ms"):
+        fmt = "s16"
+    return fmt + "p" if fmt in ("u8", "s16", "s32") else None
+
+
 class _AudioChain:
     """decode -> filter -> encode for one audio stream, synchronous, or
     a stream copy (-c:a copy: the demuxer's packets to the muxer)."""
+
+    media = "audio"
 
     def __init__(self, in_stream, smap: StreamMap, out_mux, device,
                  shared_opts: dict):
@@ -347,7 +367,8 @@ class _AudioChain:
                      f"{ChannelLayout.default(smap.channels).name}")
         if smap.sample_rate:
             desc += f",aresample={smap.sample_rate}"
-        self.graph = GraphRunner(desc, props)
+        self.graph = GraphRunner(desc, props,
+                                 sample_fmt=_integer_sample_fmt(smap.codec))
         enc_cls = find_encoder(smap.codec)
         if enc_cls.INFO.codec_type != "audio":
             raise Unsupported(f"-c:a {smap.codec} is not an audio encoder")
@@ -431,6 +452,62 @@ class _AudioChain:
         self._write(self.encoder.flush(), mux)
 
 
+def _map_matches(maps, st, media_index: int) -> bool:
+    """-map selector subset: '0', '0:v', '0:a', '0:s', '0:N', '0:v:N'
+    (one input; the leading file index must be 0)."""
+    media_char = {"video": "v", "audio": "a", "subtitle": "s"}.get(
+        st.codecpar.codec_type, "d")
+    for m in maps:
+        parts = str(m).split(":")
+        if parts[0] != "0":
+            continue
+        if len(parts) == 1:
+            return True
+        if parts[1].isdigit():
+            if int(parts[1]) == st.index:
+                return True
+        elif parts[1] == media_char:
+            if len(parts) == 2 or (parts[2].isdigit()
+                                   and int(parts[2]) == media_index):
+                return True
+    return False
+
+
+class _SubtitleChain:
+    """Text subtitle recode: decode cues (subrip/ass) and re-encode them
+    as SubRip payloads for the output muxer (the srt extraction path),
+    on the host, as the JAX package's _SubtitleChain does."""
+
+    media = "subtitle"
+    copy = False
+
+    def __init__(self, in_stream, out_mux, device):
+        self.in_stream = in_stream
+        self.discard_until = 0.0
+        self.frames_done = 0
+        self.eof = False
+        self.decoder = find_decoder(in_stream.codecpar.codec_id)(
+            in_stream.codecpar, device=device)
+        self.encoder = find_encoder("subrip")()
+        self.out_stream = out_mux.add_stream(
+            self.encoder.codec_parameters(), Rational(1, 1000))
+
+    def send_packet(self, pkt, mux) -> None:
+        for cue in self.decoder.decode(pkt):
+            if not cue.text:
+                continue
+            t = cue.pts * cue.time_base.num / cue.time_base.den \
+                if cue.pts != NOPTS and cue.time_base.valid else 0.0
+            if t < self.discard_until:
+                continue
+            for out in self.encoder.encode(cue):
+                mux.write(out.replace(stream_index=self.out_stream.index))
+            self.frames_done += 1
+
+    def finish(self, mux) -> None:
+        pass
+
+
 class Transcoder:
     """Single input -> single output transcoder: one chain per video
     and audio stream the output format takes (-vn, -an drop them)."""
@@ -443,10 +520,12 @@ class Transcoder:
         self.mux = open_output(spec.output_url, spec.output_format)
         self.mux.metadata.update(spec.metadata)
         self.chains: dict[int, Any] = {}
+        media_counts: dict = {}
         for st in self.demux.streams:
             media = st.codecpar.codec_type
-            if media == "subtitle":
-                log.warning("stream %d: subtitles are not mapped", st.index)
+            midx = media_counts.get(media, 0)
+            media_counts[media] = midx + 1
+            if spec.maps and not _map_matches(spec.maps, st, midx):
                 continue
             if media not in type(self.mux).SUPPORTED_TYPES:
                 continue
@@ -461,6 +540,8 @@ class Transcoder:
                 smap = spec.audio or StreamMap(codec="pcm_s16le")
                 self.chains[st.index] = _AudioChain(
                     st, smap, self.mux, device, spec.codec_opts)
+            elif media == "subtitle":
+                self.chains[st.index] = _SubtitleChain(st, self.mux, device)
         if not self.chains:
             raise InvalidData("no streams selected for transcoding")
         unused = sorted(k for k in spec.codec_opts if not any(
@@ -506,7 +587,10 @@ class Transcoder:
             bool(pkt.time_base.num) and \
             pkt.pts * pkt.time_base.num / pkt.time_base.den >= end
 
-    def run(self) -> dict:
+    def run(self, progress=None, progress_interval: float = 0.5) -> dict:
+        """progress: an optional callback(stats dict) fired at most every
+        progress_interval seconds from the packet loop and once at the
+        end (the -progress feed's source, ffmpeg.c:344)."""
         spec = self.spec
         start = self._start() if spec.seek or spec.duration else 0.0
         if spec.seek:
@@ -514,7 +598,12 @@ class Transcoder:
         end = start + spec.seek + spec.duration if spec.duration else 0.0
         n_packets = 0
         cut = set()                   # chains stopped by -t, flushed below
+        t0 = time.perf_counter()
+        next_prog = t0 + progress_interval
         for pkt in self.demux.packets():
+            if progress is not None and time.perf_counter() >= next_prog:
+                next_prog = time.perf_counter() + progress_interval
+                progress(self._progress_stats(n_packets, t0, False))
             chain = self.chains.get(pkt.stream_index)
             if chain is None:
                 continue
@@ -534,6 +623,36 @@ class Transcoder:
             chain.finish(self.mux)
         self.mux.close()
         self.demux.close()
+        if progress is not None:
+            progress(self._progress_stats(n_packets, t0, True))
         return {"packets": n_packets,
                 "frames": {i: c.frames_done
                            for i, c in self.chains.items()}}
+
+    def _progress_stats(self, n_packets: int, t0: float,
+                        done: bool) -> dict:
+        """Snapshot for the -progress feed (print_report's fields), as
+        the JAX package computes it: the first encoded video stream's
+        frames at its graph's rate, else the first encoded audio
+        stream's frames of frame_size samples."""
+        dt = max(time.perf_counter() - t0, 1e-6)
+        vframes = 0
+        out_time = 0.0
+        for c in self.chains.values():
+            if c.media == "video" and not c.copy:
+                vframes = c.frames_done
+                fr = c.graph.output_props.frame_rate
+                fps = (fr.num / fr.den) if fr and fr.num else 25.0
+                out_time = c.frames_done / fps
+                break
+        else:
+            for c in self.chains.values():
+                if c.media == "audio" and not c.copy:
+                    enc = c.encoder
+                    rate = getattr(enc, "sample_rate", 0) or 48000
+                    fsz = getattr(enc, "frame_size", 0) or 1024
+                    out_time = c.frames_done * fsz / rate
+                    break
+        return {"frame": vframes, "fps": vframes / dt,
+                "packets": n_packets, "out_time_s": out_time,
+                "speed": out_time / dt, "done": done}

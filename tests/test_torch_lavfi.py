@@ -79,10 +79,13 @@ def vop_type(data: bytes) -> str:
 
 def test_cli_testsrc_mpeg4_matches_jax(tmp_path):
     from librempeg_tpu.cli.ffmpeg import main as jmain
+    from tools.mpeg4_jax_repair import repaired
 
     args = ["-f", "lavfi", "-i", "testsrc=size=64x48:rate=25:duration=0.4",
             "-c:v", "mpeg4", "-q:v", "4", "-y"]
-    assert jmain(["-v", "error"] + args + [str(tmp_path / "j.avi")]) == 0
+    # the JAX encoder with the port's reference (its decoder's picture)
+    with repaired():
+        assert jmain(["-v", "error"] + args + [str(tmp_path / "j.avi")]) == 0
     assert tmain(args + ["-device", "cpu", str(tmp_path / "t.avi")]) == 0
     jv, tv = _avi_payloads(tmp_path / "j.avi"), _avi_payloads(
         tmp_path / "t.avi")

@@ -22,7 +22,9 @@ stream with the port's own generator, decodes it through the CLI from
 raw .265 and from an MP4 copy, and writes and reads back a PNG and a
 GIF; a sixth decodes a committed Opus, Vorbis, MP3 and MP2 stream,
 runs a WAV through FLAC and back, and encodes and decodes AC-3 and
-both ADPCM codecs.
+both ADPCM codecs; a seventh, which also refuses fontTools, burns
+subtitles and a drawtext box into 64x48 frames with the committed font.
+The import scan covers chip_smoke.py too, and fontTools with the rest.
 
 The port also reads nothing under librempeg_tpu/ at run time: no path
 into that tree in its Python, CUDA or C++ sources or in chip_smoke.py
@@ -43,7 +45,9 @@ from librempeg_tpu_torch.utils import testgen
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "librempeg_tpu_torch")
-BANNED = ("jax", "jaxlib", "librempeg_tpu")
+# fontTools: the JAX package's drawtext reads fonts with it; the port
+# has its own TrueType reader (filters/_ttf.py)
+BANNED = ("jax", "jaxlib", "librempeg_tpu", "fontTools")
 
 
 def _banned(name: str) -> bool:
@@ -52,21 +56,19 @@ def _banned(name: str) -> bool:
 
 def test_no_module_imports_jax_or_the_jax_package():
     bad, n = [], 0
-    for d, _, files in os.walk(PKG):
-        for fn in files:
-            if not fn.endswith(".py"):
+    sources = [os.path.join(d, fn) for d, _, files in os.walk(PKG)
+               for fn in files if fn.endswith(".py")]
+    for path in sources + [os.path.join(REPO, "chip_smoke.py")]:
+        n += 1
+        for node in ast.walk(ast.parse(open(path).read(), path)):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and not node.level:
+                names = [node.module or ""]
+            else:
                 continue
-            path = os.path.join(d, fn)
-            n += 1
-            for node in ast.walk(ast.parse(open(path).read(), path)):
-                if isinstance(node, ast.Import):
-                    names = [a.name for a in node.names]
-                elif isinstance(node, ast.ImportFrom) and not node.level:
-                    names = [node.module or ""]
-                else:
-                    continue
-                bad += [f"{os.path.relpath(path, REPO)}:{node.lineno} {m}"
-                        for m in names if _banned(m)]
+            bad += [f"{os.path.relpath(path, REPO)}:{node.lineno} {m}"
+                    for m in names if _banned(m)]
     assert n > 40 and not bad, bad
 
 
@@ -558,3 +560,98 @@ def test_audio_codecs_run_without_jax(tmp_path):
     assert set(counts) == {"opus_silk60", "vorbis", "mp3_mono32k", "mp2",
                            "ac3", "adpcm_ima_wav", "adpcm_ms"}
     assert all(int(n) > 1 for n in counts.values()), counts
+
+
+_CHILD_TEXT = r"""
+import hashlib, importlib.abc, sys
+
+BANNED = ("jax", "jaxlib", "librempeg_tpu", "fontTools")
+
+def banned(name):
+    return any(name == b or name.startswith(b + ".") for b in BANNED)
+
+for m in [m for m in sys.modules if banned(m)]:
+    del sys.modules[m]
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if banned(name):
+            raise ImportError(f"{name} is not available here")
+        return None
+
+sys.meta_path.insert(0, Refuse())
+sys.path.insert(0, sys.argv[1])
+font, cues = sys.argv[2], sys.argv[3]
+
+import numpy as np
+import torch
+
+from librempeg_tpu_torch.core.frame import VideoFrame
+from librempeg_tpu_torch.core.rational import Rational
+from librempeg_tpu_torch.filters import GraphRunner, StreamProps
+
+desc = (f"subtitles={cues}:fontfile={font},drawtext=fontfile={font}"
+        ":text='%{n}':x=16:y=16:box=1")
+g = GraphRunner(desc, StreamProps(media="video", width=64, height=48,
+                                  pix_fmt="yuv420p",
+                                  frame_rate=Rational(25, 1),
+                                  time_base=Rational(1, 25)))
+out = []
+for i in range(3):
+    planes = tuple(torch.full((h, w), 60 + 40 * k, dtype=torch.uint8)
+                   for k, (h, w) in enumerate(((48, 64), (24, 32),
+                                               (24, 32))))
+    out += g.push(VideoFrame(planes=planes, format="yuv420p", width=64,
+                             height=48, pts=i, time_base=Rational(1, 25)))
+out += g.finish()
+h = hashlib.md5()
+for f in out:
+    for p in f.planes:
+        h.update(p.numpy().tobytes())
+print("text", len(out), "fontTools" in sys.modules, h.hexdigest())
+"""
+
+
+def test_drawtext_and_subtitles_run_without_jax_and_fonttools(tmp_path):
+    """A process that refuses to import jax and fontTools burns the
+    delivery cues and a %{n} drawtext box into three 64x48 frames with
+    the committed font (the port's own TrueType reader); its planes are
+    the JAX package's (run here, with fontTools)."""
+    import hashlib
+
+    import numpy as np
+
+    from librempeg_tpu.core.frame import VideoFrame
+    from librempeg_tpu.core.rational import Rational
+    from librempeg_tpu.filters import GraphRunner, StreamProps
+
+    data = os.path.join(REPO, "tests", "data", "torch_port")
+    font = os.path.join(data, "fonts", "DejaVuSansMono.ttf")
+    cues = os.path.join(data, "delivery", "cues.srt")
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    proc = subprocess.run(
+        [sys.executable, "-c", _CHILD_TEXT, REPO, font, cues],
+        capture_output=True, text=True, env=env, cwd=str(tmp_path),
+        timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    g = GraphRunner(f"subtitles={cues}:fontfile={font},drawtext="
+                    f"fontfile={font}:text='%{{n}}':x=16:y=16:box=1",
+                    StreamProps(media="video", width=64, height=48,
+                                pix_fmt="yuv420p",
+                                frame_rate=Rational(25, 1),
+                                time_base=Rational(1, 25)))
+    out = []
+    for i in range(3):
+        planes = tuple(np.full((h, w), 60 + 40 * k, np.uint8)
+                       for k, (h, w) in enumerate(((48, 64), (24, 32),
+                                                   (24, 32))))
+        out += g.push(VideoFrame(planes=planes, format="yuv420p",
+                                 width=64, height=48, pts=i,
+                                 time_base=Rational(1, 25)))
+    out += g.finish()
+    h = hashlib.md5()
+    for f in out:
+        for p in f.planes:
+            h.update(np.asarray(p).tobytes())
+    assert proc.stdout.split() == ["text", "3", "False", h.hexdigest()]

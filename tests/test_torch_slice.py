@@ -40,6 +40,17 @@ from librempeg_tpu.sched import pipeline as JP
 from librempeg_tpu_torch.codecs.h264 import codec as TC
 from librempeg_tpu_torch.codecs.mpeg4 import encoder as TE
 from librempeg_tpu_torch.sched import pipeline as TP
+from tools.mpeg4_jax_repair import repaired
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_mpeg4_reference():
+    """The JAX encoder with its decoder's reference, as the port's
+    encoder has it (tools/mpeg4_jax_repair.py): its float recon is the
+    fault the port repairs, so byte and level comparisons hold the port
+    to the repaired JAX encoder."""
+    with repaired():
+        yield
 
 
 def make_clip(path, w=96, h=64, n=12):

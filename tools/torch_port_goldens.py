@@ -80,6 +80,13 @@ Runs the JAX package (the reference) on the CPU:
   (whole_access_units). About three minutes on an 8-core CPU (the
   host-numpy HEVC generator and three decodes at 1920x1080).
 
+Every MPEG-4 golden (the bench transcode, the options transcode, JPEG's
+B, F1, F2 and F4, the containers' V, H3, D2) comes from the JAX encoder
+with its reference repaired at run time (tools/mpeg4_jax_repair.py):
+its recon is the picture its decoder rebuilds, as the port's encoder
+has it, where the unmodified JAX encoder predicts from a float recon
+its decoder never has (ROADMAP section 3b).
+
 Usage: python tools/torch_port_goldens.py [--audio | --jpeg | --filters |
        --containers | --encoders | --hevc] [--calibrate | --check-port]
        [--graphs]
@@ -157,6 +164,7 @@ CONTAINERS_OUT = os.path.join(OUT, "bench_1080p_containers.json")
 ENCODERS_OUT = os.path.join(OUT, "bench_1080p_encoders.json")
 HEVC_OUT = os.path.join(OUT, "bench_1080p_hevc.json")
 ACODECS_OUT = os.path.join(OUT, "bench_acodecs.json")
+DELIVERY_OUT = os.path.join(OUT, "bench_delivery.json")
 
 
 def frame_md5(planes) -> str:
@@ -1344,7 +1352,198 @@ def acodecs_goldens() -> dict:
     return gold
 
 
+def delivery_goldens() -> dict:
+    """The JAX package's runs of chip_smoke.py's delivery commands (the
+    MPEG-4 repair applied, as in every run of this tool): D1's FLV md5
+    and ffprobe JSON; D1a's AAC packets as its FLV would carry them
+    (the JAX muxer writes the AAC encoder's ADTS frames with no
+    AudioSpecificConfig, so its own FLV has no stream; the golden keeps
+    the frames' millisecond tag times, their bytes without the ADTS
+    headers and the JAX decoder's SNR on them); D2's frame md5s, D2E's
+    VOP types, pts, sizes and recon PSNR, D2S's md5; D3's ebur128 and
+    loudnorm measurements and the s16 loudnorm writes; D4's progress
+    keys; D5's and D5M's files; which of the asset's access units are
+IDRs."""
+    import chip_smoke as CS
+
+    from librempeg_tpu.cli import ffmpeg as jcli
+    from librempeg_tpu.cli import ffprobe
+    from librempeg_tpu.codecs.aac.decoder import AacDecoder
+    from librempeg_tpu.core.log import get_level, set_level
+    from librempeg_tpu.core.packet import Packet
+    from librempeg_tpu.formats import api as FA
+    from librempeg_tpu.utils import testgen
+
+    x = testgen.s16(testgen.audio_mix(CS.AUDIO_IN_RATE,
+                                      CS.AUDIO_IN_RATE * CS.AUDIO_SECONDS))
+    gold: dict = {}
+
+    def md5(path):
+        return hashlib.md5(open(path, "rb").read()).hexdigest()
+
+    with tempfile.TemporaryDirectory() as td:
+        wav = os.path.join(td, "in.wav")
+        mux = FA.open_output(wav)
+        mux.add_stream(FA.CodecParameters(
+            codec_type="audio", codec_id="pcm_s16le",
+            sample_rate=CS.AUDIO_IN_RATE, nb_channels=2))
+        mux.write(Packet(data=np.ascontiguousarray(x.T).tobytes(), pts=0))
+        mux.close()
+        gold["wav_md5"] = md5(wav)
+        for d in ("hls", "dash"):
+            os.makedirs(os.path.join(td, d))
+        cmd = CS.delivery_commands(td, wav)
+        flv = cmd["D1"][-1]
+        assert "error" not in jax_cli_run(cmd["D1"])
+        gold["d1"] = {"md5": md5(flv),
+                      "ffprobe": CS.probe_json(ffprobe, flv)}
+        d = FA.open_input(CS.ASSET)
+        gold["idr"] = [any(n[0] & 0x1F == 5 for n in P.split_annexb(
+            bytes(p.data))) for p in d.packets()]
+        d.close()
+
+        aac = []
+
+        def keep_aac(tc):
+            write = tc.mux.write
+
+            def rec(p):
+                aac.append(p)
+                write(p)
+
+            tc.mux.write = rec
+
+        assert "error" not in jax_cli_run(cmd["D1a"], prepare=keep_aac)
+        adts = os.path.join(td, "d1a.aac")
+        with open(adts, "wb") as f:
+            f.write(b"".join(bytes(p.data) for p in aac))
+        d = FA.open_input(adts)
+        dec = AacDecoder(d.streams[0].codecpar)
+        y = np.concatenate([np.asarray(dec.decode(p)[0].data)
+                            for p in d.packets()], 1)
+        d.close()
+        gold["d1a"] = {
+            "pts_ms": [int(p.dts * 1000 * p.time_base.num
+                           / p.time_base.den) for p in aac],
+            "raw_bytes": sum(len(p.data) - (7 if p.data[1] & 1 else 9)
+                             for p in aac),
+            "snr_db": CS.snr_db(x, y)}
+
+        assert "error" not in jax_cli_run(cmd["D2"])
+        frames = [ln.split(", ")[-1] for ln in
+                  CS.md5_lines(open(cmd["D2"][-1]).read())[1]]
+        psnrs = []
+        orig = ME.Mpeg4Encoder.encode_async
+
+        def encode_async(self, frame, **kw):
+            h = orig(self, frame, **kw)
+            psnrs.append(psnr(h["planes"], self._ref))
+            return h
+
+        ME.Mpeg4Encoder.encode_async = encode_async
+        try:
+            r = jax_cli_run(cmd["D2E"])
+        finally:
+            ME.Mpeg4Encoder.encode_async = orig
+        assert "error" not in r, r
+        pay = CS.avi_payloads(cmd["D2E"][-1])
+        assert "error" not in jax_cli_run(cmd["D2S"])
+        gold["d2"] = {"frames": frames,
+                      "types": "".join(vop_type(p) for p in pay),
+                      "pts": [p for p, _ in r["packets"]],
+                      "sizes": [n for _, n in r["packets"]],
+                      "recon_psnr": psnrs,
+                      "srt_md5": md5(cmd["D2S"][-1])}
+
+        tcs = []
+        for name in ("D3M", "D3N"):
+            assert "error" not in jax_cli_run(cmd[name], prepare=tcs.append)
+        d = FA.open_input(cmd["D3N"][-1])
+        s16 = np.frombuffer(b"".join(bytes(p.data) for p in d.packets()),
+                            "<i2").reshape(-1, 2).T
+        d.close()
+        gold["d3"] = {"ebur128": CS.loudness_of(tcs[0]),
+                      "loudnorm": CS.loudness_of(tcs[1]),
+                      "s16": CS.s16_digest(s16, CS.LOUD_WINDOWS)}
+
+        level = get_level()
+        try:
+            assert jcli.main(cmd["D4"]) == 0
+        finally:
+            set_level(level)
+        prog = open(cmd["D4"][cmd["D4"].index("-progress") + 1]).read() \
+            .splitlines()
+        gold["d4"] = {"progress_keys": [ln.split("=")[0]
+                                        for ln in prog[-6:]]}
+        for name, sub in (("D5", "hls"), ("D5M", "dash")):
+            assert "error" not in jax_cli_run(cmd[name])
+            gold[name.lower()] = {"md5s": CS.dir_md5s(os.path.join(td, sub))}
+    return gold
+
+
+def delivery_port(limits: bool) -> bool:
+    """D3's measurement and loudnorm on the port on the CPU against the
+    stored goldens (the phase's D3 checks, printed), and with limits=
+    False the gap a planted fault makes: the K-weighting's shelf 0.01 dB
+    off."""
+    import chip_smoke as CS
+
+    from librempeg_tpu_torch.filters import loudness as TL
+    from librempeg_tpu_torch.cli.ffmpeg import parse_args as tparse
+    from librempeg_tpu_torch.formats.api import open_input as topen
+    from librempeg_tpu_torch.sched.pipeline import Transcoder as TT
+
+    gold = json.load(open(DELIVERY_OUT))
+    ok = True
+    with tempfile.TemporaryDirectory() as td:
+        wav = os.path.join(td, "in.wav")
+        CS.write_audio_wav(wav, CS.AUDIO_SECONDS)
+        cmd = CS.delivery_commands(td, wav)
+        shelf = TL._SHELF_B
+        for fault in ((False, True) if not limits else (False,)):
+            if fault:
+                g = 10 ** (0.01 / 20)
+                TL._SHELF_B = tuple(b * g for b in shelf)
+            try:
+                tc = TT(tparse(cmd["D3M"] + ["-device", "cpu"])[0])
+                tc.run()
+            finally:
+                TL._SHELF_B = shelf
+            m = CS.loudness_of(tc)
+            gaps = {k: abs(m[k] - gold["d3"]["ebur128"][k]) for k in m}
+            within = (gaps["I"] <= CS.LOUD_I_TOL
+                      and gaps["LRA"] <= CS.LOUD_LRA_TOL
+                      and gaps["peak"] <= CS.LOUD_PEAK_TOL)
+            print(f"D3 {'planted shelf +0.01 dB' if fault else 'clean'}: "
+                  f"{m}, gaps {gaps}, within the limits: {within}")
+            ok = ok and (within != fault)
+        tc = TT(tparse(cmd["D3N"] + ["-device", "cpu"])[0])
+        tc.run()
+        d = topen(cmd["D3N"][-1])
+        s16 = np.frombuffer(b"".join(bytes(p.data) for p in d.packets()),
+                            "<i2").reshape(-1, 2).T
+        got = CS.s16_digest(s16, CS.LOUD_WINDOWS)
+        d = np.abs(np.array(got["windows"], np.int32)
+                   - np.array(gold["d3"]["s16"]["windows"], np.int32))
+        share = np.count_nonzero(d) / d.size
+        print(f"D3N loudnorm s16: md5 equal to the JAX package's "
+              f"{got['md5'] == gold['d3']['s16']['md5']}; stored windows "
+              f"{share:.6f} of samples off, max {d.max()} (limit "
+              f"{CS.LOUD_S16_SHARE}, 1)")
+        ok = ok and share <= CS.LOUD_S16_SHARE and d.max() <= 1
+    return ok
+
+
 def main(argv) -> None:
+    """Every run under the MPEG-4 reference repair (see the module
+    docstring)."""
+    from tools.mpeg4_jax_repair import repaired
+
+    with repaired():
+        _main(argv)
+
+
+def _main(argv) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--calibrate", action="store_true",
                     help="also run the port's options transcode on the CPU "
@@ -1371,7 +1570,26 @@ def main(argv) -> None:
                     help="only the hevc goldens (bench_1080p_hevc.json)")
     ap.add_argument("--acodecs", action="store_true",
                     help="only the audio codec goldens (bench_acodecs.json)")
+    ap.add_argument("--delivery", action="store_true",
+                    help="only the delivery goldens (bench_delivery.json)")
     args = ap.parse_args(argv)
+    if args.delivery:
+        if args.check_port or args.calibrate:
+            sys.exit(0 if delivery_port(limits=args.check_port) else 1)
+        t0 = time.perf_counter()
+        gold = delivery_goldens()
+        with open(DELIVERY_OUT, "w") as f:
+            json.dump(gold, f, indent=0, sort_keys=True)
+        print(f"delivery goldens (JAX, CPU, {time.perf_counter() - t0:.1f} "
+              f"s): D1 {gold['d1']['md5']}; D1a {len(gold['d1a']['pts_ms'])}"
+              f" AAC frames, {gold['d1a']['raw_bytes']} bytes, SNR "
+              f"{gold['d1a']['snr_db']:.4f} dB; D2E {gold['d2']['types']} "
+              f"{sum(gold['d2']['sizes'])} bytes, recon "
+              f"{np.mean(gold['d2']['recon_psnr']):.4f} dB; D3 "
+              f"{gold['d3']['ebur128']}; D5 {len(gold['d5']['md5s'])} "
+              f"files, D5M {len(gold['d5m']['md5s'])}; "
+              f"{os.path.getsize(DELIVERY_OUT)} bytes")
+        return
     if args.acodecs:
         t0 = time.perf_counter()
         gold = acodecs_goldens()

@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--profile DIR]
 
-It drives eleven paths and ten kernels. Phases, in order; any failure
+It drives twelve paths and ten kernels. Phases, in order; any failure
 raises and the script exits non-zero:
 
 1. device: the card's name and power limit (nvidia-smi);
@@ -250,7 +250,27 @@ raises and the script exits non-zero:
    (interleaved RTP, FU-A) to the listening demuxer and decoded on the
    card to the first frames. Sockets on 127.0.0.1 only, each wait at
    most DELIVERY_TIMEOUT;
-15. kernel leg: parallel.transcode_step as bench.py's kernel leg runs it
+15. mesh: the multi-device layer (parallel/), every mesh's shards on
+   cuda:0 (devices=["cuda:0"] * n, a stream each: the layout runs, no
+   scaling is measured). First the rule that runs a product whole on
+   CUDA, measured: the scaler's vertical GEMM as 3 bands against the
+   whole product, transcode_step on each half of the leg's batch
+   against the whole batch. M1, the asset's first MESH_FRAMES frames to
+   1280x720 MPEG-4 -g 12 -q:v 5 through cli.ffmpeg's parser and
+   Transcoder, on one device and under MESH_SPECS (set_active_mesh),
+   with and without -trellis 1: packets equal the single-device run's,
+   MESH_P sharded P passes (hpel 3 a P-VOP), every vertical resize
+   counted, mc/intra/deblock as in the single-device run, no mesh left
+   active; M2, make_sharded_step at MESH_STEP on the kernel leg's inputs,
+   equal to transcode_step and the unsharded half-pel plane, fsearch
+   once a data shard; M3, the ring pipeline of the MPEG-4 stages (2 and
+   3 stages) on the leg's luma, the sharded resampler on the 10 s WAV
+   at MESH_RESAMPLE (within 1e-4 off MESH_EDGE samples at each end),
+   wavefront_scan on the leg's MB grid, dryrun_multichip(8), each equal
+   to its single-device form; M4, the CLI's -mesh MESH_CLI, which takes
+   distinct devices: it runs and equals M1 where the machine has them,
+   else it must refuse and name the count;
+16. kernel leg: parallel.transcode_step as bench.py's kernel leg runs it
    (8 testgen frames 1920x1088 -> 1280x720, qscale 4, 4 chained steps),
    held to the JAX package's goldens (tests/data/torch_port/
    kernel_leg.npz); fsearch must launch once per step; then one warm
@@ -4720,6 +4740,292 @@ def delivery_phase(dev: str) -> dict:
     return res
 
 
+# the mesh phase (parallel/): on a one-card machine the shards of each
+# mesh share cuda:0 (devices=["cuda:0"] * n), each on its own stream
+MESH_FRAMES = 13           # M1: the asset's first frames (I, 11 P, I)
+MESH_P = 11
+MESH_SIZE = "1280x720"     # M1's output: 45 MB rows, 3 bands of 15
+MESH_SPECS = ("spatial=3", "data=2,spatial=3")
+MESH_STEP = "data=2,spatial=2"     # M2
+MESH_RING_STAGES = (2, 3)          # M3
+MESH_RESAMPLE = "spatial=4"        # M3
+MESH_CLI = "spatial=3"             # M4
+MESH_EDGE = 64             # M3: resampler samples held off each end
+
+
+def mesh_size(spec: str) -> int:
+    import math
+
+    from librempeg_tpu_torch.parallel import product_mesh as PM
+
+    return math.prod(PM.parse_mesh_spec(spec).values())
+
+
+def shared_mesh(spec: str, dev: str):
+    """The mesh `spec` names with every shard on `dev` (one card)."""
+    from librempeg_tpu_torch.parallel import product_mesh as PM
+
+    return PM.make_mesh(spec, devices=[dev] * mesh_size(spec))
+
+
+def mesh_commands(td: str, trellis: bool) -> list[str]:
+    return ["-i", ASSET, "-frames:v", str(MESH_FRAMES), "-s", MESH_SIZE,
+            "-c:v", "mpeg4", "-g", "12", "-q:v", "5"] + \
+        (["-trellis", "1"] if trellis else []) + \
+        ["-y", os.path.join(td, f"mesh_t{int(trellis)}.avi")]
+
+
+def mesh_m1(dev: str, td: str) -> dict:
+    """M1: the asset's first MESH_FRAMES frames to 1280x720 MPEG-4 q5 g12
+    through the CLI's parser and Transcoder, on one device and under
+    each of MESH_SPECS (set_active_mesh on shards sharing the card), with
+    and without -trellis 1: packets equal the single-device run's, every
+    P-VOP sharded (3 bands: hpel 3 a P-VOP), every vertical resize
+    counted (3 a frame into the scaler; whole on CUDA, where a band's
+    GEMM gives other bits), mc/intra/deblock as in the single-device
+    run."""
+    import torch
+
+    from librempeg_tpu_torch.parallel import product_mesh as PM
+
+    out = {"wall_s": {}, "launches": {}, "mesh_launches": {}}
+    scaled = []
+
+    def count_scaled(tc):
+        # frames into the scaler (the decoder may push one past -frames:v)
+        chain = tc.chains[0]
+        push = chain.graph.push
+
+        def counted(frame):
+            scaled[-1] += frame is not None
+            return push(frame)
+
+        scaled.append(0)
+        chain.graph.push = counted
+
+    for trellis in (False, True):
+        argv = mesh_commands(td, trellis)
+        tag = "trellis" if trellis else "plain"
+        PM.reset_counts()
+        single = cli_run(argv, dev)
+        check(PM.COUNTS == {"p_pass": 0, "resize_v": 0,
+                            "resize_v_whole": 0}, PM.COUNTS)
+        types = "".join(vop_type(p[1]) for p in single["packets"])
+        check(types == "I" + "P" * MESH_P + "I", f"M1 VOP types {types}")
+        check(single["launches"]["hpel"] == MESH_P, single["launches"])
+        out["wall_s"][f"single_{tag}"] = single["wall_s"]
+        out["launches"][f"single_{tag}"] = single["launches"]
+        if not trellis:
+            out["single_packets"] = single["packets"]
+        for spec in MESH_SPECS:
+            PM.reset_counts()
+            PM.set_active_mesh(shared_mesh(spec, dev))
+            try:
+                r = cli_run(argv, dev, prepare=count_scaled)
+            finally:
+                PM.set_active_mesh(None)
+            name = f"{spec}_{tag}"
+            n_sp = PM.parse_mesh_spec(spec)["spatial"]
+            differ = [i for i, (a, b) in enumerate(
+                zip(r["packets"], single["packets"])) if a != b]
+            check(r["packets"] == single["packets"],
+                  f"M1 {name}: packets differ from the single-device "
+                  f"run's at {differ[:5]} of {len(r['packets'])}")
+            # every vertical resize under the mesh is counted: sharded on
+            # the CPU, whole on CUDA (product_mesh.resize_v_sharded)
+            form = "resize_v_whole" if torch.device(dev).type == "cuda" \
+                else "resize_v"
+            check(PM.COUNTS["p_pass"] == MESH_P
+                  and PM.COUNTS[form] == 3 * scaled[-1] >= 3 * MESH_FRAMES
+                  and sum(PM.COUNTS.values()) == MESH_P + 3 * scaled[-1],
+                  f"M1 {name}: {PM.COUNTS}, {scaled[-1]} frames scaled")
+            out["resize_v"] = dict(PM.COUNTS)
+            la = r["launches"]
+            check(la["hpel"] == n_sp * MESH_P, f"M1 {name}: {la}")
+            for k in ("mc", "intra", "deblock"):
+                check(la[k] == single["launches"][k] >= MESH_P,
+                      f"M1 {name}: {k} {la[k]} vs {single['launches'][k]}")
+            out["wall_s"][name] = r["wall_s"]
+            out["launches"][name] = la
+            for k, v in la.items():
+                out["mesh_launches"][k] = out["mesh_launches"].get(k, 0) + v
+    check(PM.active_mesh() is None, "M1 left a mesh active")
+    return out
+
+
+def mesh_whole_rule(dev: str, leg) -> dict:
+    """What the rule that runs a product whole under the mesh rests on:
+    the scaler's vertical GEMM of the leg's first luma (1088 -> 720
+    rows) as 3 bands of 240 rows against the whole product, and
+    transcode_step on each half of the leg's batch against the whole
+    batch (the outputs that differ)."""
+    import torch
+
+    from librempeg_tpu_torch.ops import fir
+    from librempeg_tpu_torch.parallel import pipeline as PP
+
+    x = leg[0][0]
+    m = torch.as_tensor(fir.resize_matrix(LEG_H, LEG_DH), device=dev)
+    whole = m @ x
+    k = LEG_DH // 3
+    bands = torch.cat([m[i * k:(i + 1) * k] @ x for i in range(3)])
+    full = PP.transcode_step(*leg, LEG_DH, LEG_DW, LEG_QSCALE)
+    half = LEG_BATCH // 2
+    parts = [PP.transcode_step(*(a[i * half:(i + 1) * half] for a in leg),
+                               LEG_DH, LEG_DW, LEG_QSCALE) for i in range(2)]
+    return {"resize_band_equal": torch.equal(whole, bands),
+            "resize_band_max_diff": float((whole - bands).abs().max()),
+            "step_half_differs": [
+                key for key in full if not torch.equal(
+                    full[key], torch.cat([p[key] for p in parts]))]}
+
+
+def mesh_m2(dev: str, leg) -> dict:
+    """M2: make_sharded_step on the kernel leg's inputs at MESH_STEP:
+    equal to transcode_step plus the unsharded half-pel exactly, the
+    full search launched once a data shard."""
+    import torch
+
+    from librempeg_tpu_torch import kernels
+    from librempeg_tpu_torch.parallel import pipeline as PP
+    from librempeg_tpu_torch.parallel import product_mesh as PM
+    from librempeg_tpu_torch.parallel.halo import halfpel_plane
+
+    mesh = shared_mesh(MESH_STEP, dev)
+    step = PP.make_sharded_step(mesh, LEG_DH, LEG_DW, LEG_QSCALE)
+    single = PP.transcode_step(*leg, LEG_DH, LEG_DW, LEG_QSCALE)
+    hp = halfpel_plane(single["y"].to(torch.int32)).to(torch.uint8)
+    kernels.reset_counts()
+    sync(dev)
+    t0 = time.perf_counter()
+    out = step(*leg)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    launches = kernels.counts()
+    check(launches["fsearch"] == mesh.shape["data"],
+          f"M2 fsearch launches {launches['fsearch']}")
+    bad = [k for k, t in single.items() if not torch.equal(out[k], t)]
+    check(not bad, f"M2: sharded step differs from transcode_step in {bad}")
+    check(torch.equal(out["y_halfpel"], hp), "M2: sharded half-pel differs")
+    check(PM.active_mesh() is None, "M2 found a mesh active")
+    return {"wall_s": wall, "launches": launches}
+
+
+def mesh_m3(dev: str, leg, td: str) -> dict:
+    """M3: the ring pipeline of the MPEG-4 stages on the leg's luma
+    (microbatches of 2 frames) at 2 and 3 stages, the sharded resampler on
+    the 10 s WAV at MESH_RESAMPLE, wavefront_scan on the MB grid of the
+    leg's first luma, dryrun_multichip(8): each held to its single-device
+    form (the resampler within 1e-4 off MESH_EDGE samples at each end,
+    as the JAX package's test holds its own)."""
+    import numpy as np
+    import torch
+
+    from librempeg_tpu_torch.parallel import pipeline as PP
+    from librempeg_tpu_torch.parallel.dryrun import dryrun_multichip
+    from librempeg_tpu_torch.parallel.mesh import make_mesh
+    from librempeg_tpu_torch.parallel.sp_audio import make_sharded_resampler
+    from librempeg_tpu_torch.parallel.stagepipe import ring_pipeline
+    from librempeg_tpu_torch.parallel.wavefront import wavefront_scan
+    from librempeg_tpu_torch.resample.resampler import Resampler
+
+    out = {"wall_s": {}}
+    micro = leg[0].reshape(-1, 2, LEG_H, LEG_W)
+    for n in MESH_RING_STAGES:
+        stages = PP.mpeg4_stage_fns(LEG_H, LEG_W, LEG_DH, LEG_DW,
+                                    LEG_QSCALE, n_stages=n)
+        mesh = make_mesh(n, ("stage", "unused"), (n, 1), devices=[dev] * n)
+        sync(dev)
+        t0 = time.perf_counter()
+        got = ring_pipeline(stages, mesh, axis="stage")(micro)
+        sync(dev)
+        out["wall_s"][f"ring_{n}"] = time.perf_counter() - t0
+        for i in range(micro.shape[0]):
+            x = micro[i]
+            for f in stages:
+                x = f(x)
+            check(torch.equal(got[i], x), f"M3 ring {n}: microbatch {i}")
+
+    x = read_wav(os.path.join(td, "mesh.wav"))[1].astype(np.float32) / 32768
+    r = Resampler(AUDIO_IN_RATE, AUDIO_OUT_RATE, channels=2, device=dev)
+    single = Resampler(AUDIO_IN_RATE, AUDIO_OUT_RATE, channels=2, device=dev)
+    xt = torch.from_numpy(x).to(dev)
+    want = torch.cat([single.process(xt), single.flush()], dim=1)
+    sync(dev)
+    t0 = time.perf_counter()
+    got = make_sharded_resampler(r, shared_mesh(MESH_RESAMPLE, dev))(xt)
+    sync(dev)
+    out["wall_s"]["resampler"] = time.perf_counter() - t0
+    e = MESH_EDGE
+    want = want[:, :got.shape[1]]
+    err = float((got[:, e:-e] - want[:, e:-e]).abs().max())
+    check(got.shape == (2, x.shape[1] * r.p // r.q) and err <= 1e-4,
+          f"M3 resampler: {tuple(got.shape)}, max abs err {err}")
+    out["resampler_err"] = err
+
+    mb = leg[0][0].reshape(LEG_H // 16, 16, LEG_W // 16, 16).mean((1, 3))
+    f = lambda g, up, left: g + 0.5 * up + 0.25 * left   # noqa: E731
+    t0 = time.perf_counter()
+    got = wavefront_scan(f, mb).cpu().numpy()
+    out["wall_s"]["wavefront"] = time.perf_counter() - t0
+    g = mb.cpu().numpy()
+    want = np.zeros_like(g)
+    for i in range(g.shape[0]):
+        for j in range(g.shape[1]):
+            up = want[i - 1, j] if i else np.float32(0)
+            left = want[i, j - 1] if j else np.float32(0)
+            want[i, j] = g[i, j] + np.float32(0.5) * up \
+                + np.float32(0.25) * left
+    check(np.array_equal(got, want), "M3 wavefront differs from the "
+          "sequential recurrence")
+    t0 = time.perf_counter()
+    out["dryrun"] = dryrun_multichip(8, devices=[dev] * 8)
+    out["wall_s"]["dryrun_8"] = time.perf_counter() - t0
+    return out
+
+
+def mesh_m4(dev: str, td: str, single_packets) -> dict:
+    """M4: the CLI's -mesh MESH_CLI, which takes distinct devices: with
+    as many cards it runs and its packets equal M1's single-device run's;
+    with fewer it must raise and name the count."""
+    import torch
+
+    have = torch.cuda.device_count()
+    n = mesh_size(MESH_CLI)
+    argv = mesh_commands(td, False) + ["-mesh", MESH_CLI]
+    if have >= n:
+        r = cli_run(argv, dev)
+        check(r["packets"] == single_packets, "M4: -mesh packets differ")
+        return {"case": f"ran on {n} of {have} cards, packets equal M1's"}
+    # the refusal is the expected outcome here: only it is caught
+    try:
+        cli_run(argv, dev)
+    except ValueError as e:
+        check(f"this machine has {have}" in str(e), f"M4: {e}")
+        return {"case": f"refused on {have} card(s): {e}"}
+    check(False, f"M4: -mesh {MESH_CLI} ran on {have} card(s)")
+
+
+def mesh_phase(dev: str, leg) -> dict:
+    """The multi-device layer on the card (M1-M4), every mesh's shards on
+    cuda:0 but M4's."""
+    t0 = time.perf_counter()
+    sdev = "cuda:0"
+    with tempfile.TemporaryDirectory() as td:
+        write_audio_wav(os.path.join(td, "mesh.wav"), AUDIO_SECONDS)
+        rule = mesh_whole_rule(sdev, leg)
+        m1 = mesh_m1(sdev, td)
+        m2 = mesh_m2(sdev, leg)
+        m3 = mesh_m3(sdev, leg, td)
+        m4 = mesh_m4(sdev, td, m1["single_packets"])
+    launches = dict(m1["mesh_launches"])
+    for k, v in m2["launches"].items():
+        launches[k] = launches.get(k, 0) + v
+    return {"rule": rule, "m1": m1, "m2": m2, "m3": m3, "m4": m4,
+            "total_launches": launches,
+            "phase_s": time.perf_counter() - t0}
+
+
 def main(argv: list[str]) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch "
                                  "port on one NVIDIA card.")
@@ -4997,6 +5303,40 @@ def main(argv: list[str]) -> int:
     log(f"delivery launches: {json.dumps(dl['total_launches'])}; phase "
         f"{dl['phase_s']:.1f} s")
 
+    ms = mesh_phase(dev, leg)
+    m1, m2, m3 = ms["m1"], ms["m2"], ms["m3"]
+    log(f"mesh ({card}): each mesh's shards share cuda:0 "
+        f"(devices=['cuda:0'] * n, a stream each), so no scaling is "
+        f"measured")
+    rule = ms["rule"]
+    log(f"mesh ({card}): the scaler's vertical GEMM {LEG_H}->{LEG_DH} "
+        f"rows as 3 bands equals the whole product: "
+        f"{rule['resize_band_equal']} (max abs diff "
+        f"{rule['resize_band_max_diff']:.3g}); transcode_step on each half "
+        f"of the leg's batch differs from the whole batch's in "
+        f"{rule['step_half_differs']}; so both run their products whole "
+        f"under a CUDA mesh")
+    for name, wall in m1["wall_s"].items():
+        log(f"mesh M1 {name} ({card}): {wall:.3f} s; launches "
+            f"{json.dumps(m1['launches'][name])}")
+    log(f"mesh M1 ({card}): {MESH_FRAMES} frames to 1280x720 MPEG-4 q5; "
+        f"under {list(MESH_SPECS)}, with and without -trellis 1, the "
+        f"packets equal the single-device run's, {MESH_P} sharded P "
+        f"passes a run, hpel 3 a P-VOP; the run's counters "
+        f"{json.dumps(m1['resize_v'])} (the scaler's vertical GEMM whole "
+        f"on CUDA: a band's cuBLAS product gives other bits)")
+    log(f"mesh M2 {MESH_STEP} ({card}): make_sharded_step equal to "
+        f"transcode_step and the half-pel plane, {m2['wall_s']:.3f} s; "
+        f"launches {json.dumps(m2['launches'])}")
+    log(f"mesh M3 ({card}): ring pipeline and the other forms held, wall "
+        f"s {json.dumps({k: round(v, 3) for k, v in m3['wall_s'].items()})}"
+        f"; resampler at {MESH_RESAMPLE} max abs err "
+        f"{m3['resampler_err']:.3g} off {MESH_EDGE} samples at each end; "
+        f"dryrun_multichip(8) {json.dumps(m3['dryrun']['mesh'])} ok")
+    log(f"mesh M4 (-mesh {MESH_CLI}): {ms['m4']['case']}")
+    log(f"mesh launches: {json.dumps(ms['total_launches'])}; phase "
+        f"{ms['phase_s']:.1f} s")
+
     k = kernel_leg_phase(dev, leg, profile_dir)
     log(f"kernel leg: {LEG_BATCH}x{LEG_H}x{LEG_W} -> {LEG_DH}x{LEG_DW}, "
         f"{LEG_ITERS} chained steps; launches {k['launches']}; MVs equal "
@@ -5026,6 +5366,7 @@ def main(argv: list[str]) -> int:
          "launches_hevc": hv["total_launches"][name],
          "launches_acodecs": ac["total_launches"][name],
          "launches_delivery": dl["total_launches"][name],
+         "launches_mesh": ms["total_launches"].get(name, 0),
          **{k: kres[name][k] for k in (
              "max_abs_err", "ms", "device_ms", "device_ms_b2b", "plain_ms",
              "bound_ms",

@@ -78,8 +78,15 @@ SubRip. -v/-loglevel sets the log level; -progress URL writes
 ffmpeg's key=value blocks (frame, fps, out_time_us, out_time, speed,
 progress=continue|end) every -stats_period seconds and at the end
 ("-" or pipe:1 for stdout); -benchmark prints the run's CPU times and
-peak memory; -threads N caps the host's torch threads. -mesh (the
-multi-device transcode) is refused until it is ported.
+peak memory; -threads N caps the host's torch threads.
+
+-mesh SPEC (data=2,spatial=3) runs the transcode over a mesh of
+distinct devices, cuda:0 .. cuda:k-1 (k the product of the sizes; it
+fails when the machine has fewer, and on -device cpu): the scaler's
+vertical GEMM split over output rows when they divide by spatial, and
+each MPEG-4 P-VOP over row bands when its coded height divides by
+16 * spatial (at 1280x720 only spatial in {3, 5, 9, 15, 45}; 2 and 4
+leave it whole). The output bytes are those of the run without -mesh.
 
 -device defaults to cuda; without a card the run fails rather than
 moving to the CPU.
@@ -190,8 +197,7 @@ def parse_cli(argv: list[str]) -> tuple[TranscodeSpec, dict]:
         elif a == "-map":
             kw.setdefault("maps", []).append(v)
         elif a == "-mesh":
-            raise CliError("-mesh: the multi-device transcode is not "
-                           "ported yet")
+            kw["mesh"] = v
         elif a in ("-s", "-video_size", "-s:v"):
             w, _, h = v.lower().partition("x")
             if pre_input:

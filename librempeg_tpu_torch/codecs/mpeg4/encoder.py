@@ -20,8 +20,15 @@ copied unchanged.
 
 Simple-profile choices: quant_type=0 (H.263 quantizer), I/P GOP
 structure (Advanced Simple VOL with B-VOPs), half-pel MVs with
-vop_rounding_type 0, ac_pred off, resync markers off. The multi-device
-(-mesh) path is not ported yet.
+vop_rounding_type 0, ac_pred off, resync markers off.
+
+Under an active product mesh (-mesh, parallel/product_mesh.py) a P-VOP
+whose coded height divides by 16 * spatial runs the same pass over row
+bands on the mesh's shards (mpeg4_encode_p_sharded), with -trellis
+kept, and its levels come back in one dense fetch; I-VOPs, B-VOPs and
+other heights take the single-device pass. The bytes are the
+single-device encoder's. (The JAX package's mesh pass drops -trellis
+and keeps its float recon.)
 """
 from __future__ import annotations
 
@@ -45,6 +52,7 @@ from librempeg_tpu_torch.core.rational import NOPTS, Rational
 from librempeg_tpu_torch.device import resolve
 from librempeg_tpu_torch.ops import dct8x8, motion
 from librempeg_tpu_torch.ops.fdiv import fdiv
+from librempeg_tpu_torch.parallel import product_mesh as PM
 
 # ---------------------------------------------------------------------------
 # Device passes
@@ -246,15 +254,26 @@ def _encode_i_device(y, u, v, qscale: int, dcs_luma: int, dcs_chroma: int,
 
 
 def _encode_p_device(y, u, v, ref_y, ref_u, ref_v, qscale: int,
-                     search_range: int = 8, trellis: bool = False):
+                     search_range: int = 8, trellis: bool = False,
+                     halo: int = 0):
     """P-VOP pass: even-pel integer full search, half-pel refinement +
     MC of all planes (the half-pel kernel), residual transform coding
-    and in-loop recon. MVs are in HALF-PEL units."""
+    and in-loop recon. MVs are in HALF-PEL units.
+
+    With `halo` (a multiple of 16), y and ref_y carry `halo` rows above
+    and below the rows coded, and ref_u, ref_v half as many: a band of
+    the sharded pass (parallel/product_mesh.py). The search and the
+    half-pel kernel run over those rows too; the MVs, levels and recon
+    are those of the coded rows only."""
     yf = y.to(torch.float32)[None]
     mv_i, _, _ = motion.full_search_mc_xla(
         yf, ref_y.to(torch.float32)[None], search_range, 16, 2)
     mvh, pred_y, pred_u, pred_v = MEP.hpel_refine_mc(
         yf[0], ref_y, ref_u, ref_v, mv_i[0], rnd=0)
+    if halo:
+        k, hc = halo // 16, halo // 2
+        mvh, pred_y, yf = mvh[k:-k], pred_y[halo:-halo], yf[:, halo:-halo]
+        pred_u, pred_v = pred_u[hc:-hc], pred_v[hc:-hc]
     out = {"mv": mvh}
     planes = (yf[0], u.to(torch.float32), v.to(torch.float32))
     preds = (pred_y, pred_u, pred_v)
@@ -950,10 +969,26 @@ class Mpeg4Encoder(Encoder):
         self._sp_init()
         slim = not is_i and self._sp_slim_ok
         rd = bool(self.opts["trellis"])
+        mesh = None if is_i else PM.active_mesh()
+        if mesh is not None:
+            nsp = PM.spatial_size(mesh)
+            if nsp <= 1 or self.ch % (16 * nsp):
+                mesh = None
+        dense = mesh is not None
         if is_i:
             packed, recon, levels = _encode_i_packed(
                 y, u, v, q, T.dc_scaler(q, False), T.dc_scaler(q, True),
                 *self._fat_caps(), trellis=rd)
+        elif dense:
+            # -mesh: the pass over row bands, its levels fetched dense
+            out = PM.mpeg4_encode_p_sharded(
+                y, u, v, *refs, q, self.opts["search_range"], mesh,
+                trellis=rd)
+            recon = tuple(out[k][1] for k in "yuv")
+            levels = (torch.cat([out[k][0] for k in "yuv"]),
+                      out["mv"].reshape(-1).to(torch.int16))
+            packed = torch.cat([levels[0].reshape(-1), levels[1]])
+            slim = False
         else:
             packed, recon, levels = _encode_p_packed(
                 y, u, v, *refs, q, self.opts["search_range"], slim,
@@ -967,7 +1002,7 @@ class Mpeg4Encoder(Encoder):
         self._next_pts = pts + 1
         handle = {"bw": bw, "data0": data0, "q": q, "is_i": is_i,
                   "packed": packed, "levels": levels, "planes": (y, u, v),
-                  "pts": pts, "slim": slim}
+                  "pts": pts, "slim": slim, "dense": dense}
         if self.recon_psnr is not None:
             handle["recon"] = recon
         self._frame_idx += 1
@@ -982,7 +1017,9 @@ class Mpeg4Encoder(Encoder):
             # the overflow retry below re-dispatches, so consume it once
             pre = h.pop("packed_np", None)
             raw = pre if pre is not None else h["packed"].cpu().numpy()
-            if h["slim"]:
+            if h.get("dense"):
+                flat, tail = raw[:self._sp_total], raw[self._sp_total:]
+            elif h["slim"]:
                 flat, tail = self._unsparsify_slim(raw)
             else:
                 flat, tail = self._unsparsify_fat(

@@ -42,7 +42,16 @@ def _mat(m: np.ndarray, like: torch.Tensor) -> torch.Tensor:
 
 
 def resize_v(x: torch.Tensor, m: np.ndarray) -> torch.Tensor:
-    """Resize the second-to-last axis: [..., H, W] with m [H', H]."""
+    """Resize the second-to-last axis: [..., H, W] with m [H', H].
+
+    Under an active product mesh (-mesh spatial=N) the output rows are
+    split over the 'spatial' shards, each contracting at full input
+    length (parallel/product_mesh.resize_v_sharded)."""
+    from librempeg_tpu_torch.parallel import product_mesh as PM
+
+    mesh = PM.active_mesh()
+    if mesh is not None and PM.spatial_size(mesh) > 1:
+        return PM.resize_v_sharded(x, m, mesh)
     return torch.matmul(_mat(m, x), x)
 
 

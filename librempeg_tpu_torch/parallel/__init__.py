@@ -1,4 +1,16 @@
-"""parallel layer of the port: the batched transcode step."""
-from librempeg_tpu_torch.parallel.pipeline import transcode_step
+"""parallel layer of the port: meshes of shards, halo exchange, the
+batched transcode step and its sharded form (see mesh.py for the device
+model)."""
+from librempeg_tpu_torch.parallel.mesh import (
+    factor2,
+    frame_sharding,
+    make_mesh,
+    replicated,
+)
+from librempeg_tpu_torch.parallel.pipeline import (
+    make_sharded_step,
+    transcode_step,
+)
 
-__all__ = ["transcode_step"]
+__all__ = ["factor2", "frame_sharding", "make_mesh", "replicated",
+           "make_sharded_step", "transcode_step"]

@@ -58,6 +58,7 @@ from librempeg_tpu_torch.device import resolve
 from librempeg_tpu_torch.filters import GraphRunner, StreamProps
 from librempeg_tpu_torch.formats.api import open_input, open_output
 from librempeg_tpu_torch.formats.image2 import codec_for_path
+from librempeg_tpu_torch.parallel import product_mesh as PM
 from librempeg_tpu_torch.utils.stagetimer import stage
 
 log = Logger("transcode")
@@ -95,6 +96,7 @@ class TranscodeSpec:
     codec_opts: dict = field(default_factory=dict)  # -name value, unscoped
     maps: list = field(default_factory=list)        # -map selectors
     device: str = "cuda"
+    mesh: str = ""                   # -mesh data=2,spatial=3
 
 
 #: the video codec an output format takes when no -c:v names one (image2:
@@ -515,6 +517,10 @@ class Transcoder:
     def __init__(self, spec: TranscodeSpec):
         self.spec = spec
         device = resolve(spec.device)
+        # -mesh: distinct devices of the run's type (raises when the
+        # machine has fewer); active for this run only (run())
+        self.mesh = PM.make_mesh(spec.mesh, device=device) \
+            if spec.mesh else None
         self.demux = open_input(spec.input_url, spec.input_format,
                                 **spec.input_opts)
         self.mux = open_output(spec.output_url, spec.output_format)
@@ -590,7 +596,21 @@ class Transcoder:
     def run(self, progress=None, progress_interval: float = 0.5) -> dict:
         """progress: an optional callback(stats dict) fired at most every
         progress_interval seconds from the packet loop and once at the
-        end (the -progress feed's source, ffmpeg.c:344)."""
+        end (the -progress feed's source, ffmpeg.c:344).
+
+        A mesh from spec.mesh is the active mesh for this run only: the
+        one active before is restored when the run ends or raises (the
+        JAX package's Transcoder sets it and never resets it)."""
+        if self.mesh is None:
+            return self._run(progress, progress_interval)
+        before = PM.active_mesh()
+        PM.set_active_mesh(self.mesh)
+        try:
+            return self._run(progress, progress_interval)
+        finally:
+            PM.set_active_mesh(before)
+
+    def _run(self, progress, progress_interval: float) -> dict:
         spec = self.spec
         start = self._start() if spec.seek or spec.duration else 0.0
         if spec.seek:

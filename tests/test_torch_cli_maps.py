@@ -7,8 +7,8 @@ run(progress=...)).
 Both parsers read the same spec and global options; -c copy and -map
 write the same bytes through both CLIs, exactly; the -progress file
 holds the JAX package's keys in its order, block by block, and ends
-with progress=end. -mesh is refused until the multi-device transcode
-is ported.
+with progress=end. -mesh reads into the spec as in the JAX package (the
+mesh run itself is tests/test_torch_product_mesh.py's).
 """
 import pytest
 
@@ -17,7 +17,7 @@ from librempeg_tpu.cli.ffmpeg import parse_args as jparse
 from librempeg_tpu.core.log import get_level as jget_level
 from librempeg_tpu.core.log import set_level as jset_level
 from librempeg_tpu.formats import api as JA
-from librempeg_tpu_torch.cli.ffmpeg import CliError, parse_cli
+from librempeg_tpu_torch.cli.ffmpeg import parse_cli
 from librempeg_tpu_torch.cli.ffmpeg import main as tmain
 from librempeg_tpu_torch.core.log import get_level as tget_level
 from librempeg_tpu_torch.core.log import set_level as tset_level
@@ -68,8 +68,9 @@ def test_options_parse_as_in_jax():
         ("copy", "copy", ["0:v", "0:a:0"])
     assert tglob == jglob
     assert not tspec.codec_opts
-    with pytest.raises(CliError, match="mesh"):
-        parse_cli(["-i", "a.264", "-mesh", "data=2", "o.avi"])
+    mesh_argv = ["-i", "a.264", "-mesh", "data=2,spatial=3", "o.avi"]
+    assert parse_cli(mesh_argv)[0].mesh == jparse(mesh_argv)[0].mesh == \
+        "data=2,spatial=3"
 
 
 @pytest.mark.parametrize("maps,want", [

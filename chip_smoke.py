@@ -1046,6 +1046,73 @@ def fsearch_phase(dev, leg) -> dict:
                      f"{LEG_BATCH * (LEG_DH // 16) * (LEG_DW // 16)} MBs"}
 
 
+MOTION_LIB_R = 8           # full_search's range on the kernel leg's luma
+MOTION_LIB_HIER = (16, 16, 3)   # hierarchical_search: range, block, refine
+
+
+def motion_lib_phase(dev, leg) -> dict:
+    """ops.motion's search library (the JAX package's public motion API:
+    plain tensor code, no kernel) on the kernel leg's luma, each frame
+    searched against the one before it (frame 0 against frame 7):
+    full_search at r = MOTION_LIB_R, hierarchical_search, halfpel_refine
+    around full_search's MVs, motion_compensate_halfpel at those and
+    satd of each 8x8 block of the frames against that prediction. The
+    inputs are uint8-valued, so every result is exact in float32, and
+    the card's results must equal the same calls on the CPU. Each call's
+    wall ms on the card (median of 3 after a warm call) and on the CPU
+    (one call)."""
+    import torch
+
+    from librempeg_tpu_torch.ops import motion as M
+
+    y = leg[0]
+    n, h, w = y.shape
+
+    def blocks8(x):
+        return x.reshape(n, h // 8, 8, w // 8, 8).permute(0, 1, 3, 2, 4)
+
+    def calls(cur, ref):
+        mv, cost = M.full_search(cur, ref, MOTION_LIB_R, 16)
+        hmv, hcost = M.hierarchical_search(cur, ref, *MOTION_LIB_HIER)
+        mvh, hpcost = M.halfpel_refine(cur, ref, mv, 16)
+        pred = M.motion_compensate_halfpel(ref, mvh, 16)
+        st = M.satd(blocks8(cur), blocks8(pred))
+        return {
+            "full_search": (lambda: M.full_search(cur, ref, MOTION_LIB_R,
+                                                  16), (mv, cost)),
+            "hierarchical_search": (lambda: M.hierarchical_search(
+                cur, ref, *MOTION_LIB_HIER), (hmv, hcost)),
+            "halfpel_refine": (lambda: M.halfpel_refine(cur, ref, mv, 16),
+                               (mvh, hpcost)),
+            "motion_compensate_halfpel": (
+                lambda: M.motion_compensate_halfpel(ref, mvh, 16), pred),
+            "satd": (lambda: M.satd(blocks8(cur), blocks8(pred)), st)}
+
+    t0 = time.perf_counter()
+    card = calls(y, torch.roll(y, 1, 0))
+    sync(dev)
+    first_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    yc = y.cpu()
+    cpu = calls(yc, torch.roll(yc, 1, 0))
+    cpu_s = time.perf_counter() - t0
+    res = {"shape": f"{n}x{h}x{w}", "first_s": first_s, "cpu_s": cpu_s,
+           "ms": {}, "equal": {}}
+    for name, (fn, out) in card.items():
+        outs = out if isinstance(out, tuple) else (out,)
+        want = cpu[name][1]
+        wants = want if isinstance(want, tuple) else (want,)
+        same = all(a.dtype == b.dtype and torch.equal(a.cpu(), b)
+                   for a, b in zip(outs, wants))
+        check(same, f"motion library: {name} on the card differs from the "
+              "same call on the CPU")
+        res["equal"][name] = same
+        res["ms"][name] = median_ms(fn, runs=3, warm=1)
+    mv = card["full_search"][1][0]
+    res["mean_abs_mv"] = float(mv.abs().float().mean())
+    return res
+
+
 def block_cost(cur, ref, mv, r: int = 4):
     """The full search's cost of each block at the given MVs."""
     import torch
@@ -3961,6 +4028,21 @@ ACODECS_ADPCM_T = "5"      # K7: -t 5
 ACODECS_FLAC_BLOCK = 4096  # K1: the FLAC encoder's block size
 ACODECS_WINDOWS, ACODECS_WIN = 8, 256   # stored windows of a decoded s16
 ACODECS_COPIES = ("ogg", "mkv")         # K1's stream copies
+# K8 E-AC-3 stereo and 5.1, K9 5.1 AC-3 with coupling: libavcodec's
+# streams (tools/torch_port_ac3_fixtures.py), 48 kHz, 1 s each
+ACODECS_K8 = {"K8s": ("eac3_stereo.eac3", 2), "K8m": ("eac3_51.eac3", 6)}
+ACODECS_AC3_WINDOWS = 2    # stored s16 windows of K8 and K9
+# K10: an HE-AAC stream the port's SBR writer makes on this host (its
+# AAC core's MDCT on the CPU, so its bytes are the JAX generator's),
+# decoded on the card; the golden keeps every ACODECS_K10_STEP-th
+# sample of the JAX decode (bench_acodecs_k10.npz). The card's float32
+# IMDCT feeds SBR gains far past full scale: the floor is
+# test_torch_aac.py's on the CPU, where the port reads 102.9 dB
+ACODECS_K10 = {"core_rate": 24000, "channels": 2, "n_frames": 12,
+               "seed": 3}
+ACODECS_K10_GOLD = "bench_acodecs_k10.npz"
+ACODECS_K10_STEP = 4
+ACODECS_K10_SNR_DB = 90.0
 # The float decodes' s16 (AC-3, Opus, Vorbis, MP2) and K3's dithered
 # resample are held exactly: the md5 of all of a stream's samples equals
 # the golden's, as it does on the CPU and on the H100 (PERF.md section
@@ -4013,6 +4095,18 @@ def acodecs_commands(td: str, wav: str) -> dict:
                   j(f"{k.lower()}.wav")]
         cmd[k + "D"] = ["-i", j(f"{k.lower()}.wav"), "-f", "framemd5", "-y",
                         j(f"{k.lower()}.md5")]
+    for k, (name, _) in ACODECS_K8.items():
+        cmd[k] = ["-i", fx(name), "-c:a", "pcm_s16le", "-y",
+                  j(f"{k.lower()}.wav")]
+    cmd["K9"] = ["-i", fx("ac3_51.ac3"), "-c:a", "pcm_s16le", "-y",
+                 j("k9.wav")]
+    cmd["K9_mkv"] = ["-i", fx("ac3_51.ac3"), "-c:a", "copy", "-y",
+                     j("k9.mkv")]
+    cmd["K9D"] = ["-i", j("k9.mkv"), "-c:a", "pcm_s16le", "-y",
+                  j("k9d.wav")]
+    # K10's input is the HE-AAC stream the phase writes first
+    cmd["K10"] = ["-i", j("k10.aac"), "-c:a", "pcm_s16le", "-y",
+                  j("k10.wav")]
     return cmd
 
 
@@ -4036,7 +4130,7 @@ def held_s16(name: str, x, g: dict) -> None:
     stored windows moved."""
     import numpy as np
 
-    got = s16_digest(x)
+    got = s16_digest(x, len(g["starts"]))
     check(got["shape"] == g["shape"], f"{name}: decoded shape "
           f"{got['shape']}, golden {g['shape']}")
     if got["md5"] != g["md5"]:
@@ -4098,12 +4192,12 @@ def shape_scan_replay(calls, dev) -> float:
 
 
 def acodecs_phase(dev: str) -> dict:
-    """K1-K7 through cli.ffmpeg's parser and Transcoder, held to
+    """K1-K10 through cli.ffmpeg's parser and Transcoder, held to
     tests/data/torch_port/bench_acodecs.json (the JAX package's runs on
-    the CPU, with the FLAC repairs applied; tools/torch_port_goldens.py
-    --acodecs). The codecs are host numpy; the shaper kernel runs on K3
-    and the biquad kernel on K4, each launch replayed through its plain
-    version."""
+    the CPU, with the FLAC repairs and the AC-3 LFE count applied;
+    tools/torch_port_goldens.py --acodecs). The codecs are host numpy;
+    the shaper kernel runs on K3 and the biquad kernel on K4, each launch
+    replayed through its plain version."""
     import numpy as np
     import torch
 
@@ -4292,6 +4386,84 @@ def acodecs_phase(dev: str) -> dict:
             check(framemd5_rows(cmd[k + "D"][-1]) ==
                   [tuple(r) for r in g["rows"]], f"{k}: decoded framemd5 "
                   "differs from the JAX package's")
+
+        # K8 E-AC-3 stereo and 5.1, K9 5.1 AC-3 (coupling in every
+        # block): decoded on the card to s16 WAVs, the s16 and pts held
+        # exactly; K9 copied into Matroska and that decoded again
+        def decoded(k, ch, g, pts):
+            r = run(k, cmd[k])
+            check([p for p, _, _ in r["packets"]] == pts,
+                  f"{k}: decoded pts differ from the JAX package's")
+            rate, y = read_wav(cmd[k][-1])
+            check((rate, y.shape[0]) == (48000, ch),
+                  f"{k}: the WAV says {rate} Hz, {y.shape[0]} channels")
+            held_s16(k, y, g["s16"])
+
+        for k, (_, ch) in ACODECS_K8.items():
+            decoded(k, ch, gold[k.lower()], gold[k.lower()]["pts"])
+        g = gold["k9"]
+        decoded("K9", 6, g, g["pts"])
+        run("K9_mkv", cmd["K9_mkv"])
+        d = open_input(cmd["K9_mkv"][-1])
+        par = d.streams[0].codecpar
+        pk = [(p.pts, bytes(p.data)) for p in d.packets()]
+        d.close()
+        # 6 channels: the JAX demuxer counts 5 (no LFE)
+        check((par.codec_id, par.sample_rate, par.nb_channels) ==
+              ("ac3", 48000, 6), f"K9_mkv: {par.codec_id} {par.sample_rate}"
+              f" Hz {par.nb_channels} channels")
+        check([p for p, _ in pk] == g["mkv_pts"] and hashlib.md5(
+            b"".join(b for _, b in pk)).hexdigest() == g["mkv_packets_md5"],
+            "K9_mkv: the Matroska copy's packets are not the JAX package's")
+        # the copy's decode: pts in Matroska's 1/1000 time base
+        decoded("K9D", 6, g, g["mkv_decode_pts"])
+        res["k8"] = {k: os.path.getsize(cmd[k][-1]) for k in ACODECS_K8}
+
+        # K10 HE-AAC: the port's SBR writer on this host, the stream
+        # decoded on the card through the decoder API and the CLI
+        from librempeg_tpu_torch.codecs.aac import sbr
+
+        g = gold["k10"]
+        gk = np.load(os.path.join(GOLD, ACODECS_K10_GOLD))
+        t0 = time.perf_counter()
+        data = sbr.generate_he_stream(**ACODECS_K10, device="cpu")
+        res["wall_s"]["K10_write"] = time.perf_counter() - t0
+        path = cmd["K10"][1]
+        with open(path, "wb") as f:
+            f.write(data)
+        d = open_input(path)
+        dec = AacDecoder(d.streams[0].codecpar, device=dev)
+        sync(dev)
+        t0 = time.perf_counter()
+        frames = [f for p in d.packets() for f in dec.decode(p)]
+        sync(dev)
+        res["wall_s"]["K10_decode"] = time.perf_counter() - t0
+        d.close()
+        rate = 2 * ACODECS_K10["core_rate"]
+        check(all(f.data.device.type == torch.device(dev).type
+                  and f.sample_rate == rate for f in frames),
+              f"K10: decoded frames not on {dev} at {rate} Hz")
+        check([f.pts for f in frames] == g["pts"], "K10: decoded pts "
+              "differ from the JAX package's")
+        xk = torch.cat([f.data for f in frames], 1).cpu().numpy()
+        want = gk["pcm"].astype(np.float64)
+        got = xk[:, ::ACODECS_K10_STEP].astype(np.float64)
+        check(got.shape == want.shape, f"K10: decoded {xk.shape}")
+        snr = float(10 * np.log10((want ** 2).sum()
+                                  / max(((got - want) ** 2).sum(), 1e-30)))
+        check(snr >= ACODECS_K10_SNR_DB, f"K10: SNR {snr} dB against the "
+              f"JAX decode (floor {ACODECS_K10_SNR_DB})")
+        r = run("K10", cmd["K10"])
+        wrate, y = read_wav(cmd["K10"][-1])
+        check(wrate == rate and [p for p, _, _ in r["packets"]] ==
+              g["cli_pts"], f"K10: the CLI's WAV at {wrate} Hz, pts "
+              "differ from the JAX CLI's")
+        check(np.array_equal(y, np.clip(np.rint(xk * 32768.0), -32768, 32767)
+                             .astype(np.int16)), "K10: the CLI's s16 are not "
+              "the decoder's samples")
+        res["k10"] = {"bytes": len(data), "identical":
+                      hashlib.md5(data).hexdigest() == g["md5"],
+                      "frames": len(frames), "snr_db": snr}
     res["total_launches"] = total
     res["phase_s"] = time.perf_counter() - t_phase
     return res
@@ -5083,6 +5255,13 @@ def main(argv: list[str]) -> int:
     kres = kernel_phases(dev)
     leg = leg_inputs(dev)
     kres["fsearch"] = fsearch_phase(dev, leg)
+    mlib = motion_lib_phase(dev, leg)
+    log(f"motion library ({smi.splitlines()[0]}): {mlib['shape']} luma, "
+        f"each frame against the previous; results on the card equal the "
+        f"CPU's: {json.dumps(mlib['equal'])}; wall ms on the card "
+        f"{json.dumps({k: round(v, 3) for k, v in mlib['ms'].items()})}; "
+        f"first calls {mlib['first_s']:.2f} s, the CPU's {mlib['cpu_s']:.2f}"
+        f" s; mean |MV| {mlib['mean_abs_mv']:.4f}")
     for name, r in kres.items():
         exact = "bit-exact" if name != "fsearch" else (
             f"bit-exact on integer inputs; float inputs: MVs equal on "
@@ -5279,7 +5458,14 @@ def main(argv: list[str]) -> int:
         f"(JAX {ac['k5']['golden_snr_db']:.4f}), first frame "
         f"{ac['k5']['first_frame']} samples; K6 copy exact; K7 files and "
         f"hashes exact; decoded s16 of K2, K3, K3H, K4 and K6 the JAX "
-        f"package's (md5 of every sample)")
+        f"package's (md5 of every sample); K8 E-AC-3 stereo and 5.1 WAVs "
+        f"{json.dumps(ac['k8'])} bytes and K9 5.1 AC-3 (and its Matroska "
+        f"copy, 6 channels) decoded on the card to the JAX package's s16 "
+        f"and pts; K10 HE-AAC from the port's SBR writer "
+        f"{ac['k10']['bytes']} bytes (the JAX generator's: "
+        f"{ac['k10']['identical']}), {ac['k10']['frames']} frames on the "
+        f"card at SNR {ac['k10']['snr_db']:.2f} dB against the JAX decode, "
+        f"pts and the CLI's 48 kHz WAV exact")
     log(f"acodecs launches: {json.dumps(ac['total_launches'])}; phase "
         f"{ac['phase_s']:.1f} s")
 

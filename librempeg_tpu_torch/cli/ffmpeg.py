@@ -118,7 +118,7 @@ def _int(s: str) -> int:
     mult = {"k": 1000, "K": 1000, "m": 1_000_000, "M": 1_000_000}
     if s and s[-1] in mult:
         return int(float(s[:-1]) * mult[s[-1]])
-    return int(s)
+    return int(float(s))
 
 
 def _parse_time(s: str) -> float:
@@ -239,7 +239,7 @@ def parse_cli(argv: list[str]) -> tuple[TranscodeSpec, dict]:
                 in_opts["pix_fmt"] = v
             else:
                 smap.pix_fmt = v
-        elif a in ("-q:v", "-qscale:v"):
+        elif a in ("-q:v", "-qscale:v", "-q"):
             smap.codec_opts["quality_scale"] = float(v)
         elif a in ("-frames:v", "-vframes"):
             smap.frames_limit = int(v)

@@ -278,6 +278,9 @@ class AacEncoder(Encoder):
         self._rc_q = float(self.opts["aac_quality"])
         self._rc_buffer = 0.0
         self._psy = None          # lazy PsyModel
+        #: bytes of an SBR extension payload to carry in a FIL element
+        #: of every frame coded while it is set (generate_he_stream)
+        self.fill_payload = None
 
     def codec_parameters(self):
         from librempeg_tpu_torch.formats.api import CodecParameters
@@ -399,6 +402,22 @@ class AacEncoder(Encoder):
             bw.write(coders[0].global_gain, 8)
             self._write_ics_info(bw)
             coders[0].write_ics(bw, self.max_sfb)
+        if self.fill_payload is not None:
+            # extension_payload carrier (SBR lives here): FIL element
+            # with a byte count covering the 4-bit type + payload
+            data = self.fill_payload
+            cnt = len(data) + 1     # +1 byte: ext type + 4 align bits
+            assert cnt < 15 + 255
+            bw.write(6, 3)          # FIL
+            if cnt >= 15:
+                bw.write(15, 4)
+                bw.write(cnt - 14, 8)
+            else:
+                bw.write(cnt, 4)
+            bw.write(13, 4)         # EXT_SBR_DATA
+            for b in data:
+                bw.write(b, 8)
+            bw.write(0, 4)          # align to cnt bytes
         bw.write(7, 3)              # END
         bw.align()
         return bw.bytes()

@@ -1,9 +1,8 @@
-"""HE-AAC v1 Spectral Band Replication decoder.
+"""HE-AAC v1 Spectral Band Replication decoder (+ payload writer).
 
-Copy of the decoder half of librempeg_tpu/codecs/aac/sbr.py (no
-framework code), so the port's AAC decoder imports whole; the payload
-writer and the HE-AAC stream generator, which drive the JAX package's
-AAC encoder, are not carried.
+A copy of librempeg_tpu/codecs/aac/sbr.py (host numpy, no framework
+code), imports rewritten; the HE-AAC stream generator drives the
+port's AAC encoder.
 
 Implements ISO/IEC 14496-3 §4.6.18: QMF analysis/synthesis banks,
 master/derived frequency band tables, HF generation with LPC inverse
@@ -11,7 +10,8 @@ filtering and chirp factors, envelope/noise dequantization, gain
 calculation with limiter, and HF assembly with noise/sinusoid
 injection.  The float pipeline mirrors the reference float decoder
 (libavcodec/aacsbr.c, aacsbr_template.c, sbrdsp_template.c) so output
-matches it to float precision.
+matches it to float precision; the payload writer drives the same
+frequency-table code and makes HE-AAC test streams (`generate_he_stream`).
 """
 from __future__ import annotations
 
@@ -20,7 +20,7 @@ import math
 import numpy as np
 
 from librempeg_tpu_torch.codecs.aac import sbr_tables as ST
-from librempeg_tpu_torch.codecs.flac.bitio import BitReaderMSB
+from librempeg_tpu_torch.codecs.flac.bitio import BitReaderMSB, BitWriterMSB
 from librempeg_tpu_torch.core.errors import InvalidData
 
 # VLC ids (aacsbr.h:44 order)
@@ -34,22 +34,24 @@ _CEIL_LOG2 = (0, 1, 2, 2, 3, 3)
 def _build_vlcs():
     """Canonical code assignment identical to vlc.c
     ff_vlc_init_from_lengths (left-aligned incrementing code)."""
-    dec = []
+    dec, enc = [], []
     pos = 0
     for i, n in enumerate(ST.HUFFMAN_NB_CODES):
         off = ST.HUFFMAN_OFFSETS[i]
-        d = {}
+        d, e = {}, {}
         code = 0                      # 32-bit left-aligned accumulator
         for sym, length in ST.HUFFMAN_PAIRS[pos:pos + n]:
             c = code >> (32 - length)
             d[(length, c)] = sym + off
+            e[sym + off] = (c, length)
             code += 1 << (32 - length)
         dec.append(d)
+        enc.append(e)
         pos += n
-    return dec
+    return dec, enc
 
 
-_VLC_DEC = _build_vlcs()
+_VLC_DEC, _VLC_ENC = _build_vlcs()
 
 
 def _read_vlc(br: BitReaderMSB, table: int) -> int:
@@ -61,6 +63,11 @@ def _read_vlc(br: BitReaderMSB, table: int) -> int:
         if v is not None:
             return v
     raise InvalidData("sbr: bad huffman code")
+
+
+def _write_vlc(bw: BitWriterMSB, table: int, val: int) -> None:
+    c, length = _VLC_ENC[table][val]
+    bw.write(c, length)
 
 
 # ---------------------------------------------------------------------------
@@ -1134,3 +1141,178 @@ class Sbr:
         for c, X in enumerate(X_per_ch):
             out.append(qmf_synthesis(self.data[c], X[:32]))
         return out
+
+
+# ---------------------------------------------------------------------------
+# Conformance payload writer (drives the same frequency tables)
+# ---------------------------------------------------------------------------
+
+def write_sbr_payload(bw: BitWriterMSB, *, header: dict | None,
+                      grids: list[dict], n0: int, n1: int, n_q: int,
+                      amp_res: int) -> None:
+    """Serialize sbr_extension_data bits (header + per-channel data)
+    into bw (SCE: one grid; CPE non-coupled: two grids).
+
+    Each grid dict: {freq_res, env_start[], env_deltas[][],
+    noise_start[], noise_deltas[][], invf[], n_env}.  Only FIXFIX
+    frames and df=0 (freq-delta) coding are emitted — the decoder
+    handles the general syntax; the generator keeps to the subset
+    that any encoder would emit.
+    """
+    if header is not None:
+        bw.write(1, 1)
+        bw.write(amp_res, 1)
+        bw.write(header["start_freq"], 4)
+        bw.write(header["stop_freq"], 4)
+        bw.write(header["xover_band"], 3)
+        bw.write(0, 2)
+        bw.write(1, 1)                  # extra1
+        bw.write(1, 1)                  # extra2
+        bw.write(header.get("freq_scale", 2), 2)
+        bw.write(header.get("alter_scale", 1), 1)
+        bw.write(header.get("noise_bands", 2), 2)
+        bw.write(header.get("limiter_bands", 2), 2)
+        bw.write(header.get("limiter_gains", 2), 2)
+        bw.write(header.get("interpol_freq", 1), 1)
+        bw.write(header.get("smoothing_mode", 1), 1)
+    else:
+        bw.write(0, 1)
+    bw.write(0, 1)                      # bs_data_extra
+    if len(grids) == 2:
+        bw.write(0, 1)                  # bs_coupling = 0
+    for g in grids:                     # grid(s): FIXFIX frames
+        bw.write(FIXFIX, 2)
+        bw.write({1: 0, 2: 1, 4: 2}[g["n_env"]], 2)
+        bw.write(g["freq_res"], 1)
+    for g in grids:                     # dtdf (all direct-coded)
+        for _ in range(g["n_env"]):
+            bw.write(0, 1)
+        for _ in range(2 if g["n_env"] > 1 else 1):
+            bw.write(0, 1)
+    for g in grids:                     # invf
+        for v in g["invf"]:
+            bw.write(v, 2)
+    for g in grids:                     # envelopes
+        _write_env(bw, g, n0, n1, amp_res)
+    for g in grids:                     # noise floors
+        _write_noise(bw, g, n_q)
+    for _ in grids:
+        bw.write(0, 1)                  # bs_add_harmonic_flag
+    bw.write(0, 1)                      # bs_extended_data
+
+
+def _write_env(bw, g, n0, n1, amp_res):
+    eff_amp = 0 if g["n_env"] == 1 else amp_res
+    if eff_amp:
+        bits, f_huff = 6, F_ENV_30
+    else:
+        bits, f_huff = 7, F_ENV_15
+    n = n1 if g["freq_res"] else n0
+    for e in range(g["n_env"]):
+        bw.write(g["env_start"][e], bits)
+        for j in range(1, n):
+            _write_vlc(bw, f_huff, g["env_deltas"][e][j - 1])
+
+
+def _write_noise(bw, g, n_q):
+    for e in range(2 if g["n_env"] > 1 else 1):
+        bw.write(g["noise_start"][e], 5)
+        for j in range(1, n_q):
+            _write_vlc(bw, F_ENV_30, g["noise_deltas"][e][j - 1])
+
+
+def generate_he_stream(core_rate: int = 24000, channels: int = 1,
+                       n_frames: int = 8, *, seed: int = 0,
+                       pcm: np.ndarray | None = None,
+                       device="cuda") -> bytes:
+    """Randomized-but-valid HE-AAC v1 ADTS stream: the port's AAC-LC
+    encoder (its MDCT on `device`) carries SBR fill elements with legal
+    random envelopes (rejection-sampled against the same
+    frequency-table validation the decoder runs). The random draws are
+    the JAX generator's, in its order, so a seed gives its stream."""
+    import torch
+
+    from librempeg_tpu_torch.codecs.aac.codec import AacEncoder
+
+    rng = np.random.default_rng(seed)
+    # rejection-sample a header that yields valid tables at 2x rate
+    while True:
+        p = SbrParams()
+        p.start_freq = int(rng.integers(0, 12))
+        p.stop_freq = int(rng.integers(0, 12))
+        p.xover_band = int(rng.integers(0, 4))
+        p.freq_scale = int(rng.integers(0, 4))
+        p.alter_scale = int(rng.integers(0, 2))
+        p.noise_bands = int(rng.integers(1, 4))
+        limiter_bands = int(rng.integers(0, 4))
+        try:
+            ft = SbrFreqTables(2 * core_rate, p, limiter_bands)
+            break
+        except InvalidData:
+            continue
+    amp_res = int(rng.integers(0, 2))
+    header = {"start_freq": p.start_freq, "stop_freq": p.stop_freq,
+              "xover_band": p.xover_band, "freq_scale": p.freq_scale,
+              "alter_scale": p.alter_scale,
+              "noise_bands": p.noise_bands,
+              "limiter_bands": limiter_bands,
+              "limiter_gains": int(rng.integers(0, 3)),
+              "interpol_freq": int(rng.integers(0, 2)),
+              "smoothing_mode": int(rng.integers(0, 2))}
+
+    def bounded_walk(start, count, lo, hi, span):
+        cur = start
+        deltas = []
+        for _ in range(count):
+            d = int(rng.integers(-span, span + 1))
+            d = max(lo - cur, min(hi - cur, d))
+            deltas.append(d)
+            cur += d
+        return deltas
+
+    def grid():
+        n_env = int(rng.choice((1, 2, 4)))
+        fr = int(rng.integers(0, 2))
+        n = ft.n1 if fr else ft.n0
+        eff_amp = 0 if n_env == 1 else amp_res
+        start_max = 55 if eff_amp else 60
+        starts = [int(rng.integers(25, start_max))
+                  for _ in range(n_env)]
+        # stay below the 1e20 dequant overflow warning threshold
+        env_max = 55 if eff_amp else 115
+        g = {"n_env": n_env, "freq_res": fr,
+             "env_start": starts,
+             "env_deltas": [bounded_walk(starts[e], max(0, n - 1),
+                                         0, env_max, 2)
+                            for e in range(n_env)],
+             "invf": [int(rng.integers(0, 4))
+                      for _ in range(ft.n_q)]}
+        nstarts = [int(rng.integers(8, 26)) for _ in range(2)]
+        g["noise_start"] = nstarts
+        g["noise_deltas"] = [bounded_walk(s, max(0, ft.n_q - 1),
+                                          0, 30, 2) for s in nstarts]
+        return g
+
+    enc = AacEncoder(sample_rate=core_rate, channels=channels,
+                     device=device)
+    if pcm is None:
+        t = np.arange(n_frames * 1024) / core_rate
+        pcm = np.stack([
+            (0.25 * np.sin(2 * np.pi * (300 + 170 * c) * t)
+             + 0.1 * np.sin(2 * np.pi * 1750 * t)
+             + 0.02 * rng.standard_normal(t.size)).astype(np.float32)
+            for c in range(channels)])
+    pcm = torch.from_numpy(np.ascontiguousarray(pcm, np.float32))
+    out = bytearray()
+    for i in range(n_frames):
+        bw = BitWriterMSB()
+        grids = [grid() for _ in range(channels)]
+        write_sbr_payload(
+            bw, header=header if i % 4 == 0 else None,
+            grids=grids, n0=ft.n0, n1=ft.n1, n_q=ft.n_q,
+            amp_res=amp_res)
+        bw.align()
+        enc.fill_payload = bw.bytes()
+        blk = pcm[:, i * 1024:(i + 1) * 1024].to(enc.device)
+        out += bytes(enc._encode_frame(blk).data)
+    return bytes(out)

@@ -168,12 +168,14 @@ _ENCODERS: dict[str, type[Encoder]] = {}
 
 
 def register_decoder(cls: type[Decoder]) -> type[Decoder]:
-    _DECODERS[cls.INFO.name] = cls
+    for name in (cls.INFO.name, *getattr(cls, "ALIASES", ())):
+        _DECODERS[name] = cls
     return cls
 
 
 def register_encoder(cls: type[Encoder]) -> type[Encoder]:
-    _ENCODERS[cls.INFO.name] = cls
+    for name in (cls.INFO.name, *getattr(cls, "ALIASES", ())):
+        _ENCODERS[name] = cls
     return cls
 
 

@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from librempeg_tpu_torch.core import pixfmt as _pixfmt
-from librempeg_tpu_torch.core.rational import NOPTS, Rational
+from librempeg_tpu_torch.core.rational import NOPTS, Rational, rescale_q
 
 
 class PictType:
@@ -119,6 +119,13 @@ class AudioFrame:
     def nb_samples(self) -> int:
         return int(self.data.shape[1])
 
+    @property
+    def duration(self) -> int:
+        """Duration in time_base units (exact when time_base is
+        1/sample_rate)."""
+        return rescale_q(self.nb_samples, Rational(1, self.sample_rate),
+                         self.time_base)
+
     def replace(self, **kw) -> "AudioFrame":
         return dataclasses.replace(self, **kw)
 
@@ -127,3 +134,25 @@ class AudioFrame:
 
     def to_host(self) -> "AudioFrame":
         return self.replace(data=_to_numpy(self.data))
+
+
+# -- batching helpers -------------------------------------------------------
+
+def stack_video(frames: list[VideoFrame]) -> VideoFrame:
+    """Stack same-shape frames into one batched frame ([N, ...] planes,
+    on the first frame's planes' device); the frames' pts go to
+    side_data["batch_pts"]."""
+    f0 = frames[0]
+    planes = tuple(torch.stack([torch.as_tensor(f.planes[i]) for f in frames])
+                   for i in range(len(f0.planes)))
+    return f0.replace(planes=planes,
+                      side_data={"batch_pts": [f.pts for f in frames]})
+
+
+def unstack_video(batched: VideoFrame) -> list[VideoFrame]:
+    """The frames of a stack_video batch, each with its pts."""
+    n = int(batched.planes[0].shape[0])
+    pts_list = batched.side_data.get("batch_pts", [NOPTS] * n)
+    return [batched.replace(planes=tuple(p[i] for p in batched.planes),
+                            pts=pts_list[i], side_data={})
+            for i in range(n)]

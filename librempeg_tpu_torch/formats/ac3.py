@@ -36,8 +36,14 @@ def _frame_info(buf: bytes, pos: int):
         if fscod == 3 or frmsizecod > 37:
             return None
         acmod = buf[pos + 6] >> 5
+        # lfeon follows acmod after cmixlev, surmixlev and dsurmod, each
+        # present only for some acmods (A/52 5.3.2); the JAX package
+        # counts no LFE channel here
+        skip = 2 * ((acmod & 1 and acmod != 1) + (acmod >> 2)
+                    + (acmod == 2))
+        lfeon = (buf[pos + 6] >> (4 - skip)) & 1
         return (T.FRAME_SIZE_TAB[frmsizecod][fscod] * 2, _RATES[fscod],
-                nchtab[acmod], "ac3", 1536)
+                nchtab[acmod] + lfeon, "ac3", 1536)
     if 11 <= bsid <= 16:
         strmtyp = buf[pos + 2] >> 6
         if strmtyp == 3:

@@ -249,3 +249,8 @@ class Resampler(OptionedObject):
 
     def flush(self) -> torch.Tensor:
         return self.process(torch.zeros((self.channels, 0)), final=True)
+
+    @property
+    def delay(self) -> int:
+        """Pending input samples not yet represented in output."""
+        return self._total_in - self._next_origin

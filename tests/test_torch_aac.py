@@ -107,8 +107,8 @@ def test_decoder_matches_jax():
 
 
 def test_he_aac_stream_decodes_as_in_jax(tmp_path, monkeypatch):
-    """An HE-AAC v1 stream (the JAX package's SBR stream generator, 24 kHz
-    core, mono, random envelopes whose gains reach far past full
+    """An HE-AAC v1 stream (the port's SBR stream generator, whose bytes
+    are the JAX package's generator's, 24 kHz core, mono, random envelopes whose gains reach far past full
     scale). The port's SBR copy inside the JAX decoder gives the JAX
     decoder's samples exactly; the port's whole decoder (its float32
     IMDCT feeds the SBR's gains) within 90 dB SNR of them (102.6 dB
@@ -119,7 +119,8 @@ def test_he_aac_stream_decodes_as_in_jax(tmp_path, monkeypatch):
     from librempeg_tpu_torch.cli import ffmpeg as TCLI
     from librempeg_tpu_torch.codecs.aac import sbr as TSBR
 
-    data = JSBR.generate_he_stream(24000, 1, 6, seed=3)
+    data = TSBR.generate_he_stream(24000, 1, 6, seed=3, device="cpu")
+    assert data == JSBR.generate_he_stream(24000, 1, 6, seed=3)
     frames, pos = [], 0
     while pos < len(data):
         n = (data[pos + 3] & 3) << 11 | data[pos + 4] << 3 | data[pos + 5] >> 5
@@ -144,6 +145,25 @@ def test_he_aac_stream_decodes_as_in_jax(tmp_path, monkeypatch):
     pcm = np.frombuffer(b"".join(bytes(p.data) for p in d.packets()), "<i2")
     assert np.array_equal(pcm, np.clip(np.rint(got[0] * 32768.0), -32768,
                                        32767).astype(np.int16))
+
+
+@pytest.mark.parametrize("seed", (3, 11))
+@pytest.mark.parametrize("frames", (6, 12))
+@pytest.mark.parametrize("rate", (22050, 24000))
+@pytest.mark.parametrize("channels", (1, 2))
+def test_he_stream_writer_matches_jax(channels, rate, frames, seed):
+    """The port's HE-AAC writer (write_sbr_payload through
+    generate_he_stream, on the port's AAC encoder) gives the JAX
+    generator's bytes: the same random header, grids and envelopes, the
+    same FIL elements, the same AAC-LC core."""
+    import librempeg_tpu.codecs.aac.sbr as JSBR
+    from librempeg_tpu_torch.codecs.aac import sbr as TSBR
+
+    got = TSBR.generate_he_stream(rate, channels, frames, seed=seed,
+                                  device="cpu")
+    assert got == JSBR.generate_he_stream(rate, channels, frames, seed=seed)
+    d = TA.open_input_bytes(got)
+    assert len(list(d.packets())) == frames
 
 
 def test_adts_round_trip():

@@ -13,8 +13,9 @@ the JAX package's.
 - the CLI: `-c:a ac3 -b:a 192k` and `-f framemd5` of the result through
   both packages, equal.
 
-E-AC-3 and 5.1 AC-3 have no parity case: no stream of either is in the
-repository (the JAX encoder writes mono and stereo only).
+E-AC-3 and 5.1 AC-3 are held to the JAX package in test_torch_eac3.py,
+on streams libavcodec's encoders wrote (the JAX encoder writes mono and
+stereo only; tools/torch_port_ac3_fixtures.py).
 """
 import numpy as np
 import pytest

@@ -532,6 +532,22 @@ for codec, ext in (("ac3", "ac3"), ("adpcm_ima_wav", "wav"),
     run("-i", f"{out}_{codec}.{ext}", "-f", "framemd5", "-y",
         f"{out}_{codec}.md5")
     counts[codec] = len(frames(f"{out}_{codec}.md5"))
+# the committed E-AC-3 5.1 stream, and an HE-AAC stream from the port's
+# own SBR writer, decoded through the decoder API
+import hashlib
+from librempeg_tpu_torch.codecs.aac import sbr
+from librempeg_tpu_torch.codecs.api import find_decoder
+from librempeg_tpu_torch.formats.api import open_input_bytes
+
+d = open_input(os.path.join(fx, "eac3_51.eac3"))
+dec = find_decoder("eac3")(d.streams[0].codecpar, device="cpu")
+shapes = {tuple(f.data.shape) for p in d.packets() for f in dec.decode(p)}
+counts["eac3_51"] = "x".join(map(str, *shapes))
+he = sbr.generate_he_stream(24000, 1, 6, seed=3, device="cpu")
+d = open_input_bytes(he)
+dec = find_decoder("aac")(d.streams[0].codecpar, device="cpu")
+rates = {f.sample_rate for p in d.packets() for f in dec.decode(p)}
+counts["he_aac"] = f"{hashlib.md5(he).hexdigest()}@{min(rates)}"
 leaked = sorted(m for m in sys.modules if banned(m))
 assert not leaked, leaked
 print("acodecs", flac_exact,
@@ -543,7 +559,14 @@ def test_audio_codecs_run_without_jax(tmp_path):
     """A process that refuses to import jax decodes one committed stream
     of each new decoder (Opus, Vorbis, MP3, MP2) through the CLI to
     framemd5, runs K1's FLAC round trip (the decoded samples are the
-    WAV's), and encodes and decodes AC-3 and both ADPCM codecs."""
+    WAV's), encodes and decodes AC-3 and both ADPCM codecs, decodes the
+    committed E-AC-3 5.1 stream (6 x 1536 frames) and writes an HE-AAC
+    stream with the port's SBR writer (the JAX generator's bytes),
+    which decodes at twice the core rate."""
+    import hashlib
+
+    import librempeg_tpu.codecs.aac.sbr as JSBR
+
     wav = tmp_path / "in.wav"
     write_wav(wav, testgen.s16(testgen.audio_mix(44100, 44100)), 44100)
     env = dict(os.environ)
@@ -557,6 +580,9 @@ def test_audio_codecs_run_without_jax(tmp_path):
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.startswith("acodecs True "), proc.stdout
     counts = dict(kv.split("=") for kv in proc.stdout.split()[2:])
+    assert counts.pop("eac3_51") == "6x1536"
+    he = JSBR.generate_he_stream(24000, 1, 6, seed=3)
+    assert counts.pop("he_aac") == f"{hashlib.md5(he).hexdigest()}@48000"
     assert set(counts) == {"opus_silk60", "vorbis", "mp3_mono32k", "mp2",
                            "ac3", "adpcm_ima_wav", "adpcm_ms"}
     assert all(int(n) > 1 for n in counts.values()), counts

@@ -80,6 +80,13 @@ Runs the JAX package (the reference) on the CPU:
   (whole_access_units). About three minutes on an 8-core CPU (the
   host-numpy HEVC generator and three decodes at 1920x1080).
 
+* with --acodecs, only the audio codec goldens (acodecs_goldens):
+  chip_smoke.py's acodecs commands K1-K10 through the JAX package, into
+  tests/data/torch_port/bench_acodecs.json, and the JAX decode of K10's
+  HE-AAC stream (every ACODECS_K10_STEP-th sample) into
+  tests/data/torch_port/bench_acodecs_k10.npz. About 90 s on an 8-core
+  CPU.
+
 Every MPEG-4 golden (the bench transcode, the options transcode, JPEG's
 B, F1, F2 and F4, the containers' V, H3, D2) comes from the JAX encoder
 with its reference repaired at run time (tools/mpeg4_jax_repair.py):
@@ -88,7 +95,8 @@ has it, where the unmodified JAX encoder predicts from a float recon
 its decoder never has (ROADMAP section 3b).
 
 Usage: python tools/torch_port_goldens.py [--audio | --jpeg | --filters |
-       --containers | --encoders | --hevc] [--calibrate | --check-port]
+       --containers | --encoders | --hevc | --acodecs | --delivery]
+       [--calibrate | --check-port]
        [--graphs]
 
 --calibrate also runs the options transcode through the port on the CPU
@@ -164,6 +172,7 @@ CONTAINERS_OUT = os.path.join(OUT, "bench_1080p_containers.json")
 ENCODERS_OUT = os.path.join(OUT, "bench_1080p_encoders.json")
 HEVC_OUT = os.path.join(OUT, "bench_1080p_hevc.json")
 ACODECS_OUT = os.path.join(OUT, "bench_acodecs.json")
+ACODECS_K10_OUT = os.path.join(OUT, "bench_acodecs_k10.npz")
 DELIVERY_OUT = os.path.join(OUT, "bench_delivery.json")
 
 
@@ -1349,6 +1358,59 @@ def acodecs_goldens() -> dict:
             ok(cmd[k + "D"])
             gold[k.lower()] = {"md5": md5(cmd[k][-1]), "rows": [
                 list(r) for r in CS.framemd5_rows(cmd[k + "D"][-1])]}
+
+        # K8, K9: libavcodec's E-AC-3 and 5.1 AC-3 streams. The JAX
+        # demuxer counts 5 channels for 5.1 AC-3 (no LFE), so its WAV
+        # header says 5 over six-channel data: the golden reads the data
+        # chunk as the decoder's 6 channels, the port's repair
+        def wav_data(path, ch):
+            raw = open(path, "rb").read()
+            assert raw[36:40] == b"data"
+            return CS.s16_digest(np.frombuffer(raw[44:], "<i2")
+                                 .reshape(-1, ch).T, CS.ACODECS_AC3_WINDOWS)
+
+        for k, (_, ch) in CS.ACODECS_K8.items():
+            r = ok(cmd[k])
+            gold[k.lower()] = {"pts": [p for p, _ in r["packets"]],
+                               "s16": wav_data(cmd[k][-1], ch)}
+        r = ok(cmd["K9"])
+        gold["k9"] = {"pts": [p for p, _ in r["packets"]],
+                      "s16": wav_data(cmd["K9"][-1], 6)}
+        ok(cmd["K9_mkv"])
+        d = jopen(cmd["K9_mkv"][-1])
+        assert d.streams[0].codecpar.nb_channels == 5
+        pk = [(int(p.pts), bytes(p.data)) for p in d.packets()]
+        d.close()
+        gold["k9"].update({
+            "mkv_pts": [p for p, _ in pk],
+            "mkv_packets_md5": hashlib.md5(b"".join(b for _, b in pk))
+            .hexdigest()})
+        # the Matroska copy's decode: pts in its 1/1000 time base
+        r = ok(cmd["K9D"])
+        gold["k9"]["mkv_decode_pts"] = [p for p, _ in r["packets"]]
+        assert wav_data(cmd["K9D"][-1], 6) == gold["k9"]["s16"]
+
+        # K10: the JAX generator's HE-AAC stream (the port's writer gives
+        # its bytes), its JAX decode and the JAX CLI's WAV packets
+        from librempeg_tpu.codecs.aac.sbr import generate_he_stream
+
+        data = generate_he_stream(**CS.ACODECS_K10)
+        with open(cmd["K10"][1], "wb") as f:
+            f.write(data)
+        d = jopen(cmd["K10"][1])
+        adec = AacDecoder(d.streams[0].codecpar)
+        frames = [f for p in d.packets() for f in adec.decode(p)]
+        d.close()
+        assert {f.sample_rate for f in frames} == \
+            {2 * CS.ACODECS_K10["core_rate"]}
+        r = ok(cmd["K10"])
+        gold["k10"] = {
+            "md5": hashlib.md5(data).hexdigest(),
+            "pts": [int(f.pts) for f in frames],
+            "cli_pts": [p for p, _ in r["packets"]],
+            "pcm": np.ascontiguousarray(np.concatenate(
+                [np.asarray(f.data) for f in frames], 1)
+                [:, ::CS.ACODECS_K10_STEP], np.float32)}
     return gold
 
 
@@ -1593,6 +1655,7 @@ def _main(argv) -> None:
     if args.acodecs:
         t0 = time.perf_counter()
         gold = acodecs_goldens()
+        np.savez_compressed(ACODECS_K10_OUT, pcm=gold["k10"].pop("pcm"))
         with open(ACODECS_OUT, "w") as f:
             json.dump(gold, f, separators=(",", ":"), sort_keys=True)
         print(f"acodecs goldens (JAX, CPU, {time.perf_counter() - t0:.1f} "

@@ -220,9 +220,14 @@ raises and the script exits non-zero:
    every sample); K5, the MP3 to AAC in MP4 (packets and
    pts exact, bytes and SNR within AUDIO_BYTES_TOL, AUDIO_SNR_TOL_DB);
    K6, the MP2 copied into Matroska and decoded; K7, 5 s to IMA and MS
-   ADPCM in WAV and back to framemd5, exact. Each command's wall time,
-   launches and stage split print beside the card's name and power
-   limit;
+   ADPCM in WAV and back to framemd5, exact; K8 and K9, libavcodec's
+   E-AC-3 stereo and 5.1 and 5.1 AC-3 streams decoded to s16 WAVs (the
+   s16 the dithered JAX decoder's exactly, the float decode above
+   ACODECS_AC3_SNR_DB against libavcodec's), K9's WAV header
+   libavformat's (WAVE_FORMAT_EXTENSIBLE, mask 0x60F) also through a
+   Matroska copy, and its framemd5 naming 5.1(side). Each command's
+   wall time, launches and stage split print beside the card's name
+   and power limit;
 14. delivery: D1-D6 of delivery_commands through cli.ffmpeg's parser
    and Transcoder (D4 through its main), held to tests/data/torch_port/
    bench_delivery.json (the JAX package's runs on the CPU) and to
@@ -4032,6 +4037,14 @@ ACODECS_COPIES = ("ogg", "mkv")         # K1's stream copies
 # streams (tools/torch_port_ac3_fixtures.py), 48 kHz, 1 s each
 ACODECS_K8 = {"K8s": ("eac3_stereo.eac3", 2), "K8m": ("eac3_51.eac3", 6)}
 ACODECS_AC3_WINDOWS = 2    # stored s16 windows of K8 and K9
+# K8 and K9 against libavcodec's float decode of each stream (the
+# committed <stream>.npz, every 16th sample): the decoders fill in its
+# dither, so all but its fixed-point rounding agrees (tests/
+# test_torch_eac3.py's floors); K9's WAV header and framemd5 layout line
+# against libavformat's (libav_layouts.json, tools/
+# torch_port_libav_fixtures.py)
+ACODECS_AC3_SNR_DB, ACODECS_AC3_SNR_CH_DB = 95.0, 90.0
+ACODECS_LIBAV = "libav_layouts.json"
 # K10: an HE-AAC stream the port's SBR writer makes on this host (its
 # AAC core's MDCT on the CPU, so its bytes are the JAX generator's),
 # decoded on the card; the golden keeps every ACODECS_K10_STEP-th
@@ -4104,6 +4117,8 @@ def acodecs_commands(td: str, wav: str) -> dict:
                      j("k9.mkv")]
     cmd["K9D"] = ["-i", j("k9.mkv"), "-c:a", "pcm_s16le", "-y",
                   j("k9d.wav")]
+    cmd["K9F"] = ["-i", fx("ac3_51.ac3"), "-f", "framemd5", "-y",
+                  j("k9.md5")]
     # K10's input is the HE-AAC stream the phase writes first
     cmd["K10"] = ["-i", j("k10.aac"), "-c:a", "pcm_s16le", "-y",
                   j("k10.wav")]
@@ -4389,20 +4404,53 @@ def acodecs_phase(dev: str) -> dict:
 
         # K8 E-AC-3 stereo and 5.1, K9 5.1 AC-3 (coupling in every
         # block): decoded on the card to s16 WAVs, the s16 and pts held
-        # exactly; K9 copied into Matroska and that decoded again
-        def decoded(k, ch, g, pts):
-            r = run(k, cmd[k])
+        # exactly, the float decode to libavcodec's; K9 copied into
+        # Matroska and that decoded again
+        libav = json.load(open(os.path.join(GOLD, ACODECS_LIBAV)))
+        res["k8_snr_db"] = {}
+
+        def decoded(k, ch, g, pts, stream):
+            frames = []
+            r = run(k, cmd[k], prepare=keep_audio(frames))
             check([p for p, _, _ in r["packets"]] == pts,
                   f"{k}: decoded pts differ from the JAX package's")
             rate, y = read_wav(cmd[k][-1])
             check((rate, y.shape[0]) == (48000, ch),
                   f"{k}: the WAV says {rate} Hz, {y.shape[0]} channels")
             held_s16(k, y, g["s16"])
+            z = np.load(os.path.join(ACODECS_FX, stream + ".npz"))
+            ref, step = z["pcm"].astype(np.float64), int(z["step"])
+            x = torch.cat([f.data for f in frames], 1).cpu().numpy()
+            x = x[:, ::step][:, :ref.shape[1]].astype(np.float64)
+            check(x.shape == ref.shape, f"{k}: {x.shape} decoded samples "
+                  f"against libavcodec's {ref.shape}")
+            e, p = ((x - ref) ** 2).sum(1), (ref ** 2).sum(1)
+            per_ch = 10 * np.log10(p / e)
+            total = float(10 * np.log10(p.sum() / e.sum()))
+            check(total > ACODECS_AC3_SNR_DB
+                  and per_ch.min() > ACODECS_AC3_SNR_CH_DB,
+                  f"{k}: SNR {total:.2f} dB against libavcodec, per "
+                  f"channel {np.round(per_ch, 2).tolist()}")
+            res["k8_snr_db"][k] = [total, float(per_ch.min())]
 
-        for k, (_, ch) in ACODECS_K8.items():
-            decoded(k, ch, gold[k.lower()], gold[k.lower()]["pts"])
+        for k, (name, ch) in ACODECS_K8.items():
+            decoded(k, ch, gold[k.lower()], gold[k.lower()]["pts"], name)
         g = gold["k9"]
-        decoded("K9", 6, g, g["pts"])
+        decoded("K9", 6, g, g["pts"], "ac3_51.ac3")
+        # libavformat's WAV for the s16 decode of the stream: 40-byte
+        # WAVE_FORMAT_EXTENSIBLE fmt chunk with the mask of 5.1(side)
+        want = libav["wav"]["s16_ac3_51"]
+        head = bytes.fromhex(want["header"])
+        raw = open(cmd["K9"][-1], "rb").read()
+        check(raw[:len(head)] == head and len(raw) == want["size"]
+              and struct.unpack("<I", head[40:44])[0] == 0x60F,
+              f"K9: the WAV header {raw[:len(head)].hex()} is not "
+              "libavformat's")
+        run("K9F", cmd["K9F"])
+        lines = open(cmd["K9F"][-1]).read().splitlines()
+        check("#channel_layout_name 0: 5.1(side)" in lines
+              and len(lines) == 8 + len(g["pts"]),
+              f"K9F: framemd5 header {lines[:8]}")
         run("K9_mkv", cmd["K9_mkv"])
         d = open_input(cmd["K9_mkv"][-1])
         par = d.streams[0].codecpar
@@ -4415,8 +4463,11 @@ def acodecs_phase(dev: str) -> dict:
         check([p for p, _ in pk] == g["mkv_pts"] and hashlib.md5(
             b"".join(b for _, b in pk)).hexdigest() == g["mkv_packets_md5"],
             "K9_mkv: the Matroska copy's packets are not the JAX package's")
-        # the copy's decode: pts in Matroska's 1/1000 time base
-        decoded("K9D", 6, g, g["mkv_decode_pts"])
+        # the copy's decode: pts in Matroska's 1/1000 time base; the
+        # decoder's layout reaches the WAV header (Matroska gives none)
+        decoded("K9D", 6, g, g["mkv_decode_pts"], "ac3_51.ac3")
+        check(open(cmd["K9D"][-1], "rb").read()[:len(head)] == head,
+              "K9D: the WAV header is not libavformat's")
         res["k8"] = {k: os.path.getsize(cmd[k][-1]) for k in ACODECS_K8}
 
         # K10 HE-AAC: the port's SBR writer on this host, the stream
@@ -5460,8 +5511,11 @@ def main(argv: list[str]) -> int:
         f"hashes exact; decoded s16 of K2, K3, K3H, K4 and K6 the JAX "
         f"package's (md5 of every sample); K8 E-AC-3 stereo and 5.1 WAVs "
         f"{json.dumps(ac['k8'])} bytes and K9 5.1 AC-3 (and its Matroska "
-        f"copy, 6 channels) decoded on the card to the JAX package's s16 "
-        f"and pts; K10 HE-AAC from the port's SBR writer "
+        f"copy, 6 channels) decoded on the card to the dithered JAX "
+        f"package's s16 and pts, SNR against libavcodec [overall, least "
+        f"channel] dB {json.dumps(ac['k8_snr_db'])}, K9's and K9D's WAV "
+        f"header libavformat's (EXTENSIBLE, 0x60F), K9F's framemd5 "
+        f"5.1(side); K10 HE-AAC from the port's SBR writer "
         f"{ac['k10']['bytes']} bytes (the JAX generator's: "
         f"{ac['k10']['identical']}), {ac['k10']['frames']} frames on the "
         f"card at SNR {ac['k10']['snr_db']:.2f} dB against the JAX decode, "

@@ -143,6 +143,11 @@ class PcmDecoder(Decoder):
     def configure(self, params):
         self.sample_rate = params.sample_rate
         self.channels = params.nb_channels
+        # the stream's layout where its container has one (a WAV's
+        # channel mask), else the default of its channel count
+        lay = params.ch_layout
+        self.layout = lay if lay and lay.mask else \
+            ChannelLayout.default(self.channels)
 
     def decode(self, pkt: Packet):
         data = _decode_bytes(self.codec, pkt.data, self.channels)
@@ -150,7 +155,7 @@ class PcmDecoder(Decoder):
             data=torch.from_numpy(data).to(self.device),
             sample_rate=self.sample_rate,
             sample_fmt=self.sample_fmt,
-            layout=ChannelLayout.default(self.channels),
+            layout=self.layout,
             pts=pkt.pts,
             time_base=pkt.time_base if pkt.time_base.valid
             and pkt.time_base.num else Rational(1, self.sample_rate),

@@ -9,6 +9,7 @@ float32, and resample.Swr narrows back to integer formats.
 """
 from __future__ import annotations
 
+import re
 from dataclasses import dataclass
 
 import numpy as np
@@ -58,7 +59,10 @@ def exists(name: str) -> bool:
 
 
 # ---------------------------------------------------------------------------
-# Channel layouts (subset of channel_layout.h masks; same bit positions)
+# Channel layouts: libavutil 57's AVChannelLayout of a native (mask) or
+# unspecified order, its channel_layout_map and av_channel_layout_*
+# rules (channel_layout.c); tests/test_torch_channel_layouts.py holds
+# them to tests/data/torch_port/libav_layouts.json
 # ---------------------------------------------------------------------------
 
 CH_FRONT_LEFT = 1 << 0
@@ -73,42 +77,96 @@ CH_BACK_CENTER = 1 << 8
 CH_SIDE_LEFT = 1 << 9
 CH_SIDE_RIGHT = 1 << 10
 
+#: av_channel_name of each channel bit (AVChannel); "" where libavutil
+#: names it USR<bit>
+CHANNEL_NAMES = ("FL", "FR", "FC", "LFE", "BL", "BR", "FLC", "FRC", "BC",
+                 "SL", "SR", "TC", "TFL", "TFC", "TFR", "TBL", "TBC",
+                 "TBR") + ("",) * 11 + (
+                 "DL", "DR", "WL", "WR", "SDL", "SDR", "LFE2", "TSL",
+                 "TSR", "BFC", "BFL", "BFR")
+
+#: libavutil's channel_layout_map, in its order (the AV_CH_LAYOUT_*
+#: masks); av_channel_layout_default(n) is the first layout of n
+#: channels here
 LAYOUTS: dict[str, int] = {
-    "mono": CH_FRONT_CENTER,
-    "stereo": CH_FRONT_LEFT | CH_FRONT_RIGHT,
-    "2.1": CH_FRONT_LEFT | CH_FRONT_RIGHT | CH_LOW_FREQUENCY,
-    "3.0": CH_FRONT_LEFT | CH_FRONT_RIGHT | CH_FRONT_CENTER,
-    "4.0": CH_FRONT_LEFT | CH_FRONT_RIGHT | CH_FRONT_CENTER | CH_BACK_CENTER,
-    "quad": CH_FRONT_LEFT | CH_FRONT_RIGHT | CH_BACK_LEFT | CH_BACK_RIGHT,
-    "5.0": CH_FRONT_LEFT | CH_FRONT_RIGHT | CH_FRONT_CENTER | CH_SIDE_LEFT | CH_SIDE_RIGHT,
-    "5.1": CH_FRONT_LEFT | CH_FRONT_RIGHT | CH_FRONT_CENTER | CH_LOW_FREQUENCY
-           | CH_SIDE_LEFT | CH_SIDE_RIGHT,
-    "7.1": CH_FRONT_LEFT | CH_FRONT_RIGHT | CH_FRONT_CENTER | CH_LOW_FREQUENCY
-           | CH_BACK_LEFT | CH_BACK_RIGHT | CH_SIDE_LEFT | CH_SIDE_RIGHT,
+    "mono": 0x4,
+    "stereo": 0x3,
+    "2.1": 0xB,
+    "3.0": 0x7,
+    "3.0(back)": 0x103,
+    "4.0": 0x107,
+    "quad": 0x33,
+    "quad(side)": 0x603,
+    "3.1": 0xF,
+    "5.0": 0x37,
+    "5.0(side)": 0x607,
+    "4.1": 0x10F,
+    "5.1": 0x3F,
+    "5.1(side)": 0x60F,
+    "6.0": 0x707,
+    "6.0(front)": 0x6C3,
+    "hexagonal": 0x137,
+    "6.1": 0x70F,
+    "6.1(back)": 0x13F,
+    "6.1(front)": 0x6CB,
+    "7.0": 0x637,
+    "7.0(front)": 0x6C7,
+    "7.1": 0x63F,
+    "7.1(wide)": 0xFF,
+    "7.1(wide-side)": 0x6CF,
+    "octagonal": 0x737,
+    "hexadecagonal": 0x18003F737,
+    "downmix": 0x60000000,
+    "22.2": 0x1F80003FFFF,
 }
+
+
+def _channel_name(bit: int) -> str:
+    return (CHANNEL_NAMES[bit] if bit < len(CHANNEL_NAMES) else "") \
+        or f"USR{bit}"
 
 
 @dataclass(frozen=True)
 class ChannelLayout:
-    """Channel layout: count + optional positional mask (AVChannelLayout)."""
+    """Channel layout (AVChannelLayout): a channel count and a mask of
+    channel bits in native order, or mask 0 for an unspecified order."""
 
     nb_channels: int
     mask: int = 0
 
     @staticmethod
+    def from_mask(mask: int) -> "ChannelLayout":
+        return ChannelLayout(bin(mask).count("1"), mask)
+
+    @staticmethod
     def from_string(s: str) -> "ChannelLayout":
+        """av_channel_layout_from_string: a layout name, channel names
+        joined by "+", a mask ("0x3f", or a decimal number, as libavutil
+        57 still reads it), "<n>c" (the default layout of n channels),
+        or "<n>C" / "<n> channels" (n channels in no known order)."""
         if s in LAYOUTS:
-            m = LAYOUTS[s]
-            return ChannelLayout(bin(m).count("1"), m)
-        if s.endswith("c") and s[:-1].isdigit():
-            return ChannelLayout.default(int(s[:-1]))
-        if s.isdigit():
-            return ChannelLayout.default(int(s))
+            return ChannelLayout.from_mask(LAYOUTS[s])
+        names = s.split("+")
+        if all(n and n in CHANNEL_NAMES for n in names):
+            return ChannelLayout.from_mask(
+                sum(1 << CHANNEL_NAMES.index(n) for n in set(names)))
+        m = re.fullmatch(r"0[xX]([0-9a-fA-F]+)|(\d+)", s)
+        mask = (int(m[1], 16) if m[1] else int(m[2])) if m else 0
+        if mask:
+            return ChannelLayout.from_mask(mask)
+        m = re.fullmatch(r"(\d+)(c|C| channels)", s)
+        if m and int(m[1]):
+            n = int(m[1])
+            if m[2] != "c":
+                return ChannelLayout(n)
+            if ChannelLayout.default(n).mask:
+                return ChannelLayout.default(n)
         raise ValueError(f"unknown channel layout {s!r}")
 
     @staticmethod
     def default(nb_channels: int) -> "ChannelLayout":
-        """Default layout for a channel count (av_channel_layout_default)."""
+        """av_channel_layout_default: the first layout of channel_layout_map
+        with this many channels, else the count in no known order."""
         for m in LAYOUTS.values():
             if bin(m).count("1") == nb_channels:
                 return ChannelLayout(nb_channels, m)
@@ -116,10 +174,14 @@ class ChannelLayout:
 
     @property
     def name(self) -> str:
+        """av_channel_layout_describe."""
+        if not self.mask:
+            return f"{self.nb_channels} channels"
         for k, v in LAYOUTS.items():
-            if v == self.mask and self.mask:
+            if v == self.mask:
                 return k
-        return f"{self.nb_channels}c"
+        return (f"{self.nb_channels} channels ("
+                + "+".join(map(_channel_name, self.channels())) + ")")
 
     def channels(self) -> list[int]:
         """Bit positions of each channel, in order."""

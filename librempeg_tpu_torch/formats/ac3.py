@@ -10,6 +10,7 @@ from librempeg_tpu_torch.codecs.ac3 import tables_data as T
 from librempeg_tpu_torch.core.errors import EndOfStream, InvalidData
 from librempeg_tpu_torch.core.packet import Packet, PktFlags
 from librempeg_tpu_torch.core.rational import Rational
+from librempeg_tpu_torch.core.samplefmt import CH_LOW_FREQUENCY, ChannelLayout
 from librempeg_tpu_torch.formats.api import (
     CodecParameters,
     Demuxer,
@@ -20,16 +21,25 @@ from librempeg_tpu_torch.formats.api import (
 )
 
 _RATES = (48000, 44100, 32000)
+#: acmod -> the channel mask libavcodec gives its full-bandwidth
+#: channels (ac3tab.c avpriv_ac3_channel_layout_tab: dual mono is
+#: stereo, 2/1 and 2/2 put the surrounds at the back centre and the
+#: sides); the LFE channel adds CH_LOW_FREQUENCY
+ACMOD_MASKS = (0x3, 0x4, 0x3, 0x7, 0x103, 0x107, 0x603, 0x607)
+
+
+def _layout(acmod: int, lfeon: int) -> ChannelLayout:
+    return ChannelLayout.from_mask(ACMOD_MASKS[acmod]
+                                   | (CH_LOW_FREQUENCY if lfeon else 0))
 
 
 def _frame_info(buf: bytes, pos: int):
-    """(size_bytes, sample_rate, channels, codec_id, samples) or None.
+    """(size_bytes, sample_rate, layout, codec_id, samples) or None.
     Handles AC-3 (bsid <= 8) and E-AC-3 (11..16); bsid sits at bit 40
     in both syntaxes (libavformat/ac3dec.c probe role)."""
     if pos + 7 > len(buf) or buf[pos] != 0x0B or buf[pos + 1] != 0x77:
         return None
     bsid = buf[pos + 5] >> 3
-    nchtab = (2, 1, 2, 3, 3, 4, 4, 5)
     if bsid <= 8:
         fscod = buf[pos + 4] >> 6
         frmsizecod = buf[pos + 4] & 0x3F
@@ -43,7 +53,7 @@ def _frame_info(buf: bytes, pos: int):
                     + (acmod == 2))
         lfeon = (buf[pos + 6] >> (4 - skip)) & 1
         return (T.FRAME_SIZE_TAB[frmsizecod][fscod] * 2, _RATES[fscod],
-                nchtab[acmod] + lfeon, "ac3", 1536)
+                _layout(acmod, lfeon), "ac3", 1536)
     if 11 <= bsid <= 16:
         strmtyp = buf[pos + 2] >> 6
         if strmtyp == 3:
@@ -55,7 +65,7 @@ def _frame_info(buf: bytes, pos: int):
         nblocks = (1, 2, 3, 6)[(buf[pos + 4] >> 4) & 3]
         acmod = (buf[pos + 4] >> 1) & 7
         lfeon = buf[pos + 4] & 1
-        return ((frmsiz + 1) * 2, _RATES[fscod], nchtab[acmod] + lfeon,
+        return ((frmsiz + 1) * 2, _RATES[fscod], _layout(acmod, lfeon),
                 "eac3", 256 * nblocks)
     return None
 
@@ -86,15 +96,16 @@ class Ac3Demuxer(Demuxer):
         self.io = io
         self._buf = b""
         self._eof = False
-        self._consumed = io.tell()
+        self._consumed = self._start = io.tell()
         self._idx = 0
         if not self._sync(7):
             raise InvalidData("ac3: no sync")
-        _, rate, nch, codec_id, samples = _frame_info(self._buf, 0)
+        _, rate, layout, codec_id, samples = _frame_info(self._buf, 0)
         self._samples = samples
         par = CodecParameters(codec_type="audio", codec_id=codec_id,
-                              sample_rate=rate, nb_channels=nch,
-                              frame_size=samples)
+                              sample_rate=rate,
+                              nb_channels=layout.nb_channels,
+                              ch_layout=layout, frame_size=samples)
         self.streams = [Stream(index=0, codecpar=par,
                                time_base=Rational(1, rate))]
 
@@ -132,6 +143,27 @@ class Ac3Demuxer(Demuxer):
         return Packet(data=data, pts=pts, dts=pts, duration=samples,
                       flags=PktFlags.KEY,
                       time_base=self.streams[0].time_base)
+
+    def read_seek(self, stream_index: int, ts: int) -> None:
+        """To the frame that holds sample `ts` (every frame is a key
+        frame), counted from the first frame, as libavformat's generic
+        index finds it in a raw stream. The JAX package cannot seek
+        here and decodes from the start. After this seek the decoder
+        starts at the frame with no overlap and its dither generator at
+        its seed, as the decoder that ffmpeg's -ss opens after its seek
+        does."""
+        if not self.io.seekable:
+            raise NotImplementedError("ac3: seek on an unseekable input")
+        self.io.seek(self._start)
+        self._buf, self._eof = b"", False
+        self._consumed, self._idx = self._start, 0
+        while self._idx < max(0, ts) // self._samples and self._sync(7):
+            size = _frame_info(self._buf, 0)[0]
+            if not self._fill(size):
+                break
+            self._buf = self._buf[size:]
+            self._consumed += size
+            self._idx += 1
 
     def tell_resume(self) -> int:
         return self._consumed

@@ -23,6 +23,7 @@ from typing import Any, Iterator
 from librempeg_tpu_torch.core.errors import EndOfStream, InvalidData, NotFound
 from librempeg_tpu_torch.core.packet import Packet, PktFlags
 from librempeg_tpu_torch.core.rational import NOPTS, Rational, compare_ts
+from librempeg_tpu_torch.core.samplefmt import ChannelLayout
 from librempeg_tpu_torch.formats.io import IOContext, MemoryIO, open_io
 
 PROBE_SCORE_MAX = 100
@@ -43,6 +44,9 @@ class CodecParameters:
     sample_fmt: str = ""
     block_align: int = 0
     frame_size: int = 0
+    # AVCodecParameters.ch_layout: None where the container says no
+    # more than the channel count
+    ch_layout: ChannelLayout | None = None
     # video
     width: int = 0
     height: int = 0
@@ -50,6 +54,11 @@ class CodecParameters:
     framerate: Rational = Rational(0, 1)
     sample_aspect_ratio: Rational = Rational(0, 1)
     extra: dict = field(default_factory=dict)
+
+    @property
+    def layout(self) -> ChannelLayout:
+        """ch_layout, or else nb_channels in no known order."""
+        return self.ch_layout or ChannelLayout(self.nb_channels)
 
 
 @dataclass

@@ -60,8 +60,10 @@ class _FrameHashBase(Muxer):
                 w(f"#sar {st.index}: {sar.num}/{sar.den}\n".encode())
             elif par.codec_type == "audio":
                 w(f"#sample_rate {st.index}: {par.sample_rate}\n".encode())
+                # av_channel_layout_describe of the stream's layout (the
+                # JAX package writes "stereo" for every layout)
                 w(f"#channel_layout_name {st.index}: "
-                  f"{par.extra.get('layout_name', 'stereo')}\n".encode())
+                  f"{par.layout.name}\n".encode())
 
     def write_packet(self, pkt: Packet):
         from librempeg_tpu_torch.core.packet import PktFlags

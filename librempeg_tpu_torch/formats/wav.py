@@ -5,6 +5,15 @@ analog: fmt/data chunk parsing, WAVE_FORMAT_PCM/IEEE_FLOAT/EXTENSIBLE,
 packets of about 4096 bytes, LIST/INFO metadata, the ADPCM codecs'
 blocks and fmt extension), a host copy. The tag tables also serve the
 AVI muxer.
+
+Unlike the JAX package, the PCM fmt chunk follows libavformat 59's
+ff_put_wav_header: WAVE_FORMAT_EXTENSIBLE (a 40-byte chunk with the
+channel mask and the subformat GUID) for a layout in native order that
+is neither mono nor stereo, a rate above 48 kHz, or samples wider than
+16 bits, and a `fact` chunk with the sample count after it for float
+samples; the demuxer reads the channel mask back into `ch_layout`
+(tests/test_torch_channel_layouts.py holds both to libavformat's
+files).
 """
 from __future__ import annotations
 
@@ -13,6 +22,7 @@ import struct
 from librempeg_tpu_torch.core.errors import EndOfStream, InvalidData
 from librempeg_tpu_torch.core.packet import Packet, PktFlags
 from librempeg_tpu_torch.core.rational import Rational
+from librempeg_tpu_torch.core.samplefmt import MONO, STEREO, ChannelLayout
 from librempeg_tpu_torch.formats.api import (
     PROBE_SCORE_MAX,
     CodecParameters,
@@ -63,6 +73,10 @@ _CODEC_TO_TAG = {
     "adpcm_yamaha": (WAVE_FORMAT_ADPCM_YAMAHA, 4),
 }
 
+#: the subformat GUID's tail after its first 4 bytes (the format tag):
+#: KSDATAFORMAT_SUBTYPE_* = tag-0000-0010-8000-00AA00389B71
+_SUBFORMAT_TAIL = bytes.fromhex("00001000800000aa00389b71")
+
 # packet size target (bytes); like the reference, demuxed PCM is chunked
 # into modest packets so downstream batching controls granularity
 _MAX_PKT = 4096
@@ -101,7 +115,9 @@ class WavDemuxer(Demuxer):
                 (wtag, channels, rate, _brate, balign, bits) = struct.unpack(
                     "<HHIIHH", fmt[:16])
                 if wtag == WAVE_FORMAT_EXTENSIBLE and size >= 40:
-                    wtag = struct.unpack("<H", fmt[24:26])[0]
+                    mask, wtag = struct.unpack("<IH", fmt[20:26])
+                    if mask and bin(mask).count("1") == channels:
+                        par.ch_layout = ChannelLayout.from_mask(mask)
                 codec = _TAG_TO_CODEC.get((wtag, bits))
                 if codec is None:
                     raise InvalidData(f"unsupported WAV format tag={wtag} bits={bits}")
@@ -240,14 +256,33 @@ class WavMuxer(Muxer):
             io.wl16(len(extra))
             io.write(extra)
         else:
-            io.wl32(16)
+            layout = par.layout
+            extensible = (layout.mask and layout not in (MONO, STEREO)) \
+                or par.sample_rate > 48000 or bits > 16
+            io.wl32(40 if extensible else 16)
             balign = par.nb_channels * (bits // 8)
-            io.wl16(wtag)
+            io.wl16(WAVE_FORMAT_EXTENSIBLE if extensible else wtag)
             io.wl16(par.nb_channels)
             io.wl32(par.sample_rate)
             io.wl32(par.sample_rate * balign)  # byte rate
             io.wl16(balign)
             io.wl16(bits)
+            if extensible:
+                # cbSize, valid bits, the channel mask (none past the
+                # 18 channels WAVE defines), the subformat GUID
+                io.wl16(22)
+                io.wl16(bits)
+                io.wl32(layout.mask if layout.mask < 0x40000 else 0)
+                io.wl32(wtag)
+                io.write(_SUBFORMAT_TAIL)
+        self._fact_pos, self._block_align = -1, balign
+        if wtag == WAVE_FORMAT_IEEE_FLOAT and io.seekable:
+            # wavenc.c: a fact chunk for every tag but PCM, its sample
+            # count written at the trailer
+            io.write(b"fact")
+            io.wl32(4)
+            self._fact_pos = io.tell()
+            io.wl32(0)
         io.write(b"data")
         self._data_size_pos = io.tell()
         io.wl32(0)  # patched in trailer
@@ -277,4 +312,7 @@ class WavMuxer(Muxer):
             io.wl32(end - 8)
             io.seek(self._data_size_pos)
             io.wl32(self._data_bytes)
+            if self._fact_pos >= 0:
+                io.seek(self._fact_pos)
+                io.wl32(self._data_bytes // self._block_align)
             io.seek(end)

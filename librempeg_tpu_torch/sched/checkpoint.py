@@ -6,7 +6,9 @@ its scalar attributes, and each chain's encoder fields, resampler carry
 and ditherer state; `restore` puts them into a fresh Transcoder made
 from the same spec. The snapshot carries no decoder state, so a video
 chain resumes exactly only where the next packet is a keyframe that
-opens a closed GOP (an H.264 IDR).
+opens a closed GOP (an H.264 IDR), and an AC-3 decode resumes as a
+fresh decoder, its overlap at zero and its dither generator at the
+seed, as after a -ss seek.
 
 The format is data only (a JSON tree and an npz bundle of arrays,
 loaded with allow_pickle=False), so restoring a tampered snapshot never
@@ -101,8 +103,10 @@ def dumps_state(state: Any) -> bytes:
     return _MAGIC + struct.pack("<Q", len(tree)) + tree + buf.getvalue()
 
 
-def loads_state(blob: bytes, device="cpu") -> Any:
-    """Parse a snapshot; its tensors come back on `device`."""
+def loads_state(blob: bytes, device="cuda") -> Any:
+    """Parse a snapshot; its tensors come back on `device` (the card
+    unless the caller names another; without one it raises)."""
+    device = resolve(device)
     if blob.startswith(_JAX_MAGIC):
         raise ValueError("checkpoint: a JAX package snapshot (LTCKPT1); "
                          "its state does not resume in this package")
@@ -118,7 +122,7 @@ def loads_state(blob: bytes, device="cpu") -> Any:
     if npz_bytes:
         with np.load(io.BytesIO(npz_bytes), allow_pickle=False) as z:
             arrays = {k: z[k] for k in z.files}
-    return _decode(tree, arrays, resolve(device))
+    return _decode(tree, arrays, device)
 
 
 def _graph_nodes(chain) -> list:

@@ -347,6 +347,12 @@ class _AudioChain:
         self.discard_until = 0.0     # -ss: decode and drop before this
         self.eof = False
         self.copy = smap.codec == "copy"
+        nch = par.nb_channels or 2
+        if par.nb_channels and not (par.ch_layout and par.ch_layout.mask):
+            # a count in no known order takes the default layout of the
+            # count (ffmpeg_opt.c guess_input_channel_layout), also for
+            # a stream copy
+            par.ch_layout = ChannelLayout.default(nch)
         if self.copy:
             self.out_stream = out_mux.add_stream(par, in_stream.time_base)
             return
@@ -354,13 +360,12 @@ class _AudioChain:
         if dec_cls.INFO.codec_type != "audio":
             raise Unsupported(f"{par.codec_id} is not an audio decoder")
         self.decoder = dec_cls(par, device=device)
-        nch = par.nb_channels or 2
         # the decoder's own sample format (the JAX package says s16p for
         # every codec, which scales an AAC decoder's floats by 2^-15)
-        props = StreamProps(
+        self._props = StreamProps(
             media="audio", sample_rate=par.sample_rate,
             sample_fmt=self.decoder.sample_fmt,
-            layout=ChannelLayout.default(nch),
+            layout=par.ch_layout or ChannelLayout.default(nch),
             time_base=in_stream.time_base)
         desc = smap.filters or "anull"
         if smap.channels and smap.channels != nch:
@@ -369,8 +374,9 @@ class _AudioChain:
                      f"{ChannelLayout.default(smap.channels).name}")
         if smap.sample_rate:
             desc += f",aresample={smap.sample_rate}"
-        self.graph = GraphRunner(desc, props,
-                                 sample_fmt=_integer_sample_fmt(smap.codec))
+        self._make_graph = lambda props: GraphRunner(
+            desc, props, sample_fmt=_integer_sample_fmt(smap.codec))
+        self.graph = self._make_graph(self._props)
         enc_cls = find_encoder(smap.codec)
         if enc_cls.INFO.codec_type != "audio":
             raise Unsupported(f"-c:a {smap.codec} is not an audio encoder")
@@ -381,9 +387,16 @@ class _AudioChain:
         self.encoder = self._make_encoder(
             out.sample_rate, out.layout.nb_channels if out.layout else 2)
         self.out_stream = out_mux.add_stream(
-            self.encoder.codec_parameters(), Rational(1, out.sample_rate))
+            self._codec_parameters(), Rational(1, out.sample_rate))
         self._in_rate = par.sample_rate
-        self._rate_locked = False
+        self._format_locked = False
+
+    def _codec_parameters(self):
+        """The encoder's parameters with the graph's output layout (the
+        encoder's ch_layout, as ffmpeg sets it from the buffersink)."""
+        par = self.encoder.codec_parameters()
+        par.ch_layout = self.graph.output_props.layout
+        return par
 
     def send_packet(self, pkt, mux) -> None:
         if self.eof:
@@ -396,27 +409,40 @@ class _AudioChain:
         for frame in frames:
             self._through_graph(frame, mux)
 
-    def _lock_rate(self, frame, mux) -> None:
-        """Late format discovery (the ffmpeg.c decoder-reconfig path):
-        HE-AAC doubles the rate only once SBR is seen in-band, so the
-        first decoded frame's rate retunes the chain while nothing is
-        encoded and no -ar is set, where the graph passes the rate
-        through. (The JAX package compares the frame's rate with the
-        graph's output, so -af aresample=R without -ar writes R-rate
-        samples under the input's rate.)"""
-        self._rate_locked = True
+    def _lock_format(self, frame, mux) -> None:
+        """Late format discovery (the ffmpeg.c decoder-reconfig path),
+        while nothing is written. ffmpeg configures its filter graph
+        from the first decoded frame, so a decoder that reports a layout
+        other than the stream's, of the same channel count (an AC-3
+        track of a Matroska file, whose container gives only the count),
+        retunes the graph. HE-AAC doubles the rate only once SBR is seen
+        in-band, so the first decoded frame's rate retunes the chain
+        where no -ar is set and the graph passes the rate through. (The
+        JAX package compares the frame's rate with the graph's output,
+        so -af aresample=R without -ar writes R-rate samples under the
+        input's rate.)"""
+        self._format_locked = True
+        if mux.header_written:
+            return
+        lay = frame.layout
+        if lay and lay.mask and lay != self._props.layout \
+                and lay.nb_channels == self._props.layout.nb_channels:
+            self._props = self._props.copy()
+            self._props.layout = lay
+            self.graph = self._make_graph(self._props)
+            self.out_stream.codecpar = self._codec_parameters()
         out = self.graph.output_props
         rate = frame.sample_rate
         if (rate and rate != self._in_rate and out.sample_rate == self._in_rate
-                and not self.smap.sample_rate and not mux.header_written):
+                and not self.smap.sample_rate):
             out.sample_rate = rate
             self.encoder = self._make_encoder(rate, self.encoder.channels)
-            self.out_stream.codecpar = self.encoder.codec_parameters()
+            self.out_stream.codecpar = self._codec_parameters()
             self.out_stream.time_base = Rational(1, rate)
 
     def _through_graph(self, frame, mux, flush=False) -> None:
-        if frame is not None and not self._rate_locked:
-            self._lock_rate(frame, mux)
+        if frame is not None and not self._format_locked:
+            self._lock_format(frame, mux)
         if frame is not None and _discard(frame, self.discard_until,
                                           "audio"):
             return

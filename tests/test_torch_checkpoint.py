@@ -157,7 +157,7 @@ def test_aac_with_compensation_active_at_the_cut(tmp_path):
     _resume("torch", lambda: spec("b2.aac"), blob)
     a, b = packets("a.aac"), packets("b2.aac")
     assert len(b) > 0 and a[len(a) - len(b):] == b
-    rs = TCK.loads_state(blob)["chains"][0]["swr"]
+    rs = TCK.loads_state(blob, device="cpu")["chains"][0]["swr"]
     assert [s["resampler"]["_comp_pqr"][2] for s in rs if s] == \
         [r._comp["remaining"]]
 
@@ -334,7 +334,7 @@ def test_every_dtype_round_trips():
         "bytes": b"\x00\x01\xff",
         5: {"nested": (1, [2.0, (3,)])},
     }
-    got = TCK.loads_state(TCK.dumps_state(state))
+    got = TCK.loads_state(TCK.dumps_state(state), device="cpu")
     assert set(got) == set(state)
     for a, b in zip(state["tensors"], got["tensors"]):
         assert isinstance(b, torch.Tensor) and b.dtype == a.dtype
@@ -345,17 +345,28 @@ def test_every_dtype_round_trips():
     assert got["bytes"] == state["bytes"] and got[5] == state[5]
 
 
+def test_loads_state_defaults_to_the_card():
+    """As every entry point, loads_state puts the tensors on the card
+    unless its caller names another device; without a card it raises."""
+    blob = TCK.dumps_state({"a": torch.ones(3)})
+    if torch.cuda.is_available():
+        assert TCK.loads_state(blob)["a"].device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device 'cuda'"):
+            TCK.loads_state(blob)
+
+
 def test_tampered_and_foreign_blobs_are_refused(tmp_path):
     blob = TCK.dumps_state({"a": torch.ones(3)})
     with pytest.raises(ValueError, match="bad magic"):
-        TCK.loads_state(b"X" + blob[1:])
+        TCK.loads_state(b"X" + blob[1:], device="cpu")
     with pytest.raises(ValueError, match="JAX package"):
-        TCK.loads_state(JCK.dumps_state({"a": np.ones(3)}))
+        TCK.loads_state(JCK.dumps_state({"a": np.ones(3)}), device="cpu")
     # an npz whose array is pickled objects: np.load refuses it
     buf = io.BytesIO()
     np.savez(buf, a0=np.array([{"x": 1}], dtype=object))
     head = blob[:blob.index(b"PK")]
     with pytest.raises(ValueError):
-        TCK.loads_state(head + buf.getvalue())
+        TCK.loads_state(head + buf.getvalue(), device="cpu")
     with pytest.raises(TypeError):
         TCK.dumps_state({"a": object()})

@@ -61,9 +61,12 @@ def _mux(pkg, fmt: str, streams, pkts, metadata=None) -> bytes:
 
 
 def _par_dict(par) -> dict:
+    """The fields both packages' CodecParameters have: the port's
+    ch_layout (AVCodecParameters.ch_layout), which the JAX package does
+    not have, is held in tests/test_torch_channel_layouts.py."""
     return {k: (bytes(v) if isinstance(v, (bytes, bytearray)) else
                 (v.num, v.den) if hasattr(v, "den") else v)
-            for k, v in vars(par).items()}
+            for k, v in vars(par).items() if k != "ch_layout"}
 
 
 def _demux(pkg, blob: bytes, fmt=None, **opts):
@@ -221,6 +224,14 @@ def _muxed(case: str) -> tuple[bytes, bytes]:
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_muxers_write_identical_bytes(case):
     j, t = _muxed(case)
+    if case in ("framecrc", "framemd5"):
+        # the AAC stream's parameters give two channels and no layout:
+        # the port describes that as libavformat does ("2 channels",
+        # tests/test_torch_channel_layouts.py), the JAX package writes
+        # "stereo" for every layout (ROADMAP.md section 3b)
+        line = b"#channel_layout_name 1: %s\n"
+        assert line % b"2 channels" in t and line % b"stereo" in j
+        t = t.replace(line % b"2 channels", line % b"stereo")
     assert j == t and (len(j) > 0) == (case != "null")
 
 

@@ -85,7 +85,10 @@ Runs the JAX package (the reference) on the CPU:
   tests/data/torch_port/bench_acodecs.json, and the JAX decode of K10's
   HE-AAC stream (every ACODECS_K10_STEP-th sample) into
   tests/data/torch_port/bench_acodecs_k10.npz. About 90 s on an 8-core
-  CPU.
+  CPU. K8 and K9 (libavcodec's E-AC-3 and 5.1 AC-3 streams) are decoded
+  with libavcodec's dither patched into the JAX decoder
+  (tools/ac3_jax_dither.py), which leaves zeros there (ROADMAP section
+  3b); the port's decoder gives those samples float for float.
 
 Every MPEG-4 golden (the bench transcode, the options transcode, JPEG's
 B, F1, F2 and F4, the containers' V, H3, D2) comes from the JAX encoder
@@ -1359,21 +1362,25 @@ def acodecs_goldens() -> dict:
             gold[k.lower()] = {"md5": md5(cmd[k][-1]), "rows": [
                 list(r) for r in CS.framemd5_rows(cmd[k + "D"][-1])]}
 
-        # K8, K9: libavcodec's E-AC-3 and 5.1 AC-3 streams. The JAX
-        # demuxer counts 5 channels for 5.1 AC-3 (no LFE), so its WAV
-        # header says 5 over six-channel data: the golden reads the data
-        # chunk as the decoder's 6 channels, the port's repair
+        # K8, K9: libavcodec's E-AC-3 and 5.1 AC-3 streams, decoded with
+        # libavcodec's dither filled in. The JAX demuxer counts 5
+        # channels for 5.1 AC-3 (no LFE), so its WAV header says 5 over
+        # six-channel data: the golden reads the data chunk as the
+        # decoder's 6 channels, the port's repair
+        from tools.ac3_jax_dither import dithered
+
         def wav_data(path, ch):
             raw = open(path, "rb").read()
             assert raw[36:40] == b"data"
             return CS.s16_digest(np.frombuffer(raw[44:], "<i2")
                                  .reshape(-1, ch).T, CS.ACODECS_AC3_WINDOWS)
 
-        for k, (_, ch) in CS.ACODECS_K8.items():
-            r = ok(cmd[k])
-            gold[k.lower()] = {"pts": [p for p, _ in r["packets"]],
-                               "s16": wav_data(cmd[k][-1], ch)}
-        r = ok(cmd["K9"])
+        with dithered():
+            for k, (_, ch) in CS.ACODECS_K8.items():
+                r = ok(cmd[k])
+                gold[k.lower()] = {"pts": [p for p, _ in r["packets"]],
+                                   "s16": wav_data(cmd[k][-1], ch)}
+            r = ok(cmd["K9"])
         gold["k9"] = {"pts": [p for p, _ in r["packets"]],
                       "s16": wav_data(cmd["K9"][-1], 6)}
         ok(cmd["K9_mkv"])
@@ -1386,7 +1393,8 @@ def acodecs_goldens() -> dict:
             "mkv_packets_md5": hashlib.md5(b"".join(b for _, b in pk))
             .hexdigest()})
         # the Matroska copy's decode: pts in its 1/1000 time base
-        r = ok(cmd["K9D"])
+        with dithered():
+            r = ok(cmd["K9D"])
         gold["k9"]["mkv_decode_pts"] = [p for p, _ in r["packets"]]
         assert wav_data(cmd["K9D"][-1], 6) == gold["k9"]["s16"]
 

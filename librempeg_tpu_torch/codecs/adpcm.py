@@ -252,7 +252,10 @@ class _AdpcmEncoderBase(Encoder):
             codec_type="audio", codec_id=self.INFO.name,
             sample_rate=self.rate, nb_channels=self.channels,
             block_align=self.block_align,
-            frame_size=self.samples_per_block)
+            frame_size=self.samples_per_block,
+            # AVCodecContext's default bit rate, which libavcodec's
+            # ADPCM encoders leave as it is (the WAV header's byte rate)
+            bit_rate=128000)
 
     def encode(self, frame):
         x = frame.data

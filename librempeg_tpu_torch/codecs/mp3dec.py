@@ -16,7 +16,9 @@ Each decoder decodes on the host, as the JAX module does, and uploads
 each output frame once to its `device` (default "cuda").
 
 A copy of librempeg_tpu/codecs/mp3dec.py (host code, no JAX), imports
-rewritten.
+rewritten; the synthesis is mpegaudio.py's (libavcodec's window, no
+trim), and a packet's skip side data (the LAME tag's gapless trim from
+formats/mp3.py) is dropped as libavcodec's decode.c drops it.
 """
 from __future__ import annotations
 
@@ -26,12 +28,13 @@ import torch
 from librempeg_tpu_torch.codecs import mp3tables as T
 from librempeg_tpu_torch.codecs.api import CodecInfo, Decoder, register_decoder
 from librempeg_tpu_torch.codecs.flac.bitio import BitReaderMSB
-from librempeg_tpu_torch.codecs.mpegaudio import OUTPUT_GAIN, SYNTH_DELAY, _D, _N
+from librempeg_tpu_torch.codecs.mpegaudio import OUTPUT_GAIN, _D, _N
 from librempeg_tpu_torch.core.errors import InvalidData
 from librempeg_tpu_torch.core.frame import AudioFrame
 from librempeg_tpu_torch.core.packet import Packet
-from librempeg_tpu_torch.core.rational import NOPTS, Rational
+from librempeg_tpu_torch.core.rational import NOPTS, Rational, rescale_q
 from librempeg_tpu_torch.core.samplefmt import ChannelLayout
+from librempeg_tpu_torch.core.sidedata import skip_side_data, trim
 from librempeg_tpu_torch.device import resolve
 from librempeg_tpu_torch.formats.mp3 import FrameHeader
 
@@ -119,7 +122,6 @@ class Mp3FrameDecoder:
         self.nch = channels
         self.v = [np.zeros(1024) for _ in range(channels)]
         self.overlap = np.zeros((channels, 32, 18))
-        self.skip = SYNTH_DELAY
         self.reservoir = b""
 
     # -- side info ----------------------------------------------------
@@ -471,10 +473,6 @@ class Mp3FrameDecoder:
                     s0 = gr * 576 + i * 32
                     out[ch, s0:s0 + 32] = w.reshape(16, 32).sum(axis=0)
         out *= OUTPUT_GAIN
-        if self.skip:
-            k = min(self.skip, out.shape[1])
-            out = out[:, k:]
-            self.skip -= k
         return out.astype(np.float32)
 
 
@@ -489,6 +487,7 @@ class Mp3Decoder(Decoder):
         self.device = resolve(device)
         self._dec = None
         self._pts = 0
+        self._pending_skip = 0          # start skip still pending (side data)
         super().__init__(params, **opts)
 
     def decode(self, pkt: Packet):
@@ -507,6 +506,8 @@ class Mp3Decoder(Decoder):
         buf = carry + bytes(pkt.data)
         pos = 0
         out = []
+        self._pending_skip, discard = skip_side_data(pkt,
+                                                     self._pending_skip)
         tb = (pkt.time_base
               if pkt.time_base.valid and pkt.time_base.num else None)
         while True:
@@ -533,17 +534,32 @@ class Mp3Decoder(Decoder):
                 continue                          # layer I: skip frame
             pcm = self._dec.decode_frame(data, hdr)
             if pcm.shape[1] == 0:
+                # its main data began before the reservoir (the first
+                # frame after a seek): no samples, but the frame's length
+                # counts against the start skip, as libavcodec's decode
+                # of it does
+                self._pending_skip = max(0, self._pending_skip
+                                         - hdr.samples)
                 continue
             ftb = tb or Rational(1, hdr.sample_rate)
+            pts = self._pts
+            self._tick = round(pcm.shape[1] * ftb.den
+                               / (hdr.sample_rate * ftb.num))
+            self._pts += self._tick
+            # the start skip runs on over frames; the end discard is the
+            # packet's, for the last frame it holds
+            last = FrameHeader.parse(buf[pos:pos + 4]) is None
+            pcm, drop, self._pending_skip = trim(
+                pcm, self._pending_skip, discard if last else 0)
+            if not pcm.shape[1]:
+                continue
             out.append(AudioFrame(
                 data=torch.from_numpy(np.ascontiguousarray(pcm))
                 .to(self.device), sample_rate=hdr.sample_rate,
                 sample_fmt="fltp",
                 layout=ChannelLayout.default(pcm.shape[0]),
-                pts=self._pts, time_base=ftb))
-            self._tick = round(pcm.shape[1] * ftb.den
-                               / (hdr.sample_rate * ftb.num))
-            self._pts += self._tick
+                pts=pts + rescale_q(drop, Rational(1, hdr.sample_rate), ftb),
+                time_base=ftb))
         self._buf = buf[pos:]
         if not out and carry == b"" and pos == 0 and len(buf) >= 4:
             raise InvalidData("mp3: bad frame header")

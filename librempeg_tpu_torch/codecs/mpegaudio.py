@@ -12,7 +12,9 @@ Each decoder decodes on the host, as the JAX module does, and uploads
 each output frame once to its `device` (default "cuda").
 
 A copy of librempeg_tpu/codecs/mpegaudio.py (host code, no JAX), imports
-rewritten.
+rewritten; the synthesis window is libavcodec's, nothing is trimmed for
+the synthesis, and a packet's skip side data is dropped as libavcodec's
+decode.c drops it (tests/test_torch_libav_audio.py).
 """
 from __future__ import annotations
 
@@ -25,8 +27,9 @@ from librempeg_tpu_torch.codecs.mpegaudio_tables import ENWINDOW
 from librempeg_tpu_torch.core.errors import InvalidData, Unsupported
 from librempeg_tpu_torch.core.frame import AudioFrame
 from librempeg_tpu_torch.core.packet import Packet
-from librempeg_tpu_torch.core.rational import NOPTS, Rational
+from librempeg_tpu_torch.core.rational import NOPTS, Rational, rescale_q
 from librempeg_tpu_torch.core.samplefmt import ChannelLayout
+from librempeg_tpu_torch.core.sidedata import skip_side_data, trim
 from librempeg_tpu_torch.device import resolve
 from librempeg_tpu_torch.formats.mp3 import FrameHeader
 
@@ -57,14 +60,17 @@ _SCF = np.array([2.0 ** (-(i // 3))
 # synthesis matrixing N[i][k] = cos((16+i)(2k+1)pi/64)
 _N = np.cos(np.pi / 64.0 * np.outer(np.arange(64) + 16,
                                     2 * np.arange(32) + 1))
-# D window: ISO Table 3-B.3 (the reference stores the integer half)
+# D window: ISO Table 3-B.3, built from the integer half the reference
+# stores as libavcodec's ff_mpa_synth_init builds it: D[512 - i] is
+# -D[i] but where i is a multiple of 64 (taps 320, 384 and 448 keep
+# their sign; the JAX package flips them too)
 _D = np.zeros(512)
 _half = np.asarray(ENWINDOW, np.float64)
 for _i in range(257):
     _D[_i] = _half[_i]
-for _i in range(257, 512):
-    _D[_i] = -_half[512 - _i]
-_D /= 1 << 15            # calibrated against the reference decoder
+    if _i:
+        _D[512 - _i] = _half[_i] if _i % 64 == 0 else -_half[_i]
+_D /= 1 << 15
 
 
 def _select_table(bitrate: int, nch: int, freq: int) -> int:
@@ -78,11 +84,12 @@ def _select_table(bitrate: int, nch: int, freq: int) -> int:
     return 3
 
 
-# the ISO pseudo-code synthesis (matrix V fifo + D window) carries a
-# 481-sample startup delay and a 2^7 gain relative to the reference
-# implementation's in-place formulation; both compensated here
-# (calibrated against the reference decoder).
-SYNTH_DELAY = 481
+# the ISO pseudo-code synthesis (matrix V fifo + D window) over
+# requantised samples in [-2, 2) gives twice libavcodec's output (the
+# least-squares gain against it is 1 to 1e-5, test_torch_libav_audio.py);
+# its first sample is libavcodec's first, so nothing is trimmed (the
+# JAX package trims 481 samples, which its window's three flipped taps
+# made look like a delay)
 OUTPUT_GAIN = 0.5
 
 
@@ -90,7 +97,6 @@ class Mp2FrameDecoder:
     def __init__(self, channels: int):
         self.nch = channels
         self.v = [np.zeros(1024) for _ in range(channels)]
-        self.skip = SYNTH_DELAY
 
     def decode_frame(self, data: bytes, hdr: FrameHeader) -> np.ndarray:
         nch = 1 if hdr.channels == 1 else 2
@@ -187,10 +193,6 @@ class Mp2FrameDecoder:
                 w = u * _D
                 out[ch, g * 32:(g + 1) * 32] = w.reshape(16, 32).sum(axis=0)
         out *= OUTPUT_GAIN
-        if self.skip:
-            k = min(self.skip, out.shape[1])
-            out = out[:, k:]
-            self.skip -= k
         return out.astype(np.float32)
 
 
@@ -205,6 +207,7 @@ class Mp2Decoder(Decoder):
         self.device = resolve(device)
         self._dec = None
         self._pts = 0
+        self._pending_skip = 0          # start skip still pending (side data)
         super().__init__(params, **opts)
 
     def decode(self, pkt: Packet):
@@ -217,13 +220,21 @@ class Mp2Decoder(Decoder):
                               "(only layer II this round)")
         if self._dec is None:
             self._dec = Mp2FrameDecoder(hdr.channels)
+        self._pending_skip, discard = skip_side_data(pkt,
+                                                     self._pending_skip)
         pcm = self._dec.decode_frame(data, hdr)
         pts = pkt.pts if pkt.pts != NOPTS else self._pts
         self._pts = pts + pcm.shape[1]
+        tb = pkt.time_base if pkt.time_base.valid and pkt.time_base.num \
+            else Rational(1, hdr.sample_rate)
+        pcm, drop, self._pending_skip = trim(pcm, self._pending_skip,
+                                             discard)
+        if not pcm.shape[1]:
+            return []
+        if drop and pts != NOPTS:
+            pts += rescale_q(drop, Rational(1, hdr.sample_rate), tb)
         return [AudioFrame(
             data=torch.from_numpy(np.ascontiguousarray(pcm)).to(self.device),
             sample_rate=hdr.sample_rate, sample_fmt="fltp",
             layout=ChannelLayout.default(pcm.shape[0]), pts=pts,
-            time_base=pkt.time_base
-            if pkt.time_base.valid and pkt.time_base.num
-            else Rational(1, hdr.sample_rate))]
+            time_base=tb)]

@@ -17,7 +17,9 @@ Each decoder decodes on the host, as the JAX module does, and uploads
 each output frame once to its `device` (default "cuda").
 
 A copy of librempeg_tpu/codecs/vorbis/decoder.py (host code, no JAX), imports
-rewritten.
+rewritten; floor 1 marks a nonzero point's neighbours as the spec says,
+and a packet's end trim (SkipSamples) is dropped, both held to
+libavcodec in tests/test_torch_libav_audio.py.
 """
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ from librempeg_tpu_torch.core.frame import AudioFrame
 from librempeg_tpu_torch.core.packet import Packet
 from librempeg_tpu_torch.core.rational import NOPTS, Rational
 from librempeg_tpu_torch.core.samplefmt import ChannelLayout
+from librempeg_tpu_torch.core.sidedata import skip_side_data, trim
 from librempeg_tpu_torch.device import resolve
 
 
@@ -411,7 +414,11 @@ class VorbisDecoder:
             low_room = pred
             room = 2 * min(high_room, low_room)
             if val:
-                step2[i] = True
+                # a nonzero point makes both its neighbours curve points
+                # too (spec 7.2.4 step 1; the JAX decoder marks only the
+                # point itself, and so leaves out a neighbour whose own
+                # value was predicted)
+                step2[lo] = step2[hi] = step2[i] = True
                 if val >= room:
                     if high_room > low_room:
                         final[i] = val - low_room + pred
@@ -705,6 +712,10 @@ class VorbisCodec(Decoder):
         if not self._dec._have_setup:
             raise InvalidData("vorbis: audio before setup")
         pcm = self._dec.decode_audio(data)
+        if pcm is not None:
+            # the end trim of the stream's last packet (SkipSamples
+            # side data from the Ogg demuxer, as libavformat sets it)
+            pcm = trim(pcm, 0, skip_side_data(pkt, 0)[1])[0]
         if pcm is None or pcm.shape[1] == 0:
             return []
         pts = pkt.pts if pkt.pts != NOPTS else self._pts

@@ -128,3 +128,26 @@ def get_side_data(obj, cls):
     if v is not None and not isinstance(v, cls):
         raise TypeError(f"side_data[{cls.KEY!r}] holds {type(v)}")
     return v
+
+
+def skip_side_data(pkt, skip: int) -> tuple[int, int]:
+    """The start skip and end discard a packet's SkipSamples side data
+    sets, as libavcodec's decode.c reads AV_PKT_DATA_SKIP_SAMPLES: side
+    data replaces the skip still pending; a packet without keeps it and
+    discards nothing."""
+    sd = get_side_data(pkt, SkipSamples)
+    if sd is None:
+        return skip, 0
+    return max(0, sd.start), sd.end
+
+
+def trim(pcm, skip: int, discard: int):
+    """decode.c's discard_samples on one decoded frame [ch, n]: drop up
+    to `skip` samples from its start, then `discard` from its end where
+    that many are left (all of them drop the frame). Returns the frame,
+    the samples dropped from its start and the skip still pending."""
+    drop = min(skip, pcm.shape[1])
+    pcm = pcm[:, drop:]
+    if 0 < discard <= pcm.shape[1]:
+        pcm = pcm[:, :pcm.shape[1] - discard]
+    return pcm, drop, skip - drop

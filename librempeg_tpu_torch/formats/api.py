@@ -127,6 +127,10 @@ class Demuxer:
         self._replay = deque()
         self.streams = []
         self.read_header(self.io)
+        # read_header may have read ahead (MP3, ADTS, AC-3): reading goes
+        # on from the first byte it did not consume (the JAX package
+        # drops the read-ahead here, up to 64 KB of packets)
+        self.io.seek(self.tell_resume())
         self.on_restore()
         queue: deque = deque()
         have_key = False

@@ -64,6 +64,10 @@ class _FrameHashBase(Muxer):
                 # JAX package writes "stereo" for every layout)
                 w(f"#channel_layout_name {st.index}: "
                   f"{par.layout.name}\n".encode())
+        if self.HASH_NAME:
+            # hashenc.c's last header line (the JAX package stops
+            # before it)
+            w(b"#stream#, dts,        pts, duration,     size, hash\n")
 
     def write_packet(self, pkt: Packet):
         from librempeg_tpu_torch.core.packet import PktFlags

@@ -1,7 +1,9 @@
 """Matroska/WebM demuxer.
 
 Analog of libavformat/matroskadec.c (EBML parse, Tracks,
-Clusters with SimpleBlock/BlockGroup, all three lacing modes).
+Clusters with SimpleBlock/BlockGroup, all three lacing modes) and
+matroskaenc.c; an audio packet's end trim travels as the block's
+DiscardPadding both ways (the JAX package drops it).
 
 A copy of librempeg_tpu/formats/matroska.py (host code, no JAX), imports
 rewritten.
@@ -17,7 +19,12 @@ from librempeg_tpu_torch.core.errors import (
     Unsupported,
 )
 from librempeg_tpu_torch.core.packet import Packet, PktFlags
-from librempeg_tpu_torch.core.rational import NOPTS, Rational
+from librempeg_tpu_torch.core.rational import NOPTS, Rational, rescale_q
+from librempeg_tpu_torch.core.sidedata import (
+    SkipSamples,
+    get_side_data,
+    set_side_data,
+)
 from librempeg_tpu_torch.formats.api import (
     PROBE_SCORE_MAX,
     CodecParameters,
@@ -53,6 +60,7 @@ _SIMPLE_BLOCK = 0xA3
 _BLOCK_GROUP = 0xA0
 _BLOCK = 0xA1
 _BLOCK_DURATION = 0x9B
+_DISCARD_PADDING = 0x75A2        # signed, ns (the end trim of a block)
 
 _CODEC_IDS = {
     "V_MPEG4/ISO/ASP": "mpeg4",
@@ -262,19 +270,23 @@ class MatroskaDemuxer(Demuxer):
             elif eid == _BLOCK_GROUP:
                 # BlockDuration (subtitle cue length) may follow the
                 # Block: collect it first, then parse
-                dur = 0
+                dur = discard = 0
                 spans = []
                 for eid3, s3, e3 in _iter_elements(data, s2, e2):
                     if eid3 == _BLOCK:
                         spans.append((s3, e3))
                     elif eid3 == _BLOCK_DURATION:
                         dur = _uint(data[s3:e3])
+                    elif eid3 == _DISCARD_PADDING:
+                        discard = int.from_bytes(data[s3:e3], "big",
+                                                 signed=True)
                 for s3, e3 in spans:
                     self._parse_block(data, s3, e3, cluster_ts,
-                                      key_known=False, duration=dur)
+                                      key_known=False, duration=dur,
+                                      discard=discard)
 
     def _parse_block(self, data, s, e, cluster_ts, key_known,
-                     duration=0):
+                     duration=0, discard=0):
         track, pos = _read_vint(data, s, keep_marker=False)
         rel_ts = struct.unpack(">h", data[pos:pos + 2])[0]
         flags = data[pos + 2]
@@ -319,7 +331,7 @@ class MatroskaDemuxer(Demuxer):
         ts = cluster_ts + rel_ts
         for i, f in enumerate(frames):
             self._blocks.append((ts + i, track, 1 if key else 0, f,
-                                 duration))
+                                 duration, discard))
 
     def read_seek(self, stream_index: int, ts: int) -> None:
         """Seek to the latest keyframe of `stream_index` at or before
@@ -343,7 +355,7 @@ class MatroskaDemuxer(Demuxer):
     def read_packet(self) -> Packet:
         if self._cursor >= len(self._blocks):
             raise EndOfStream
-        ts, track, key, payload, dur = self._blocks[self._cursor]
+        ts, track, key, payload, dur, discard = self._blocks[self._cursor]
         self._cursor += 1
         sidx = self._track_map.get(track)
         if sidx is None:
@@ -362,10 +374,15 @@ class MatroskaDemuxer(Demuxer):
         delay = st.codecpar.extra.get("codec_delay_ticks", 0)
         if delay:
             ts -= delay
-        return Packet(data=payload, pts=ts, dts=ts, duration=dur,
-                      stream_index=sidx,
-                      flags=PktFlags.KEY if key else 0,
-                      time_base=st.time_base)
+        pkt = Packet(data=payload, pts=ts, dts=ts, duration=dur,
+                     stream_index=sidx, flags=PktFlags.KEY if key else 0,
+                     time_base=st.time_base)
+        if discard > 0 and st.codecpar.sample_rate:
+            # matroskadec.c: DiscardPadding becomes the packet's end trim
+            set_side_data(pkt, SkipSamples(end=rescale_q(
+                discard, Rational(1, 1_000_000_000),
+                Rational(1, st.codecpar.sample_rate))))
+        return pkt
 
 
 # ---------------------------------------------------------------------------
@@ -523,9 +540,22 @@ class MatroskaMuxer(Muxer):
             from librempeg_tpu_torch.codecs.hevc.hvcc import annexb_to_lp
 
             data = annexb_to_lp(data)
-        block = (_enc_size(st.index + 1) + struct.pack(">h", rel)
-                 + bytes([0x80 if key else 0]) + data)
-        self._cluster += _el(_SIMPLE_BLOCK, block)
+        sd = get_side_data(pkt, SkipSamples)
+        if sd is not None and sd.end > 0 and \
+                st.codecpar.codec_type == "audio":
+            # matroskaenc.c: an end trim makes the block a BlockGroup
+            # with its DiscardPadding in ns (a start trim is not kept)
+            block = (_enc_size(st.index + 1) + struct.pack(">h", rel)
+                     + b"\x00" + data)
+            ns = rescale_q(sd.end, Rational(1, st.codecpar.sample_rate),
+                           Rational(1, 1_000_000_000))
+            self._cluster += _el(_BLOCK_GROUP, _el(_BLOCK, block) + _el(
+                _DISCARD_PADDING, ns.to_bytes((ns.bit_length() + 8) // 8,
+                                              "big", signed=True)))
+        else:
+            block = (_enc_size(st.index + 1) + struct.pack(">h", rel)
+                     + bytes([0x80 if key else 0]) + data)
+            self._cluster += _el(_SIMPLE_BLOCK, block)
         dur = pkt.duration if pkt.duration and pkt.duration != NOPTS else 0
         self._max_ts = max(self._max_ts,
                            ts + (dur * tb.num * 1000) // tb.den)

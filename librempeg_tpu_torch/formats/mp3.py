@@ -1,17 +1,20 @@
 """MP3/MP2 (MPEG audio) demuxer + muxer with ID3v2 tags.
 
 Analog of libavformat/mp3dec.c (frame framing, Xing/Info
-VBR header, id3 skip) and mp3enc.c (id3v2 write + passthrough). Framing
-is incremental (rolling buffer, tell_resume checkpoint protocol).
+VBR header, the LAME tag's gapless trim, id3 skip) and mp3enc.c (id3v2
+write + passthrough). Framing is incremental (rolling buffer,
+tell_resume checkpoint protocol).
 
 A copy of librempeg_tpu/formats/mp3.py (host code, no JAX), imports
-rewritten.
+rewritten; the LAME tag's trim is the port's (the JAX demuxer reads the
+Info frame for the duration only).
 """
 from __future__ import annotations
 
 from librempeg_tpu_torch.core.errors import EndOfStream, InvalidData
 from librempeg_tpu_torch.core.packet import Packet, PktFlags
 from librempeg_tpu_torch.core.rational import Rational
+from librempeg_tpu_torch.core.sidedata import SkipSamples, set_side_data
 from librempeg_tpu_torch.formats import id3v2
 from librempeg_tpu_torch.formats.api import (
     CodecParameters,
@@ -37,6 +40,8 @@ _BITRATES = {
     (1, 3): (0, 8, 16, 24, 32, 40, 48, 56, 64, 80, 96, 112, 128, 144,
              160),
 }
+#: the MPEG audio decoder's delay in samples (libavformat's 528 + 1)
+_DECODER_DELAY = 529
 _RATES = {3: (44100, 48000, 32000),      # MPEG-1
           2: (22050, 24000, 16000),      # MPEG-2
           0: (11025, 12000, 8000)}       # MPEG-2.5
@@ -133,6 +138,9 @@ class Mp3Demuxer(Demuxer):
                               bit_rate=h.bitrate, frame_size=h.samples)
         self.streams = [Stream(index=0, codecpar=par,
                                time_base=Rational(1, h.sample_rate))]
+        # gapless trim from the LAME tag (libavformat's start_skip_samples,
+        # first/last_discard_sample): 0 where the file has none
+        self._start_skip = self._first_discard = self._last_discard = 0
         # Xing/Info/VBRI header in the first frame -> duration
         if self._fill(h.frame_size):
             frame = self._buf[:h.frame_size]
@@ -141,10 +149,12 @@ class Mp3Demuxer(Demuxer):
                 if 0 < k < h.frame_size - 12:
                     if tag in (b"Xing", b"Info"):
                         flags = int.from_bytes(frame[k + 4:k + 8], "big")
+                        nfr = 0
                         if flags & 1:
                             nfr = int.from_bytes(frame[k + 8:k + 12], "big")
                             self.duration = (nfr * h.samples * 1_000_000
                                              // h.sample_rate)
+                        self._lame_tag(frame, k, flags, nfr, h.samples)
                     else:
                         nfr = int.from_bytes(frame[k + 14:k + 18], "big")
                         self.duration = (nfr * h.samples * 1_000_000
@@ -153,6 +163,25 @@ class Mp3Demuxer(Demuxer):
                     self._buf = self._buf[h.frame_size:]
                     self._consumed += h.frame_size
                     break
+
+    def _lame_tag(self, frame: bytes, k: int, flags: int, nfr: int,
+                  spf: int) -> None:
+        """The LAME tag after the Xing/Info fields at `k` (libavformat's
+        mp3_parse_info_tag): a 9-byte encoder version, then 12 bits of
+        encoder delay and 12 of padding 21 bytes on. Only a LAME, Lavf
+        or Lavc tag is read; the decoder's own 529-sample delay is
+        trimmed with the encoder's."""
+        p = k + 8 + 4 * bool(flags & 1) + 4 * bool(flags & 2) \
+            + 100 * bool(flags & 4) + 4 * bool(flags & 8)
+        if p + 24 > len(frame) or frame[p:p + 4] not in (b"LAME", b"Lavf",
+                                                         b"Lavc"):
+            return
+        v = int.from_bytes(frame[p + 21:p + 24], "big")
+        self._start_skip = (v >> 12) + _DECODER_DELAY
+        if nfr:
+            self._first_discard = nfr * spf + _DECODER_DELAY - (v & 4095)
+            self._last_discard = nfr * spf
+        self.streams[0].start_time = self._start_skip
 
     def _fill(self, need: int) -> bool:
         while len(self._buf) < need and not self._eof:
@@ -186,9 +215,21 @@ class Mp3Demuxer(Demuxer):
         pts = self._sample_off
         self._sample_off += h.samples
         self._idx += 1
-        return Packet(data=data, pts=pts, dts=pts, duration=h.samples,
-                      flags=PktFlags.KEY,
-                      time_base=self.streams[0].time_base)
+        pkt = Packet(data=data, pts=pts, dts=pts, duration=h.samples,
+                     flags=PktFlags.KEY, time_base=self.streams[0].time_base)
+        # the trim goes to the decoder as side data, as libavformat's
+        # demux.c attaches it: the start skip on the packet at pts 0, so
+        # a resumed read or a seek past it skips nothing again, and the
+        # padding on each packet that reaches past the first discarded
+        # sample
+        start = self._start_skip if pts == 0 else 0
+        end = 0
+        if self._first_discard and pts + h.samples >= self._first_discard \
+                and pts < self._last_discard:
+            end = min(pts + h.samples - self._first_discard, h.samples)
+        if start or end:
+            set_side_data(pkt, SkipSamples(start=start, end=end))
+        return pkt
 
     def tell_resume(self) -> int:
         return self._consumed

@@ -8,7 +8,8 @@ packet 0x7F "FLAC") carries the STREAMINFO block; audio packets are
 raw FLAC frames, which our codec layer already parses/validates.
 
 A copy of librempeg_tpu/formats/ogg.py (host code, no JAX), imports
-rewritten.
+rewritten; Vorbis packets are timed and the stream's end trimmed as
+libavformat's oggparsevorbis.c does (`_vorbis_timing`).
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ import struct
 from librempeg_tpu_torch.core.errors import EndOfStream, InvalidData, Unsupported
 from librempeg_tpu_torch.core.packet import Packet, PktFlags
 from librempeg_tpu_torch.core.rational import Rational
+from librempeg_tpu_torch.core.sidedata import SkipSamples, set_side_data
 from librempeg_tpu_torch.formats.api import (
     PROBE_SCORE_MAX,
     CodecParameters,
@@ -115,6 +117,48 @@ class OggMuxer(Muxer):
                             header_type=4))   # EOS
 
 
+def _vorbis_timing(packets, last_on_page, head: bytes, setup: bytes):
+    """Each Vorbis audio packet's (pts, duration, end trim), as
+    libavformat's oggparsevorbis.c gives them: a packet lasts a quarter
+    of its block and the block before it (av_vorbis_parse_frame; the
+    first packet counts a short block before it), the first page's
+    packets end at its granule, and the last packet of every page ends
+    at the page's granule, the samples past it trimmed (the end of the
+    stream). The JAX package gives each packet the granule of the page
+    before it and trims nothing."""
+    from librempeg_tpu_torch.codecs.vorbis.decoder import VorbisDecoder, ilog
+
+    dec = VorbisDecoder()
+    dec.header(head)
+    dec.header(setup)
+    size, modes = dec.blocksize, dec.modes
+    bits = ilog(len(modes) - 1)
+    durs, prev = [], size[0]
+    for _, data in packets:
+        if not data or data[0] & 1:
+            durs.append(0)
+            continue
+        mode = (data[0] >> 1) & ((1 << bits) - 1)
+        if mode >= len(modes):
+            raise InvalidData("ogg: vorbis packet of an unknown mode")
+        flag = modes[mode][0]
+        if flag:
+            prev = size[(data[0] >> (1 + bits)) & 1]
+        durs.append((prev + size[flag]) >> 2)
+        prev = size[flag]
+    first = min(last_on_page, default=len(packets) - 1)
+    pts = packets[first][0] - sum(durs[:first + 1]) if packets else 0
+    out = []
+    for i, (granule, _) in enumerate(packets):
+        dur, end = durs[i], 0
+        if i in last_on_page and granule >= 0:
+            end = max(0, pts + dur - granule)
+            dur = granule - pts
+        out.append((pts, dur, end))
+        pts += dur
+    return out
+
+
 @register_demuxer
 class OggDemuxer(Demuxer):
     NAME = "ogg"
@@ -128,6 +172,7 @@ class OggDemuxer(Demuxer):
     def read_header(self, io):
         data = io.read(1 << 30)
         packets = []                 # (granule, payload)
+        last_on_page = set()         # index of each page's last packet
         pos = 0
         partial = b""
         while pos + 27 <= len(data):
@@ -145,15 +190,19 @@ class OggDemuxer(Demuxer):
             if _ogg_crc(bytes(page)) != got:
                 raise InvalidData("ogg: page CRC mismatch")
             cur = body
+            first = len(packets)
             for seg in lacing:
                 partial += data[cur:cur + seg]
                 cur += seg
                 if seg < 255:
                     packets.append((granule, partial))
                     partial = b""
+            if len(packets) > first:
+                last_on_page.add(len(packets) - 1)
             pos = end
         if not packets:
             raise InvalidData("ogg: no packets")
+        n_headers = 1
         g0, head = packets.pop(0)
         if head[:5] == b"\x7fFLAC":
             i = head.find(b"fLaC")
@@ -175,6 +224,7 @@ class OggDemuxer(Demuxer):
                 raise InvalidData("ogg: missing vorbis headers")
             h2 = packets.pop(0)[1]
             h3 = packets.pop(0)[1]
+            n_headers = 3
 
             def lace(ln):
                 return b"\xff" * (ln // 255) + bytes([ln % 255])
@@ -200,7 +250,16 @@ class OggDemuxer(Demuxer):
             raise Unsupported("ogg: unsupported codec mapping")
         self.streams = [Stream(index=0, codecpar=par,
                                time_base=Rational(1, sr))]
-        self._pkts = [p for p in packets if p[1]]
+        last_on_page = {i - n_headers for i in last_on_page
+                        if i >= n_headers}
+        self._timing = None
+        if par.codec_id == "vorbis":
+            self._timing = _vorbis_timing(
+                packets, last_on_page, head, h3)
+        keep = [i for i, p in enumerate(packets) if p[1]]
+        self._pkts = [packets[i] for i in keep]
+        if self._timing is not None:
+            self._timing = [self._timing[i] for i in keep]
         self._cursor = 0
         self._last_granule = 0
 
@@ -208,6 +267,15 @@ class OggDemuxer(Demuxer):
         if self._cursor >= len(self._pkts):
             raise EndOfStream
         granule, payload = self._pkts[self._cursor]
+        if self._timing is not None:
+            pts, dur, end = self._timing[self._cursor]
+            self._cursor += 1
+            pkt = Packet(data=payload, pts=pts, dts=pts, duration=dur,
+                         flags=PktFlags.KEY,
+                         time_base=self.streams[0].time_base)
+            if end:
+                set_side_data(pkt, SkipSamples(end=end))
+            return pkt
         self._cursor += 1
         pts = self._last_granule
         dur = max(granule - self._last_granule, 0)

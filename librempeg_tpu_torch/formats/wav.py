@@ -13,7 +13,10 @@ is neither mono nor stereo, a rate above 48 kHz, or samples wider than
 16 bits, and a `fact` chunk with the sample count after it for float
 samples; the demuxer reads the channel mask back into `ch_layout`
 (tests/test_torch_channel_layouts.py holds both to libavformat's
-files).
+files). For the other tags (A-law, mu-law, IMA and MS ADPCM) it
+writes WAVEFORMATEX's cbSize, ADPCM's byte rate as the codec's bit rate
+over 8, and a `fact` chunk with the packets' sample span, as wavenc.c
+does (tests/test_torch_wav_tags.py).
 """
 from __future__ import annotations
 
@@ -21,7 +24,7 @@ import struct
 
 from librempeg_tpu_torch.core.errors import EndOfStream, InvalidData
 from librempeg_tpu_torch.core.packet import Packet, PktFlags
-from librempeg_tpu_torch.core.rational import Rational
+from librempeg_tpu_torch.core.rational import NOPTS, Rational, rescale_q
 from librempeg_tpu_torch.core.samplefmt import MONO, STEREO, ChannelLayout
 from librempeg_tpu_torch.formats.api import (
     PROBE_SCORE_MAX,
@@ -112,8 +115,9 @@ class WavDemuxer(Demuxer):
             tag, size = hdr[:4], struct.unpack("<I", hdr[4:])[0]
             if tag == b"fmt ":
                 fmt = io.read_exact(size if size % 2 == 0 else size + 1)
-                (wtag, channels, rate, _brate, balign, bits) = struct.unpack(
+                (wtag, channels, rate, brate, balign, bits) = struct.unpack(
                     "<HHIIHH", fmt[:16])
+                par.bit_rate = brate * 8        # as ff_get_wav_header
                 if wtag == WAVE_FORMAT_EXTENSIBLE and size >= 40:
                     mask, wtag = struct.unpack("<IH", fmt[20:26])
                     if mask and bin(mask).count("1") == channels:
@@ -226,6 +230,8 @@ class WavMuxer(Muxer):
         if len(self.streams) != 1 or self.streams[0].codecpar.codec_type != "audio":
             raise InvalidData("wav muxer needs exactly one audio stream")
         par = self.streams[0].codecpar
+        # wavenc.c counts in samples: the stream's time base is 1/rate
+        self.streams[0].time_base = Rational(1, par.sample_rate)
         tag_bits = _CODEC_TO_TAG.get(par.codec_id)
         if tag_bits is None:
             raise InvalidData(f"wav: unsupported codec {par.codec_id}")
@@ -250,7 +256,9 @@ class WavMuxer(Muxer):
             io.wl16(wtag)
             io.wl16(par.nb_channels)
             io.wl32(par.sample_rate)
-            io.wl32(par.sample_rate * balign // max(spb, 1))  # approx rate
+            # ff_put_wav_header: the codec's bit rate over 8 (the JAX
+            # package writes rate x block / samples per block)
+            io.wl32(par.bit_rate // 8)
             io.wl16(balign)
             io.wl16(bits)
             io.wl16(len(extra))
@@ -259,7 +267,9 @@ class WavMuxer(Muxer):
             layout = par.layout
             extensible = (layout.mask and layout not in (MONO, STEREO)) \
                 or par.sample_rate > 48000 or bits > 16
-            io.wl32(40 if extensible else 16)
+            # WAVEFORMATEX (18 bytes, a zero cbSize) for a tag but PCM
+            io.wl32(40 if extensible else 16 if wtag == WAVE_FORMAT_PCM
+                    else 18)
             balign = par.nb_channels * (bits // 8)
             io.wl16(WAVE_FORMAT_EXTENSIBLE if extensible else wtag)
             io.wl16(par.nb_channels)
@@ -275,10 +285,14 @@ class WavMuxer(Muxer):
                 io.wl32(layout.mask if layout.mask < 0x40000 else 0)
                 io.wl32(wtag)
                 io.write(_SUBFORMAT_TAIL)
+            elif wtag != WAVE_FORMAT_PCM:
+                io.wl16(0)                      # cbSize
         self._fact_pos, self._block_align = -1, balign
-        if wtag == WAVE_FORMAT_IEEE_FLOAT and io.seekable:
-            # wavenc.c: a fact chunk for every tag but PCM, its sample
-            # count written at the trailer
+        self._pts_span = None                   # (min pts, max pts, dur)
+        if wtag != WAVE_FORMAT_PCM and io.seekable:
+            # wavenc.c: a fact chunk for every tag but PCM (the JAX
+            # package writes one for none), its sample count written at
+            # the trailer
             io.write(b"fact")
             io.wl32(4)
             self._fact_pos = io.tell()
@@ -291,6 +305,23 @@ class WavMuxer(Muxer):
     def write_packet(self, pkt: Packet) -> None:
         self.io.write(pkt.data)
         self._data_bytes += len(pkt.data)
+        if pkt.pts != NOPTS:
+            st = self.streams[0]
+            p = pkt if not (pkt.time_base.valid and pkt.time_base.num) \
+                else pkt.rescale_ts(st.time_base)
+            lo, hi, _ = self._pts_span or (p.pts, p.pts, 0)
+            self._pts_span = (min(lo, p.pts), max(hi, p.pts), p.duration)
+
+    def _fact_samples(self) -> int:
+        """wavenc.c's sample count: the packets' pts span and the last
+        duration, in samples; without pts, the data's blocks."""
+        par, st = self.streams[0].codecpar, self.streams[0]
+        if self._pts_span is None:
+            spb = par.frame_size or par.extra.get("samples_per_block", 1)
+            return self._data_bytes // self._block_align * spb
+        lo, hi, dur = self._pts_span
+        return rescale_q(hi - lo + dur, st.time_base,
+                         Rational(1, par.sample_rate))
 
     def write_trailer(self) -> None:
         io = self.io
@@ -314,5 +345,5 @@ class WavMuxer(Muxer):
             io.wl32(self._data_bytes)
             if self._fact_pos >= 0:
                 io.seek(self._fact_pos)
-                io.wl32(self._data_bytes // self._block_align)
+                io.wl32(self._fact_samples())
             io.seek(end)

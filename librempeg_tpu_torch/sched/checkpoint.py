@@ -4,11 +4,13 @@ Port of librempeg_tpu/sched/checkpoint.py. `snapshot` captures a
 running Transcoder between packets: the demuxer's resume position and
 its scalar attributes, and each chain's encoder fields, resampler carry
 and ditherer state; `restore` puts them into a fresh Transcoder made
-from the same spec. The snapshot carries no decoder state, so a video
-chain resumes exactly only where the next packet is a keyframe that
-opens a closed GOP (an H.264 IDR), and an AC-3 decode resumes as a
-fresh decoder, its overlap at zero and its dither generator at the
-seed, as after a -ss seek.
+from the same spec. The snapshot carries no decoder state but the
+start skip an MPEG audio decoder still has to drop (an MP3's LAME tag
+sets it on the packet at pts 0 only, so a resumed decode neither skips
+again nor forgets what is left), so a video chain resumes exactly only
+where the next packet is a keyframe that opens a closed GOP (an H.264
+IDR), and an AC-3 decode resumes as a fresh decoder, its overlap at
+zero and its dither generator at the seed, as after a -ss seek.
 
 The format is data only (a JSON tree and an npz bundle of arrays,
 loaded with allow_pickle=False), so restoring a tampered snapshot never
@@ -47,6 +49,9 @@ _UNCOVERED_ENCODERS = ("h264", "mpeg1video", "mpeg2video")
 _RESAMPLER_ATTRS = ("_buf", "_buf_start", "_next_origin", "_out_count",
                     "_total_in", "_keep")
 _DITHER_ATTRS = ("_pos", "_hp_last", "_err")
+#: decoder fields a snapshot carries (MPEG audio: the start skip of a
+#: LAME tag still to drop, which only the packet at pts 0 sets)
+_DECODER_ATTRS = ("_pending_skip",)
 
 
 def _encode(obj: Any, arrays: list) -> Any:
@@ -175,6 +180,10 @@ def snapshot(tc) -> bytes:
         if hasattr(chain, "sync"):
             chain.sync()
         state: dict[str, Any] = {"frames_done": chain.frames_done}
+        dec = getattr(chain, "decoder", None)
+        if dec is not None:
+            state["decoder"] = {a: getattr(dec, a) for a in _DECODER_ATTRS
+                                if hasattr(dec, a)}
         enc = getattr(chain, "encoder", None)
         if enc is not None:
             state["encoder"] = {a: getattr(enc, a) for a in _ENCODER_ATTRS
@@ -232,6 +241,9 @@ def restore(tc, blob: bytes) -> None:
         if chain is None:
             continue
         chain.frames_done = chst["frames_done"]
+        dec = getattr(chain, "decoder", None)
+        for attr, val in chst.get("decoder", {}).items():
+            setattr(dec, attr, val)
         enc = getattr(chain, "encoder", None)
         if enc is not None:
             for attr, val in chst.get("encoder", {}).items():

@@ -17,6 +17,8 @@ The decoder, on the JAX encoder's stream, must give the JAX decoder's
 samples within 1e-5 (the IMDCT is a float32 product; the rest is the
 same float64 host code; 1e-6 measured).
 """
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -210,3 +212,52 @@ def test_encoder_mid_stream_start_through_compat():
     assert bytes(tp[0].data) == bytes(jp[0].data)
     jb, tb = (sum(len(p.data) for p in pk) for pk in (jp, tp))
     assert same >= 0.4 * len(jp) and abs(tb - jb) <= 0.01 * jb
+
+
+def test_k5_jax_encoder_on_the_port_mdct_gives_the_port_packets(tmp_path):
+    """chip_smoke.py's K5 (the committed MP3 to AAC at 128 kb/s) in both
+    packages, the JAX MP3 decoder with the port's repairs
+    (tools/audio_jax_repair.py `mpegaudio_repaired`). Given the port's
+    MDCT values in place of its own, the JAX encoder writes the port's
+    217 packets byte for byte: its psy model, quantiser and rate control
+    are the port's, and the MDCT is all that differs. With its own
+    (XLA's float32 product) the rate control takes another path and
+    packets differ (62 measured), which is why K5's golden takes the
+    JAX encoder with an exact MDCT (`aac_mdct_exact`)."""
+    import types
+
+    from librempeg_tpu.cli import ffmpeg as JCLI
+    from librempeg_tpu.codecs.aac import codec as JAAC
+    from librempeg_tpu.ops import tx as JTX
+    from librempeg_tpu_torch.cli import ffmpeg as TCLI
+    from librempeg_tpu_torch.ops import tx as TTX
+    from tools.audio_jax_repair import mpegaudio_repaired
+
+    src = os.path.join(os.path.dirname(__file__), "data", "torch_port",
+                       "acodecs", "mp3.mp3")
+    args = ["-i", src, "-c:a", "aac", "-b:a", "128k"]
+
+    def packets(path):
+        d = TA.open_input(str(path))
+        out = [bytes(p.data) for p in d.packets()]
+        d.close()
+        return out
+
+    assert TCLI.main([*args, "-device", "cpu", "-y",
+                      str(tmp_path / "t.m4a")]) == 0
+
+    def port_mdct(x):
+        return TTX.mdct(torch.from_numpy(np.asarray(x, np.float32))).numpy()
+
+    plain = JAAC.tx
+    with mpegaudio_repaired():
+        assert JCLI.main([*args, "-y", str(tmp_path / "j.m4a")]) == 0
+        JAAC.tx = types.SimpleNamespace(**{**vars(JTX), "mdct": port_mdct})
+        try:
+            assert JCLI.main([*args, "-y", str(tmp_path / "jt.m4a")]) == 0
+        finally:
+            JAAC.tx = plain
+    t, jt, j = (packets(tmp_path / n) for n in ("t.m4a", "jt.m4a", "j.m4a"))
+    assert len(t) == len(j) == 217
+    assert jt == t
+    assert sum(a != b for a, b in zip(j, t)) > 0

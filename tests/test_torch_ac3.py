@@ -33,6 +33,7 @@ from librempeg_tpu_torch.codecs.api import find_encoder as tfind_enc
 from librempeg_tpu_torch.core.frame import AudioFrame as TFrame
 from librempeg_tpu_torch.formats.api import open_input_bytes
 from librempeg_tpu_torch.formats.api import open_output_bytes as tout_bytes
+from tools.audio_jax_repair import framemd5_repaired
 
 FRAME = 1536
 
@@ -140,5 +141,7 @@ def test_cli_encode_and_decode_match_jax(tmp_path):
                                (TCLI, "t.ac3", "t.md5", ["-device", "cpu"])):
         assert cli.main(["-i", str(tmp_path / src), "-f", "framemd5", *dev,
                          "-y", str(tmp_path / out)]) == 0
+    # libavformat's last framemd5 header line, which the JAX package
+    # leaves out (ROADMAP.md section 3b)
     assert (tmp_path / "t.md5").read_text() == \
-        (tmp_path / "j.md5").read_text()
+        framemd5_repaired((tmp_path / "j.md5").read_text())

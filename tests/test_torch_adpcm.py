@@ -27,6 +27,7 @@ from librempeg_tpu_torch.core.frame import AudioFrame as TFrame
 from librempeg_tpu_torch.core.packet import Packet as TPacket
 from librempeg_tpu_torch.formats.api import CodecParameters as TPar
 from librempeg_tpu_torch.utils import testgen
+from tools.audio_jax_repair import framemd5_repaired, wav_tags_repaired
 
 RATE = 44100
 
@@ -111,10 +112,14 @@ def test_cli_wav_matches_jax(tmp_path, codec):
         assert cli.main(["-i", str(tmp_path / f"{tag}.wav"), "-f",
                          "framemd5", *dev, "-y",
                          str(tmp_path / f"{tag}.md5")]) == 0
+    # the fact chunk and byte rate of libavformat's header, and its last
+    # framemd5 header line, which the JAX package leaves out (ROADMAP.md
+    # section 3b; the WAV header is held to libavformat's in
+    # test_torch_wav_tags.py)
     assert (tmp_path / "t.wav").read_bytes() == \
-        (tmp_path / "j.wav").read_bytes()
+        wav_tags_repaired((tmp_path / "j.wav").read_bytes())
     assert (tmp_path / "t.md5").read_text() == \
-        (tmp_path / "j.md5").read_text()
+        framemd5_repaired((tmp_path / "j.md5").read_text())
     d = TA.open_input(str(tmp_path / "t.wav"))
     assert d.streams[0].codecpar.codec_id == codec
     assert d.streams[0].duration >= x.shape[1]

@@ -35,6 +35,7 @@ from librempeg_tpu_torch.codecs.opus.codec import OpusDecoder as TOpus
 from librempeg_tpu_torch.core.packet import Packet as TPacket
 from librempeg_tpu_torch.formats.api import CodecParameters as TPar
 from librempeg_tpu_torch.formats.api import open_input as topen
+from tools.audio_jax_repair import framemd5_repaired
 
 HERE = os.path.dirname(__file__)
 FX = os.path.join(HERE, "data", "torch_port", "acodecs")
@@ -135,4 +136,6 @@ def test_matroska_copy_matches_jax(tmp_path):
     mono, stereo = (f"#channel_layout_name 0: {n}\n"
                     for n in ("mono", "stereo"))
     assert mono in t and stereo in j
-    assert t.replace(mono, stereo) == j and t.count("\n") > 40
+    # and libavformat's last header line, which the JAX package leaves out
+    assert t.replace(mono, stereo) == framemd5_repaired(j) \
+        and t.count("\n") > 40

@@ -88,7 +88,16 @@ Runs the JAX package (the reference) on the CPU:
   CPU. K8 and K9 (libavcodec's E-AC-3 and 5.1 AC-3 streams) are decoded
   with libavcodec's dither patched into the JAX decoder
   (tools/ac3_jax_dither.py), which leaves zeros there (ROADMAP section
-  3b); the port's decoder gives those samples float for float.
+  3b); the port's decoder gives those samples float for float. K4, K5
+  and K6 run the JAX Vorbis and MPEG audio decoders with the port's
+  repairs (tools/audio_jax_repair.py: the Vorbis floor and end trim,
+  libavcodec's synthesis window without the 481-sample trim, the LAME
+  tag's gapless trim), and K7's WAV md5s are of the JAX file with
+  libavformat's fact chunk and byte rate put in.
+
+The framemd5 texts the goldens keep (--containers) carry libavformat's
+last header line, "#stream#, dts, ...", which the JAX muxer leaves out
+(tools/audio_jax_repair.py `framemd5_repaired`).
 
 Every MPEG-4 golden (the bench transcode, the options transcode, JPEG's
 B, F1, F2 and F4, the containers' V, H3, D2) comes from the JAX encoder
@@ -154,6 +163,13 @@ from librempeg_tpu.sched.pipeline import (  # noqa: E402
     StreamMap,
     TranscodeSpec,
     Transcoder,
+)
+from tools.audio_jax_repair import (  # noqa: E402
+    aac_mdct_exact,
+    framemd5_repaired,
+    mpegaudio_repaired,
+    vorbis_repaired,
+    wav_tags_repaired,
 )
 
 ASSET = os.path.join(REPO, "assets", "bench_1080p.264")
@@ -947,13 +963,13 @@ def containers_goldens() -> dict:
         for s in CS.CONT_SOURCES:
             r = jax_cli_run(cmd[f"D_{s}"])
             assert "error" not in r, r
-            text = open(cmd[f"D_{s}"][-1]).read()
+            text = framemd5_repaired(open(cmd[f"D_{s}"][-1]).read())
             assert [ln.split(", ")[-1] for ln in CS.md5_lines(text)[1]] \
                 == frames_md5, s
             gold["framemd5"][s] = text
             r = jax_cli_run(cmd[f"S_{s}"])
-            gold["seek"][s] = (None if "error" in r else
-                               open(cmd[f"S_{s}"][-1]).read())
+            gold["seek"][s] = (None if "error" in r else framemd5_repaired(
+                open(cmd[f"S_{s}"][-1]).read()))
             gold["seek_error"][s] = r.get("error")
         # MPEG-4 in MP4: VOP types, pts, sizes, recon PSNR, and the
         # decoded PSNR of the first VOPs against the encoder's input
@@ -1330,15 +1346,21 @@ def acodecs_goldens() -> dict:
                            "hybrid_hashes": [h for _, h in rows],
                            "hybrid_s16": wav_s16(hyb)})
 
-        # K4
-        ok(cmd["K4"])
+        # K4: the JAX Vorbis decoder with the port's floor repair and the
+        # end granule's trim
+        with vorbis_repaired():
+            ok(cmd["K4"])
         gold["k4"] = {"s16": wav_s16(cmd["K4"][-1])}
 
         # K5: SNR of the JAX decoder on the JAX stream against the
         # samples the JAX encoder took
+        # (the JAX MP3 decoder with libavcodec's window and the LAME
+        # tag's trim, the port's repairs; the AAC encoder's MDCT exact,
+        # tools/audio_jax_repair.py aac_mdct_exact)
         inputs = []
-        r = ok(cmd["K5"], on_input=lambda f: inputs.append(
-            np.asarray(f.data, np.float64)))
+        with mpegaudio_repaired(), aac_mdct_exact():
+            r = ok(cmd["K5"], on_input=lambda f: inputs.append(
+                np.asarray(f.data, np.float64)))
         ref = np.concatenate(inputs, 1)
         d = jopen(cmd["K5"][-1])
         adec = AacDecoder(d.streams[0].codecpar)
@@ -1349,17 +1371,20 @@ def acodecs_goldens() -> dict:
                       "bytes": sum(n for _, n in r["packets"]),
                       "snr_db": CS.snr_db(ref * 32768.0, decoded)}
 
-        # K6
+        # K6: the JAX MP2 decoder with libavcodec's window, untrimmed
         ok(cmd["K6"])
-        ok(cmd["K6D"])
+        with mpegaudio_repaired():
+            ok(cmd["K6D"])
         gold["k6"] = {"md5": md5(cmd["K6"][-1]),
                       "s16": wav_s16(cmd["K6D"][-1])}
 
-        # K7
+        # K7: the JAX WAV header with libavformat's fact chunk and byte
+        # rate, the port's repair
         for k in ("K7i", "K7m"):
             ok(cmd[k])
             ok(cmd[k + "D"])
-            gold[k.lower()] = {"md5": md5(cmd[k][-1]), "rows": [
+            raw = wav_tags_repaired(open(cmd[k][-1], "rb").read())
+            gold[k.lower()] = {"md5": hashlib.md5(raw).hexdigest(), "rows": [
                 list(r) for r in CS.framemd5_rows(cmd[k + "D"][-1])]}
 
         # K8, K9: libavcodec's E-AC-3 and 5.1 AC-3 streams, decoded with
